@@ -1,0 +1,474 @@
+"""CosyVoice2-style TTS: speech-token LM → flow matching → HiFi-GAN vocoder.
+
+The port of the JAX package's ``models/cosyvoice.py`` single-token native
+chain: ``build_prompt_embeddings``, RAS sampling and
+``generate_speech_tokens`` over the Qwen2 backbone; the DiT
+``flow_estimator`` and ``tokens_to_mel`` (Euler steps, batched CFG); the
+HiFi-GAN ``vocode`` whose narrow stages run the fused resblock kernel
+(``ops/cuda_vocoder.py``); and ``synthesize``.
+
+Randomness enters through a :class:`NoiseSource`: Gumbel noise for the two
+categorical draws of each RAS step (``categorical(logits) ==
+argmax(logits + gumbel)``) and the flow's x_0. :class:`GeneratorNoise` draws
+both from a ``torch.Generator``; tests inject the JAX key schedule's noise.
+
+Layouts: dense kernels [in, out]; vocoder conv kernels torch's
+[out, in, width] and conv-transpose kernels [in, out, width]
+(:func:`from_jax_params` converts from the JAX package's [width, in, out]).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Protocol, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops import cuda_vocoder
+from . import qwen2 as q2
+from .common import (AttnConfig, Init, Params, dense, layer_norm, merge_heads, mlp,
+                     split_heads, tree_from_numpy)
+
+
+# ===================================================================== noise
+
+
+class NoiseSource(Protocol):
+    def ras_gumbel(self, step: int, shape: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gumbel noise for RAS step ``step``: (nucleus draw, resample draw)."""
+
+    def flow_x0(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        """The flow's starting point x_0 ~ N(0, I)."""
+
+
+class GeneratorNoise:
+    """Both noises from one ``torch.Generator`` on the device of the run."""
+
+    def __init__(self, generator: torch.Generator):
+        self.gen = generator
+
+    def _gumbel(self, shape) -> torch.Tensor:
+        tiny = torch.finfo(torch.float32).tiny
+        u = torch.rand(shape, generator=self.gen, device=self.gen.device)
+        return -torch.log(-torch.log(u * (1.0 - tiny) + tiny))
+
+    def ras_gumbel(self, step, shape):
+        return self._gumbel(shape), self._gumbel(shape)
+
+    def flow_x0(self, shape):
+        return torch.randn(shape, generator=self.gen, device=self.gen.device)
+
+
+# ======================================================================== LM
+
+
+@dataclasses.dataclass(frozen=True)
+class SpeechLMConfig:
+    backbone: q2.Qwen2Config = dataclasses.field(default_factory=q2.Qwen2Config.qwen2_05b)
+    text_vocab: int = 151_936
+    speech_token_size: int = 6561
+    top_p: float = 0.8
+    top_k: int = 25
+    win_size: int = 10
+    tau_r: float = 0.1
+    max_tokens: int = 2048
+
+    @property
+    def eos_speech(self) -> int:
+        return self.speech_token_size
+
+    @property
+    def sos_index(self) -> int:
+        return self.speech_token_size + 1
+
+    @property
+    def task_index(self) -> int:
+        return self.speech_token_size + 2
+
+
+def build_prompt_embeddings(params: Params, cfg: SpeechLMConfig, text_tokens: torch.Tensor,
+                            text_mask: torch.Tensor, prompt_speech: torch.Tensor,
+                            prompt_speech_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[sos] text [task] prompt_speech`` embeddings, right-padded: valid
+    entries are compacted to a contiguous prefix per row by a stable sort on
+    the mask, so a text shorter than its bucket leaves no hole."""
+    b = text_tokens.shape[0]
+    emb_table = params["speech_embed"]
+    sos = emb_table[cfg.sos_index][None, None, :].expand(b, 1, -1)
+    task = emb_table[cfg.task_index][None, None, :].expand(b, 1, -1)
+    text_e = params["text_embed"][text_tokens.long()] * text_mask[..., None]
+    sp_e = emb_table[prompt_speech.long()] * prompt_speech_mask[..., None]
+    emb = torch.cat([sos, text_e, task, sp_e], dim=1)
+    ones = torch.ones((b, 1), dtype=torch.bool, device=emb.device)
+    mask = torch.cat([ones, text_mask, ones, prompt_speech_mask], dim=1)
+    order = torch.argsort((~mask).to(torch.int32), dim=1, stable=True)
+    emb = torch.take_along_dim(emb, order[..., None], dim=1)
+    mask = torch.take_along_dim(mask, order, dim=1)
+    return emb, mask
+
+
+def _ras_sample(logits: torch.Tensor, recent: torch.Tensor, cfg: SpeechLMConfig,
+                g1: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
+    """Repetition-aware sampling: a nucleus (top-k ∩ top-p) draw; when the
+    candidate's share of the trailing window is ≥ τ_r, a plain top-k draw
+    instead. logits [B, V]; recent [B, win]; g1/g2 Gumbel noise [B, k]."""
+    k_eff = min(cfg.top_k, logits.shape[-1])
+    topv, topi = torch.topk(logits, k_eff, dim=-1)
+    logp = torch.log_softmax(topv, dim=-1)
+    probs = torch.exp(logp)
+    csum = torch.cumsum(probs, dim=-1)
+    keep = (csum - probs) < cfg.top_p
+    nucleus = torch.where(keep, topv, -torch.inf)
+    cand_in_k = torch.argmax(g1.to(logits.dtype) + nucleus, dim=-1)
+    cand = topi.gather(1, cand_in_k[:, None])[:, 0]
+    rep = (recent == cand[:, None]).float().mean(dim=-1)
+    res_in_k = torch.argmax(g2.to(logits.dtype) + topv, dim=-1)
+    resampled = topi.gather(1, res_in_k[:, None])[:, 0]
+    return torch.where(rep >= cfg.tau_r, resampled, cand).to(torch.int32)
+
+
+def _mask_control_logits(logits: torch.Tensor, cfg: SpeechLMConfig, step: int,
+                         min_new_tokens: int) -> torch.Tensor:
+    """Forbid the sos/task control tokens always and EOS before
+    ``min_new_tokens``."""
+    neg = torch.finfo(logits.dtype).min
+    logits = logits.clone()
+    logits[:, cfg.sos_index] = neg
+    logits[:, cfg.task_index] = neg
+    if step < min_new_tokens:
+        logits[:, cfg.eos_speech] = neg
+    return logits
+
+
+def _sample_next(params: Params, cfg: SpeechLMConfig, noise: NoiseSource, h: torch.Tensor,
+                 recent: torch.Tensor, done: torch.Tensor, step: int, min_new_tokens: int):
+    """One single-token decode sample. h [B, 1, H] → (nxt [B], recent, done)."""
+    logits = _mask_control_logits(dense(params["head"], h[:, 0, :]), cfg, step, min_new_tokens)
+    k_eff = min(cfg.top_k, logits.shape[-1])
+    g1, g2 = noise.ras_gumbel(step, (logits.shape[0], k_eff))
+    nxt = _ras_sample(logits, recent, cfg, g1, g2)
+    nxt = torch.where(done, cfg.eos_speech, nxt)
+    recent = torch.cat([recent[:, 1:], nxt[:, None]], dim=1)
+    return nxt, recent, done | (nxt == cfg.eos_speech)
+
+
+def generate_speech_tokens(params: Params, cfg: SpeechLMConfig, noise: NoiseSource,
+                           text_tokens: torch.Tensor, text_mask: torch.Tensor,
+                           prompt_speech: torch.Tensor, prompt_speech_mask: torch.Tensor, *,
+                           max_new_tokens: int = 512, min_new_tokens: int = 2):
+    """Autoregressive speech tokens with RAS sampling → (tokens
+    [B, max_new_tokens] int32 padded with EOS, lengths [B])."""
+    emb, mask = build_prompt_embeddings(params, cfg, text_tokens, text_mask,
+                                        prompt_speech, prompt_speech_mask)
+    b, p_len, _ = emb.shape
+    dev = emb.device
+    cache = q2.init_kv_cache(cfg.backbone, b, p_len + max_new_tokens, emb.dtype, dev)
+    hidden = q2.prefill(params["backbone"], cfg.backbone, emb, cache, length_mask=mask)
+    last_idx = mask.to(torch.int64).sum(dim=1) - 1
+    h = torch.take_along_dim(hidden, last_idx[:, None, None], dim=1)
+    tokens = torch.full((b, max_new_tokens), cfg.eos_speech, dtype=torch.int32, device=dev)
+    recent = torch.full((b, cfg.win_size), -1, dtype=torch.int32, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    for i in range(max_new_tokens):
+        nxt, recent, done = _sample_next(params, cfg, noise, h, recent, done, i, min_new_tokens)
+        tokens[:, i] = nxt
+        if i == max_new_tokens - 1 or bool(done.all()):
+            break
+        # the cache slot is the shared p_len + i; each row attends to its
+        # valid prompt K/V only and rotates at its true continuation position
+        h = q2.decode_step(params["backbone"], cfg.backbone,
+                           params["speech_embed"][nxt.long()][:, None, :], p_len + i, cache,
+                           rope_pos=last_idx + 1 + i, prompt_len=last_idx + 1,
+                           prompt_capacity=p_len)
+    lengths = (tokens != cfg.eos_speech).to(torch.int32).sum(dim=1)
+    return tokens, lengths
+
+
+# ============================================================ flow matching
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowConfig:
+    token_vocab: int = 6561 + 3
+    dim: int = 512
+    layers: int = 6
+    heads: int = 8
+    n_mels: int = 80
+    token_mel_ratio: int = 2
+    spk_embed_dim: int = 192
+    n_steps: int = 10
+    cfg_rate: float = 0.7
+    sigma_min: float = 1e-6
+
+
+def _time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal flow-time embedding. t [B] in [0, 1] → [B, dim] (f32)."""
+    half = dim // 2
+    freqs = torch.exp(-np.float32(np.log(10000.0))
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    ang = t.float()[:, None] * freqs[None, :] * 1000.0
+    return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+def _flow_rope(t_frames: int, head_dim: int, dtype, device):
+    inv = 1.0 / (10_000.0 ** (np.arange(0, head_dim, 2) / head_dim))
+    fr = np.outer(np.arange(t_frames), inv)
+    emb = np.concatenate([fr, fr], axis=-1)
+    return (torch.as_tensor(np.cos(emb).astype(np.float32), device=device).to(dtype),
+            torch.as_tensor(np.sin(emb).astype(np.float32), device=device).to(dtype))
+
+
+def _flow_rope_mha(p: Params, heads: int, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Self-attention with RoPE on q/k: the estimator's only temporal signal."""
+    head_dim = x.shape[-1] // heads
+    cos, sin = _flow_rope(x.shape[1], head_dim, x.dtype, x.device)
+    q = q2.apply_rope(split_heads(dense(p["q"], x), heads), cos, sin)
+    k = q2.apply_rope(split_heads(dense(p["k"], x), heads), cos, sin)
+    v = split_heads(dense(p["v"], x), heads)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * (head_dim ** -0.5), k)
+    logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+    w = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+    return dense(p["o"], merge_heads(torch.einsum("bhqk,bkhd->bqhd", w, v)))
+
+
+def flow_estimator(params: Params, cfg: FlowConfig, x_t: torch.Tensor, t: torch.Tensor,
+                   token_cond: torch.Tensor, spk: torch.Tensor, mel_cond: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """DiT estimator v(x_t, t | tokens, speaker, prompt mel) → [B, T, n_mels]."""
+    h = dense(params["in_proj"], torch.cat([x_t, mel_cond], dim=-1))
+    h = h + token_cond + dense(params["spk_proj"], spk)[:, None, :]
+    temb = mlp(params["time_mlp"], _time_embedding(t, cfg.dim).to(h.dtype))
+    attn_mask = mask[:, None, None, :]
+    for blk in params["blocks"]:
+        mod = dense(blk["ada"], F.silu(temb))[:, None, :]
+        s1, b1, g1, s2, b2, g2 = torch.chunk(mod, 6, dim=-1)
+        a_in = layer_norm(blk["ln1"], h) * (1 + s1) + b1
+        h = h + g1 * _flow_rope_mha(blk["attn"], cfg.heads, a_in, attn_mask)
+        m_in = layer_norm(blk["ln2"], h) * (1 + s2) + b2
+        h = h + g2 * mlp(blk["mlp"], m_in)
+    return dense(params["out_proj"], layer_norm(params["ln_out"], h)) * mask[..., None]
+
+
+def tokens_to_mel(params: Params, cfg: FlowConfig, noise: NoiseSource,
+                  speech_tokens: torch.Tensor, token_mask: torch.Tensor,
+                  spk_embedding: torch.Tensor, prompt_mel: torch.Tensor,
+                  prompt_mel_mask: torch.Tensor, prompt_tokens: Optional[torch.Tensor] = None,
+                  prompt_token_mask: Optional[torch.Tensor] = None):
+    """OT-CFM inference: Euler-integrate dx/dt = v(x, t | c) from x_0 ~ N(0, I)
+    with batched classifier-free guidance. The prompt mel (and its tokens)
+    condition the first frames. Returns (mel [B, T_prompt + r T_tok, n_mels],
+    frame_mask)."""
+    b, t_tok = speech_tokens.shape
+    r = cfg.token_mel_ratio
+    tok = params["token_embed"][speech_tokens.long()] * token_mask[..., None]
+    up = torch.repeat_interleave(tok, r, dim=1)
+    up_mask = torch.repeat_interleave(token_mask, r, dim=1)
+    t_prompt = prompt_mel.shape[1]
+    if prompt_tokens is not None:
+        ptok = params["token_embed"][prompt_tokens.long()] * prompt_token_mask[..., None]
+        pup = torch.repeat_interleave(ptok, r, dim=1)
+        if pup.shape[1] < t_prompt:
+            pup = F.pad(pup, (0, 0, 0, t_prompt - pup.shape[1]))
+        else:
+            pup = pup[:, :t_prompt]
+        prompt_cond = pup * prompt_mel_mask[..., None]
+    else:
+        prompt_cond = torch.zeros((b, t_prompt, cfg.dim), dtype=up.dtype, device=up.device)
+    token_cond = torch.cat([prompt_cond, up], dim=1)
+    frame_mask = torch.cat([prompt_mel_mask, up_mask], dim=1)
+    total_frames = t_prompt + r * t_tok
+    mel_cond = torch.cat([prompt_mel * prompt_mel_mask[..., None],
+                          torch.zeros((b, r * t_tok, cfg.n_mels), dtype=prompt_mel.dtype,
+                                      device=prompt_mel.device)], dim=1)
+    x = noise.flow_x0((b, total_frames, cfg.n_mels)).to(prompt_mel.dtype)
+    dt = 1.0 / cfg.n_steps
+    if cfg.cfg_rate > 0:
+        token_cond2 = torch.cat([token_cond, torch.zeros_like(token_cond)])
+        spk2 = torch.cat([spk_embedding, torch.zeros_like(spk_embedding)])
+        mel_cond2 = torch.cat([mel_cond, torch.zeros_like(mel_cond)])
+        mask2 = torch.cat([frame_mask, frame_mask])
+    for i in range(cfg.n_steps):
+        t = torch.full((b,), float(np.float32(i) * np.float32(dt)), dtype=x.dtype, device=x.device)
+        if cfg.cfg_rate > 0:
+            v2 = flow_estimator(params, cfg, torch.cat([x, x]), torch.cat([t, t]),
+                                token_cond2, spk2, mel_cond2, mask2)
+            v = (1 + cfg.cfg_rate) * v2[:b] - cfg.cfg_rate * v2[b:]
+        else:
+            v = flow_estimator(params, cfg, x, t, token_cond, spk_embedding, mel_cond, frame_mask)
+        x = (x + dt * v).to(x.dtype)
+    return x * frame_mask[..., None], frame_mask
+
+
+# ================================================================== vocoder
+
+
+@dataclasses.dataclass(frozen=True)
+class VocoderConfig:
+    n_mels: int = 80
+    base_channels: int = 512
+    upsample_rates: Tuple[int, ...] = (8, 6, 10)     # 480 = 24 kHz / 50 Hz frames
+    upsample_kernels: Tuple[int, ...] = (16, 12, 20)
+    resblock_kernels: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilations: Tuple[Tuple[int, ...], ...] = ((1, 3, 5),) * 3
+
+    @property
+    def hop(self) -> int:
+        out = 1
+        for r in self.upsample_rates:
+            out *= r
+        return out
+
+
+def _lrelu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.1)
+
+
+def _conv1d(p: Params, x: torch.Tensor, *, dilation: int = 1) -> torch.Tensor:
+    """'same' conv on [B, C, T]; x is cast to the kernel's dtype first."""
+    width = p["kernel"].shape[-1]
+    return F.conv1d(x.to(p["kernel"].dtype), p["kernel"], p["bias"],
+                    padding=dilation * (width - 1) // 2, dilation=dilation)
+
+
+def _conv_transpose1d(p: Params, x: torch.Tensor, stride: int) -> torch.Tensor:
+    """torch ConvTranspose1d(stride=s, padding=(k−s)//2) trimmed to
+    in_len × s, the JAX package's asymmetric padding (HiFi-GAN's length
+    contract)."""
+    width = p["kernel"].shape[-1]
+    y = F.conv_transpose1d(x, p["kernel"], p["bias"], stride=stride,
+                           padding=(width - stride) // 2)
+    return y[..., : x.shape[-1] * stride]
+
+
+def vocode(params: Params, cfg: VocoderConfig, mel: torch.Tensor) -> torch.Tensor:
+    """mel [B, T, n_mels] → waveform [B, T * hop] at 24 kHz. Stages with
+    C ≤ 128 and C % 8 == 0 run the fused resblock kernel."""
+    x = _conv1d(params["conv_pre"], mel.transpose(1, 2))
+    for up, stage, rate in zip(params["ups"], params["res"], cfg.upsample_rates):
+        x = _conv_transpose1d(up, _lrelu(x), rate)
+        ch = x.shape[1]
+        if ch <= 128 and ch % 8 == 0:
+            weights = cuda_vocoder.stage_weights_flat(stage, cfg.resblock_kernels,
+                                                      cfg.resblock_dilations)
+            x = cuda_vocoder.fused_resblock_stage(
+                x.transpose(1, 2), weights, kernels=tuple(cfg.resblock_kernels),
+                dilations=tuple(tuple(d) for d in cfg.resblock_dilations)).transpose(1, 2)
+            continue
+        acc = None
+        for block, dils in zip(stage, cfg.resblock_dilations):
+            h = x
+            for unit, d in zip(block, dils):
+                y = _conv1d(unit["c1"], _lrelu(h), dilation=d)
+                y = _conv1d(unit["c2"], _lrelu(y))
+                h = h + y
+            acc = h if acc is None else acc + h
+        x = acc / len(stage)
+    x = torch.tanh(_conv1d(params["conv_post"], _lrelu(x)))
+    return x[:, 0, :]
+
+
+# ============================================================== full model
+
+
+@dataclasses.dataclass(frozen=True)
+class CosyVoiceConfig:
+    lm: SpeechLMConfig = dataclasses.field(default_factory=SpeechLMConfig)
+    flow: FlowConfig = dataclasses.field(default_factory=FlowConfig)
+    vocoder: VocoderConfig = dataclasses.field(default_factory=VocoderConfig)
+    sample_rate: int = 24_000
+
+
+def init_cosyvoice(seed: int, cfg: CosyVoiceConfig, device) -> Params:
+    """Seeded random parameters (f32) on ``device``, the JAX init's shapes and
+    scales; adaLN modulation zero-initialised (adaLN-Zero)."""
+    r = Init(seed, device)
+    lm, fl, vc = cfg.lm, cfg.flow, cfg.vocoder
+    h = lm.backbone.hidden
+
+    def conv(width, in_ch, out_ch):
+        return {"kernel": r.uniform((out_ch, in_ch, width), 1.0 / np.sqrt(in_ch * width)),
+                "bias": r.zeros((out_ch,))}
+
+    ch = vc.base_channels
+    ups, res = [], []
+    for i, (rate, kw) in enumerate(zip(vc.upsample_rates, vc.upsample_kernels)):
+        in_ch, out_ch = ch // (2 ** i), ch // (2 ** (i + 1))
+        ups.append({"kernel": r.uniform((in_ch, out_ch, kw), 1.0 / np.sqrt(in_ch * kw)),
+                    "bias": r.zeros((out_ch,))})
+        res.append([[{"c1": conv(k, out_ch, out_ch), "c2": conv(k, out_ch, out_ch)}
+                     for _ in dils]
+                    for k, dils in zip(vc.resblock_kernels, vc.resblock_dilations)])
+    attn = AttnConfig(fl.dim, fl.heads, k_bias=True)
+    return {
+        "lm": {
+            "backbone": q2.init_qwen2(r, lm.backbone),
+            "text_embed": r.normal((lm.text_vocab, h), 0.02),
+            "speech_embed": r.normal((lm.speech_token_size + 3, h), 0.02),
+            "head": r.dense(h, lm.speech_token_size + 3),
+        },
+        "flow": {
+            "token_embed": r.normal((fl.token_vocab, fl.dim), 0.02),
+            "spk_proj": r.dense(fl.spk_embed_dim, fl.dim),
+            "in_proj": r.dense(fl.n_mels * 2, fl.dim),
+            "time_mlp": r.mlp(fl.dim, fl.dim),
+            "blocks": [{"ln1": r.layer_norm(fl.dim), "attn": r.attention(attn),
+                        "ln2": r.layer_norm(fl.dim), "mlp": r.mlp(fl.dim, fl.dim * 4),
+                        "ada": {"kernel": r.zeros((fl.dim, 6 * fl.dim)),
+                                "bias": r.zeros((6 * fl.dim,))}}
+                       for _ in range(fl.layers)],
+            "ln_out": r.layer_norm(fl.dim),
+            "out_proj": r.dense(fl.dim, fl.n_mels),
+        },
+        "vocoder": {
+            "conv_pre": conv(7, vc.n_mels, ch),
+            "ups": ups,
+            "res": res,
+            "conv_post": conv(7, ch // (2 ** len(vc.upsample_rates)), 1),
+        },
+    }
+
+
+def from_jax_params(tree, device, dtype=torch.float32) -> Params:
+    """The JAX package's cosyvoice parameter tree → the port's: vocoder conv
+    kernels [width, in, out] → [out, in, width], conv-transpose kernels →
+    [in, out, width]; everything else keeps its layout."""
+    p = tree_from_numpy(tree, device, dtype)
+    voc = p["vocoder"]
+
+    def conv(c):
+        c["kernel"] = c["kernel"].permute(2, 1, 0).contiguous()
+
+    conv(voc["conv_pre"])
+    conv(voc["conv_post"])
+    for up in voc["ups"]:
+        up["kernel"] = up["kernel"].permute(1, 2, 0).contiguous()
+    for stage in voc["res"]:
+        for block in stage:
+            for unit in block:
+                conv(unit["c1"])
+                conv(unit["c2"])
+    return p
+
+
+def synthesize(params: Params, cfg: CosyVoiceConfig, noise: NoiseSource,
+               text_tokens: torch.Tensor, text_mask: torch.Tensor,
+               prompt_speech_tokens: torch.Tensor, prompt_speech_mask: torch.Tensor,
+               spk_embedding: torch.Tensor, prompt_mel: torch.Tensor,
+               prompt_mel_mask: torch.Tensor, *, max_new_tokens: int = 512,
+               min_new_tokens: int = 2) -> Dict[str, torch.Tensor]:
+    """Text + voice prompt → 24 kHz waveform of the new speech only
+    ({"audio", "mel", "speech_tokens", "token_lengths"})."""
+    tokens, lengths = generate_speech_tokens(
+        params["lm"], cfg.lm, noise, text_tokens, text_mask, prompt_speech_tokens,
+        prompt_speech_mask, max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens)
+    token_mask = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < lengths[:, None]
+    safe_tokens = torch.where(token_mask, tokens, 0)
+    mel, _ = tokens_to_mel(
+        params["flow"], cfg.flow, noise, safe_tokens, token_mask, spk_embedding, prompt_mel,
+        prompt_mel_mask, prompt_tokens=torch.where(prompt_speech_mask, prompt_speech_tokens, 0),
+        prompt_token_mask=prompt_speech_mask)
+    gen_mel = mel[:, prompt_mel.shape[1]:]
+    audio = vocode(params["vocoder"], cfg.vocoder, gen_mel)
+    return {"audio": audio, "mel": gen_mel, "speech_tokens": tokens, "token_lengths": lengths}

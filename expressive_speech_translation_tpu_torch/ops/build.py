@@ -1,0 +1,105 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled for
+``sm_90a`` into ``_build/lib<name>-<hash of the source>.so`` the first time a
+kernel is needed (or by :func:`build` up front, all sources at once), so a
+changed source never loads a stale library. Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+KERNELS = ("log_mel", "resblock")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, then ``nvcc`` on PATH, then
+    ``/usr/local/cuda/bin/nvcc``. Raises when there is none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       f"{CSRC_DIR} at first use and need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
+    """Compile every named source that has no library yet, one nvcc process
+    per source, all started together. Returns {name: {"seconds", "log"}}
+    ("log" holds ptxas's register and shared-memory report). Raises with the
+    compiler's output when a build fails."""
+    names = list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in names if not library_path(n).exists()]
+    report = {n: {"seconds": 0.0, "log": "already built"} for n in names if n not in todo}
+    if not todo:
+        return report
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True), tmp)
+    failures = []
+    for n, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{n}.cu:\n{log}")
+            os.unlink(tmp)
+            continue
+        os.replace(tmp, library_path(n))
+        report[n] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            _loaded[name] = lib
+        return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise when a kernel's C entry point returned a CUDA error."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")

@@ -1,0 +1,155 @@
+"""CascadedBackend — the ASR → NMT → TTS pipeline over the port's engines.
+
+Port of the JAX package's ``pipeline/cascaded.py`` ``initialize``,
+``translate_speech``, ``translate_text``, ``extract_pauses``,
+``reference_audio_for_cloning`` and the natural-flow temporal mapping:
+ASR with word timestamps, NMT, TTS (cloning the source voice unless
+``use_voice_cloning=False``), host resampling to 16 kHz, temporal mapping onto
+the source's timing, and loudness toward -23 LUFS. Engines stay resident;
+stage boundaries are in-process arrays.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Dict, List
+
+import numpy as np
+
+from ..core.errors import ValidationError
+from ..obs.perf import StageTimer
+from ..ops.host_dsp import loudness_normalize_np, resample_np
+from .engines import Engines
+from .languages import COSYVOICE_LANGUAGES, NLLB_LANGUAGES
+from .temporal_mapper import TemporalMapper
+
+log = logging.getLogger(__name__)
+
+PAUSE_THRESHOLD_SECONDS = 0.25
+CLONE_REFERENCE_SECONDS = 25.0
+TARGET_LUFS = -23.0
+
+
+class CascadedBackend:
+    def __init__(self, engines: Engines):
+        self.engines = engines
+        self.temporal_mapper = TemporalMapper()
+        self.initialized = False
+        self.last_stage_summary: Dict[str, Any] = {}
+
+    def initialize(self) -> None:
+        """Warm-up: 1 s of silence through ASR, a short sentence through NMT
+        and TTS. TTS warms without a reference: voice-prompt conditioning is
+        not ported yet."""
+        silence = np.zeros(16_000, np.float32)
+        self.engines.asr.transcribe(silence, language="eng")
+        self.engines.nmt.translate("Hello world.", "eng", "fra")
+        self.engines.tts.synthesize("Hello world.", reference_audio_16k=None)
+        self.initialized = True
+        log.info("CascadedBackend initialized")
+
+    def is_language_supported(self, lang: str) -> bool:
+        return lang in COSYVOICE_LANGUAGES and lang in NLLB_LANGUAGES
+
+    @staticmethod
+    def extract_pauses(words: List[Dict[str, float]]) -> List[Dict[str, float]]:
+        """Inter-word pauses > 250 ms."""
+        pauses = []
+        for prev, cur in zip(words, words[1:]):
+            gap = float(cur["start"]) - float(prev["end"])
+            if gap > PAUSE_THRESHOLD_SECONDS:
+                pauses.append({"start": float(prev["end"]), "end": float(cur["start"]),
+                               "duration": gap})
+        return pauses
+
+    def reference_audio_for_cloning(self, audio_16k: np.ndarray) -> np.ndarray:
+        """The first ≤ 25 s of the source."""
+        n = int(CLONE_REFERENCE_SECONDS * 16_000)
+        return np.asarray(audio_16k, np.float32).reshape(-1)[:n]
+
+    def translate_speech(self, audio: np.ndarray, source_lang: str, target_lang: str, *,
+                         use_voice_cloning: bool = True) -> Dict[str, Any]:
+        """16 kHz speech → {"audio": [1, T] f32 at 16 kHz, "transcripts":
+        {"source", "target"}, "process_id", "stage_summary"}.
+        ``use_voice_cloning=False`` synthesizes without the source-audio
+        reference."""
+        process_id = f"{time.time_ns():x}"[-8:]
+        if not self.is_language_supported(target_lang):
+            raise ValidationError(f"Unsupported target language: {target_lang}")
+        if not self.is_language_supported(source_lang):
+            raise ValidationError(f"Unsupported source language: {source_lang}")
+        x = np.asarray(audio, np.float32).reshape(-1)
+        timer = StageTimer(audio_seconds=len(x) / 16_000.0)
+        log.info("[%s] translate_speech %s→%s (%.1fs audio)", process_id, source_lang,
+                 target_lang, timer.audio_seconds)
+
+        with timer.stage("asr"):
+            asr = self.engines.asr.transcribe(x, language=source_lang)
+        source_text = asr.get("text", "")
+        words = asr.get("words", [])
+
+        with timer.stage("nmt"):
+            target_text = self.engines.nmt.translate(
+                source_text, NLLB_LANGUAGES.get(source_lang, source_lang),
+                NLLB_LANGUAGES.get(target_lang, target_lang))
+        # an empty translation fails only when an engine declares real weights
+        if not target_text.strip() and getattr(self.engines.nmt, "weightless", True) is False:
+            raise RuntimeError("Translation result was empty.")
+
+        reference = self.reference_audio_for_cloning(x) if use_voice_cloning else None
+        with timer.stage("tts"):
+            tts_audio = self.engines.tts.synthesize(
+                target_text, style_prompt=source_text, reference_audio_16k=reference,
+                language=COSYVOICE_LANGUAGES.get(target_lang, "en"))
+        tts_sr = getattr(self.engines.tts, "sample_rate", 24_000)
+        if tts_sr != 16_000:
+            tts_audio = resample_np(np.asarray(tts_audio), tts_sr, 16_000)
+
+        with timer.stage("post"):
+            out = self._apply_natural_temporal_mapping(tts_audio, x, words)
+            out = loudness_normalize_np(out, TARGET_LUFS)
+
+        self.last_stage_summary = timer.summary()
+        log.info("[%s] done: %s", process_id,
+                 {k: round(v["xrt"], 4) for k, v in self.last_stage_summary.items()})
+        return {"audio": out.reshape(1, -1).astype(np.float32),
+                "transcripts": {"source": source_text, "target": target_text},
+                "process_id": process_id,
+                "stage_summary": self.last_stage_summary}
+
+    def translate_text(self, text: str, source_lang: str, target_lang: str, *,
+                       synthesize: bool = False) -> Dict[str, Any]:
+        """text → NLLB → optional TTS: {"source_text", "target_text"} plus
+        {"audio" [1, T] at 16 kHz} when ``synthesize``."""
+        if not text.strip():
+            raise ValidationError("text is required")
+        if not self.is_language_supported(target_lang):
+            raise ValidationError(f"Unsupported target language: {target_lang}")
+        target_text = self.engines.nmt.translate(
+            text, NLLB_LANGUAGES.get(source_lang, source_lang),
+            NLLB_LANGUAGES.get(target_lang, target_lang))
+        if not target_text.strip() and getattr(self.engines.nmt, "weightless", True) is False:
+            raise RuntimeError("Translation result was empty.")
+        out: Dict[str, Any] = {"source_text": text, "target_text": target_text}
+        if synthesize:
+            wave = self.engines.tts.synthesize(
+                target_text, language=COSYVOICE_LANGUAGES.get(target_lang, "en"))
+            wave = np.asarray(wave, np.float32).reshape(-1)
+            tts_sr = getattr(self.engines.tts, "sample_rate", 24_000)
+            if tts_sr != 16_000:
+                wave = resample_np(wave, tts_sr, 16_000)
+            out["audio"] = wave.reshape(1, -1).astype(np.float32)
+        return out
+
+    def _apply_natural_temporal_mapping(self, translated: np.ndarray, source: np.ndarray,
+                                        words: List[Dict[str, float]]) -> np.ndarray:
+        """Map the translation onto the source's timing (pauses come from the
+        word timestamps inside the timing profile). Best effort: on failure
+        the audio is returned unmapped."""
+        try:
+            profile = self.temporal_mapper.timing_profile(source, words or None)
+            return self.temporal_mapper.apply_temporal_guidance(translated, source, profile)
+        except Exception:  # noqa: BLE001 — temporal mapping never fails the request
+            log.exception("temporal mapping failed; returning unmapped audio")
+            return np.asarray(translated, np.float32).reshape(-1)

@@ -1,0 +1,71 @@
+"""Language code tables (host copy of the JAX package's
+pipeline/languages.py): app code → CosyVoice short code, → NLLB FLORES-200
+code, and Whisper language-token positions."""
+
+from __future__ import annotations
+
+# app code (ISO 639-3-ish) → CosyVoice/gTTS-style short code
+COSYVOICE_LANGUAGES = {
+    "eng": "en", "fra": "fr", "deu": "de", "spa": "es", "ita": "it",
+    "por": "pt", "pol": "pl", "tur": "tr", "rus": "ru", "nld": "nl",
+    "ces": "cs", "arb": "ar", "cmn": "zh", "jpn": "ja", "hun": "hu",
+    "kor": "ko", "hin": "hi", "ell": "el",
+}
+
+# app code → NLLB-200 (FLORES-200) code
+NLLB_LANGUAGES = {
+    "eng": "eng_Latn", "fra": "fra_Latn", "deu": "deu_Latn", "spa": "spa_Latn",
+    "ita": "ita_Latn", "por": "por_Latn", "pol": "pol_Latn", "tur": "tur_Latn",
+    "rus": "rus_Cyrl", "nld": "nld_Latn", "ces": "ces_Latn", "arb": "arb_Arab",
+    "cmn": "zho_Hans", "jpn": "jpn_Jpan", "hun": "hun_Latn", "kor": "kor_Hang",
+    "hin": "hin_Deva", "ell": "ell_Grek", "ukr": "ukr_Cyrl",
+}
+
+# whisper short codes in language-token order (<|en|> is the first)
+_WHISPER_LANG_ORDER = [
+    "en", "zh", "de", "es", "ru", "ko", "fr", "ja", "pt", "tr", "pl", "ca",
+    "nl", "ar", "sv", "it", "id", "hi", "fi", "vi", "he", "uk", "el", "ms",
+    "cs", "ro", "da", "hu", "ta", "no", "th", "ur", "hr", "bg", "lt", "la",
+    "mi", "ml", "cy", "sk", "te", "fa", "lv", "bn", "sr", "az", "sl", "kn",
+    "et", "mk", "br", "eu", "is", "hy", "ne", "mn", "bs", "kk", "sq", "sw",
+    "gl", "mr", "pa", "si", "km", "sn", "yo", "so", "af", "oc", "ka", "be",
+    "tg", "sd", "gu", "am", "yi", "lo", "uz", "fo", "ht", "ps", "tk", "nn",
+    "mt", "sa", "lb", "my", "bo", "tl", "mg", "as", "tt", "haw", "ln", "ha",
+    "ba", "jw", "su",
+]
+
+_APP_TO_WHISPER = {
+    "eng": "en", "fra": "fr", "deu": "de", "spa": "es", "ita": "it",
+    "por": "pt", "pol": "pl", "tur": "tr", "rus": "ru", "nld": "nl",
+    "ces": "cs", "arb": "ar", "cmn": "zh", "jpn": "ja", "hun": "hu",
+    "kor": "ko", "hin": "hi", "ell": "el", "ukr": "uk",
+}
+
+
+def whisper_lang_index(code: str) -> int:
+    """Position of the language inside whisper's 99-token language block —
+    combine with ``cfg.lang_token_start`` so non-standard vocab layouts (tiny
+    parity-test models) resolve the right token.
+
+    Accepts an app code ("ukr") or a whisper short code ("uk"), so a language
+    outside the app table keeps its own prompt."""
+    return _WHISPER_LANG_ORDER.index(_APP_TO_WHISPER.get(code, code))
+
+
+def nllb_placeholder_lang_ids(vocab_size: int) -> dict[str, int]:
+    """Deterministic weightless-mode language-token ids.
+
+    Real NLLB places language tokens at the top of the vocab (256001+); this
+    mirrors that layout inside an arbitrary toy vocab with a FIXED table
+    (sorted app codes → descending ids from vocab end), so forced-BOS ids are
+    stable across processes/restarts — unlike Python ``hash()``, which is
+    salted per process. Both app codes and FLORES codes resolve.
+    """
+    apps = sorted(NLLB_LANGUAGES)
+    base = max(vocab_size - 1 - len(apps), 0)
+    out: dict[str, int] = {}
+    for i, app in enumerate(apps):
+        tid = min(base + 1 + i, vocab_size - 1)
+        out[app] = tid
+        out[NLLB_LANGUAGES[app]] = tid
+    return out

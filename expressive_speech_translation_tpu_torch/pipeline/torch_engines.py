@@ -1,0 +1,458 @@
+"""The stage engines backed by the port's models, on the card by default.
+
+Port of the JAX package's ``pipeline/jax_engines.py`` single-request path:
+
+- :class:`TorchWhisperAsr` — fused log-mel kernel → Whisper encode + KV-cached
+  decode with context buckets, the temperature-fallback ladder and its gates,
+  ``condition_on_previous_text``, SuppressBlank, and DTW word timestamps;
+- :class:`TorchNllbNmt` — NLLB greedy generate with the forced target-language
+  BOS over bucketed source lengths;
+- :class:`TorchCosyVoiceTts` — CosyVoice synthesis without a voice prompt.
+
+Without checkpoints every model runs on seeded random weights ("weightless"),
+as the JAX engines do. Voice-prompt conditioning (ECAPA speaker embedding,
+kaldi fbank prompt mel, FSQ prompt speech tokens) is not ported yet:
+synthesis with a usable reference raises instead of dropping the cloning.
+"""
+
+from __future__ import annotations
+
+import logging
+import zlib
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..models import cosyvoice as cvm
+from ..models import nllb as nlm
+from ..models import qwen2 as q2
+from ..models import whisper as wm
+from ..models.common import cast_floats
+from ..ops.cuda_mel import whisper_log_mel_fused
+from .engines import Engines
+from .languages import NLLB_LANGUAGES, nllb_placeholder_lang_ids, whisper_lang_index
+from .tokenizer import ByteTokenizer, Tokenizer
+
+log = logging.getLogger(__name__)
+
+TEXT_BUCKETS = (16, 32, 64, 128, 256)
+TTS_BUDGET_BUCKETS = (64, 128, 256, 512, 768)
+
+
+def _bucket_size(n: int, buckets) -> int:
+    """Smallest bucket ≥ n; keeps doubling above the top bucket."""
+    for b in buckets:
+        if n <= b:
+            return b
+    b = buckets[-1]
+    while b < n:
+        b *= 2
+    return b
+
+
+def _bucket_capped(n: int, buckets) -> int:
+    """Smallest bucket ≥ n, clamped to the top bucket (only for budgets with
+    an intended ceiling)."""
+    return min(_bucket_size(n, buckets), buckets[-1])
+
+
+def _fit_vocab(ids, vocab_size: int, weightless: bool, label: str) -> np.ndarray:
+    """Random-weight mode may wrap ids into the toy vocab; a real config must
+    never silently corrupt tokenizer output."""
+    arr = np.asarray(ids, np.int32)
+    if weightless:
+        return arr % vocab_size
+    if arr.size and int(arr.max()) >= vocab_size:
+        raise ValueError(f"{label} token id {int(arr.max())} out of range for vocab "
+                         f"{vocab_size} — tokenizer/config mismatch")
+    return arr
+
+
+# ========================================================================= ASR
+
+
+class TorchWhisperAsr:
+    """ASR engine: fused log-mel kernel → Whisper decode with alignments."""
+
+    def __init__(
+        self,
+        cfg: Optional[wm.WhisperConfig] = None,
+        params=None,
+        tokenizer: Optional[Tokenizer] = None,
+        *,
+        device=None,
+        dtype=torch.bfloat16,
+        max_new_tokens: int = 224,
+        context_buckets: tuple = (30,),
+        temperatures: Optional[tuple] = None,
+        compression_ratio_threshold: float = 2.4,
+        logprob_threshold: float = -1.0,
+        no_speech_threshold: float = 0.6,
+        suppress_tokens: tuple = (),
+        suppress_blank: bool = True,
+        condition_on_previous_text: bool = True,
+    ):
+        """``context_buckets``: encoder windows in seconds (even, ascending,
+        at most 30); an utterance chunk is padded to the smallest that holds
+        it. ``temperatures``: the fallback ladder; random weights always fail
+        the logprob gate, so weightless mode defaults to greedy only."""
+        self.device = resolve_device(device)
+        self.cfg = cfg or wm.WhisperConfig(d_model=512, encoder_layers=6, decoder_layers=6,
+                                           heads=8, ffn_dim=2048)
+        self.weightless = params is None
+        if params is None:
+            log.warning("TorchWhisperAsr: random weights (no checkpoint supplied)")
+            params = wm.init_whisper(0, self.cfg, self.device)
+        self.params = cast_floats(params, dtype)
+        self.dtype = dtype
+        self.tokenizer = tokenizer or ByteTokenizer()
+        self.max_new_tokens = max_new_tokens
+        buckets = tuple(sorted(int(b) for b in context_buckets))
+        if not buckets or buckets[-1] > 30 or any(b % 2 or b <= 0 for b in buckets):
+            raise ValueError(f"context_buckets must be even seconds in (0, 30], got {context_buckets}")
+        self.context_buckets = buckets
+        if temperatures is None:
+            temperatures = (0.0,) if self.weightless else (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+        self.temperatures = tuple(temperatures) or (0.0,)
+        self.compression_ratio_threshold = compression_ratio_threshold
+        self.logprob_threshold = logprob_threshold
+        self.no_speech_threshold = no_speech_threshold
+        suppress_first: tuple = ()
+        if suppress_blank:
+            suppress_first = tuple(self.tokenizer.encode(" ")) + (self.cfg.eos_token,)
+        self._suppress = (tuple(suppress_tokens), suppress_first)
+        self.condition_on_previous_text = condition_on_previous_text
+        self.PREV_CTX_BUCKETS = (8, 16, 32)
+        self._seed = 0
+
+    def _prompt_row(self, language: Optional[str]) -> List[int]:
+        try:
+            idx = whisper_lang_index(language or "eng")
+        except (KeyError, ValueError):
+            idx = whisper_lang_index("eng")
+        return [self.cfg.bos_token, self.cfg.lang_token_start + idx,
+                self.cfg.task_transcribe, self.cfg.no_timestamps]
+
+    @property
+    def _special_floor(self) -> int:
+        """Ids at or above the lowest special token are dropped from text."""
+        return min(self.cfg.eos_token, self.cfg.bos_token, self.cfg.lang_token_start)
+
+    def _pad_to_bucket(self, seg: np.ndarray) -> tuple:
+        """Pad a chunk to its context bucket → (padded, bucket_seconds)."""
+        bucket_s = next((b for b in self.context_buckets if len(seg) <= 16_000 * b),
+                        self.context_buckets[-1])
+        padded = np.zeros(16_000 * bucket_s, np.float32)
+        padded[: len(seg)] = seg[: 16_000 * bucket_s]
+        return padded, bucket_s
+
+    def _decode_chunk_host(self, tokens: np.ndarray, aligns: np.ndarray, p_len: int,
+                           chunk_offset: float, chunk_seconds: float,
+                           window_seconds: Optional[float] = None) -> tuple:
+        """DTW token times over the cross-attention alignment and word
+        splitting for one decoded chunk → (text, words, kept_token_ids)."""
+        gen = tokens[p_len:]
+        keep = [(i, int(t)) for i, t in enumerate(gen)
+                if t != self.cfg.eos_token and t < self._special_floor]
+        if not keep:
+            return "", [], []
+        token_aligns = aligns[p_len:][[i for i, _ in keep]]
+        token_times = wm.dtw_token_times(token_aligns, len(keep), window_seconds or chunk_seconds)
+        token_times = np.minimum(token_times, chunk_seconds)
+        chunk_text = self.tokenizer.decode([t for _, t in keep]).strip()
+        words: List[Dict[str, Any]] = []
+        current: List[int] = []
+        word_start = float(token_times[0]) if len(token_times) else 0.0
+        for (i, tok), t_sec in zip(keep, token_times):
+            piece = self.tokenizer.decode([tok])
+            # a word boundary is a whitespace piece or a piece that begins
+            # with whitespace (byte-level BPE " hello" tokens)
+            boundary = piece == "" or piece.isspace() or piece[:1].isspace()
+            if boundary and current:
+                words.append({"word": self.tokenizer.decode(current).strip(),
+                              "start": round(chunk_offset + word_start, 3),
+                              "end": round(chunk_offset + float(t_sec), 3)})
+                current = []
+                word_start = float(t_sec)
+            if piece != "" and not piece.isspace():
+                if not current:
+                    word_start = float(t_sec)
+                current.append(tok)
+        if current:
+            words.append({"word": self.tokenizer.decode(current).strip(),
+                          "start": round(chunk_offset + word_start, 3),
+                          "end": round(chunk_offset + chunk_seconds, 3)})
+        return chunk_text, [w for w in words if w["word"]], [t for _, t in keep]
+
+    def _decode(self, padded: np.ndarray, prompt_row: List[int], temperature: float):
+        """One decode of a bucket-padded chunk → host (tokens, aligns, slp,
+        ngen, nsp) of row 0."""
+        audio = torch.from_numpy(padded).to(self.device)
+        mel = whisper_log_mel_fused(audio, n_mels=self.cfg.n_mels,
+                                    chunk_samples=len(padded)).to(self.dtype)
+        self._seed += 1
+        gumbel = None
+        if temperature > 0:
+            gumbel = wm.uniform_gumbel(
+                torch.Generator(device=self.device).manual_seed(self._seed))
+        prompt = torch.tensor([prompt_row], dtype=torch.int32, device=self.device)
+        out = wm.decode_with_alignment(
+            self.params, self.cfg, mel[None], prompt, max_new_tokens=self.max_new_tokens,
+            temperature=temperature, gumbel=gumbel, suppress_tokens=self._suppress[0],
+            suppress_first_tokens=self._suppress[1],
+            # the prompt row always ends [sot, lang, task, no_timestamps]
+            sot_index=len(prompt_row) - 4)
+        return [t[0].cpu().numpy() for t in out]
+
+    def _decode_chunk_fallback(self, padded, prompt_row, offset_s, chunk_s, bucket_s,
+                               bare_row=None):
+        """whisper.transcribe's temperature-fallback ladder: decode at each
+        temperature until the compression-ratio and avg-logprob gates pass;
+        the last rung is accepted as is. Rungs above 0.5 drop the
+        previous-text prompt."""
+        for i, temp in enumerate(self.temperatures):
+            row = bare_row if (temp > 0.5 and bare_row is not None) else prompt_row
+            tokens, aligns, slp, ngen, nsp = self._decode(padded, row, temp)
+            text, words, kept = self._decode_chunk_host(tokens, aligns, len(row), offset_s,
+                                                        chunk_s, window_seconds=bucket_s)
+            avg_logprob = float(slp) / max(int(ngen), 1)
+            if float(nsp) > self.no_speech_threshold and avg_logprob < self.logprob_threshold:
+                log.info("no-speech gate: chunk at %.1fs suppressed (p=%.2f, avg_logprob=%.2f)",
+                         offset_s, float(nsp), avg_logprob)
+                return "", [], [], temp
+            if i == len(self.temperatures) - 1:
+                return text, words, kept, temp
+            raw = text.encode("utf-8")
+            compression_ratio = (len(raw) / len(zlib.compress(raw))) if raw else 0.0
+            if (compression_ratio <= self.compression_ratio_threshold
+                    and avg_logprob >= self.logprob_threshold):
+                return text, words, kept, temp
+            log.info("temperature fallback: t=%.1f rejected (compression %.2f, avg_logprob %.2f)",
+                     temp, compression_ratio, avg_logprob)
+        return text, words, kept, temp
+
+    def transcribe(self, audio_16k: np.ndarray, language: Optional[str] = None) -> Dict[str, Any]:
+        """→ {"text", "language", "words": [{"word", "start", "end"}]}. The
+        audio is decoded in windows of the top context bucket; each window's
+        prompt carries the previous windows' tokens (truncated to a bucket)
+        unless a rung above 0.5 reset it."""
+        if language is None:
+            raise NotImplementedError("language detection is not ported yet: pass the "
+                                      "source language")
+        x = np.asarray(audio_16k, np.float32).reshape(-1)
+        base_row = self._prompt_row(language)
+        chunk = 16_000 * self.context_buckets[-1]
+        prev_ids: List[int] = []
+        texts: List[str] = []
+        words: List[Dict[str, Any]] = []
+        for start in range(0, max(len(x), 1), chunk):
+            seg = x[start:start + chunk]
+            padded, bucket_s = self._pad_to_bucket(seg)
+            ctx = 0
+            if self.condition_on_previous_text and prev_ids:
+                ctx = max((b for b in self.PREV_CTX_BUCKETS if b <= len(prev_ids)), default=0)
+            if ctx:
+                row = [self.cfg.sop_token] + prev_ids[-ctx:] + base_row
+                text, seg_words, kept, used_t = self._decode_chunk_fallback(
+                    padded, row, start / 16_000.0, len(seg) / 16_000.0, bucket_s,
+                    bare_row=base_row)
+            else:
+                text, seg_words, kept, used_t = self._decode_chunk_fallback(
+                    padded, base_row, start / 16_000.0, len(seg) / 16_000.0, bucket_s)
+            prev_ids = [] if used_t > 0.5 else prev_ids + kept
+            if text:
+                texts.append(text)
+            words.extend(seg_words)
+        return {"text": " ".join(texts), "language": language, "words": words}
+
+
+# ========================================================================= NMT
+
+
+class TorchNllbNmt:
+    """NMT engine: NLLB greedy generate over bucketed source lengths."""
+
+    def __init__(
+        self,
+        cfg: Optional[nlm.NLLBConfig] = None,
+        params=None,
+        tokenizer: Optional[Tokenizer] = None,
+        *,
+        device=None,
+        lang_code_to_id: Optional[Dict[str, int]] = None,
+        dtype=torch.bfloat16,
+        max_new_tokens: int = 200,
+    ):
+        self.device = resolve_device(device)
+        self.cfg = cfg or nlm.NLLBConfig(d_model=512, encoder_layers=6, decoder_layers=6,
+                                         heads=8, ffn_dim=2048, vocab_size=384)
+        self.weightless = params is None
+        if params is None:
+            log.warning("TorchNllbNmt: random weights (no checkpoint supplied)")
+            params = nlm.init_nllb(1, self.cfg, self.device)
+        self.params = cast_floats(params, dtype)
+        self.tokenizer = tokenizer or ByteTokenizer()
+        self.lang_code_to_id = lang_code_to_id or {}
+        if not self.lang_code_to_id and self.weightless:
+            self.lang_code_to_id = nllb_placeholder_lang_ids(self.cfg.vocab_size)
+        self.max_new_tokens = max_new_tokens
+
+    def _lang_id(self, code: str) -> int:
+        for key in (code, NLLB_LANGUAGES.get(code, "")):
+            if key in self.lang_code_to_id:
+                return self.lang_code_to_id[key]
+        raise KeyError(f"language {code!r} has no token id — supply lang_code_to_id")
+
+    def _encode_src(self, text: str, source_lang: str) -> List[int]:
+        """NLLB source layout: ``[src_lang] tokens … [eos]``."""
+        ids = self.tokenizer.encode(text)[: self.cfg.max_positions - 2]
+        try:
+            return [self._lang_id(source_lang)] + ids + [self.cfg.eos_token]
+        except KeyError:
+            return ids + [self.cfg.eos_token]
+
+    def translate(self, text: str, source_lang: str, target_lang: str) -> str:
+        src = self._encode_src(text, source_lang)
+        bucket = min(_bucket_size(len(src), TEXT_BUCKETS), self.cfg.max_positions)
+        padded = np.full((1, bucket), self.cfg.pad_token, np.int32)
+        padded[0, : len(src)] = _fit_vocab(src, self.cfg.vocab_size, self.weightless, "NMT")
+        out = nlm.generate(self.params, self.cfg, torch.from_numpy(padded).to(self.device),
+                           self._lang_id(target_lang), max_new_tokens=self.max_new_tokens)
+        out = out[0].cpu().numpy()
+        content = [int(t) for t in out[2:] if t not in (self.cfg.eos_token, self.cfg.pad_token)]
+        return self.tokenizer.decode(content)
+
+
+# ========================================================================= TTS
+
+
+class TorchCosyVoiceTts:
+    """TTS engine: CosyVoice synthesis (speech-token LM → flow → vocoder)."""
+
+    sample_rate = 24_000
+
+    def __init__(
+        self,
+        cfg: Optional[cvm.CosyVoiceConfig] = None,
+        params=None,
+        tokenizer: Optional[Tokenizer] = None,
+        *,
+        device=None,
+        dtype=torch.bfloat16,
+        seconds_per_char: float = 0.08,
+        noise: Optional[Callable[[int], cvm.NoiseSource]] = None,
+    ):
+        """``noise(call_index)`` gives each synthesis its noise source
+        (default: a ``torch.Generator`` seeded with the call index)."""
+        self.device = resolve_device(device)
+        self.cfg = cfg or cvm.CosyVoiceConfig(
+            lm=cvm.SpeechLMConfig(
+                backbone=q2.Qwen2Config(hidden=256, layers=4, heads=8, kv_heads=2,
+                                        ffn_dim=1024, max_positions=2048),
+                text_vocab=384, speech_token_size=512),
+            flow=cvm.FlowConfig(token_vocab=515, dim=256, layers=4, heads=8),
+            vocoder=cvm.VocoderConfig(base_channels=256))
+        self.weightless = params is None
+        if params is None:
+            log.warning("TorchCosyVoiceTts: random weights (no checkpoint supplied)")
+            params = cvm.init_cosyvoice(2, self.cfg, self.device)
+        self.params = cast_floats(params, dtype)
+        self.dtype = dtype
+        self.tokenizer = tokenizer or ByteTokenizer()
+        self.seconds_per_char = seconds_per_char
+        self._noise = noise or (lambda n: cvm.GeneratorNoise(
+            torch.Generator(device=self.device).manual_seed(n)))
+        ratio = self.cfg.flow.token_mel_ratio
+        self._noref_tokens = 2                   # live zero prompt slots without a reference
+        self._noref_frames = self._noref_tokens * ratio
+        self._call_count = 0
+
+    @staticmethod
+    def _ref_usable(reference_audio_16k) -> bool:
+        """A reference engages voice cloning above 0.1 s (1600 samples)."""
+        return (reference_audio_16k is not None
+                and np.asarray(reference_audio_16k).reshape(-1).size > 1600)
+
+    def _text_ids(self, text: str, style_prompt: str, reference_audio_16k) -> List[int]:
+        """With a cloning reference the prompt transcription precedes the tts
+        text (inference_zero_shot layout), capped so the text is never starved."""
+        ids = self.tokenizer.encode(text)[:256]
+        if style_prompt and self._ref_usable(reference_audio_16k):
+            room = 256 - len(ids)
+            ids = self.tokenizer.encode(style_prompt)[: min(room, 128)] + ids
+        return ids
+
+    def _prepare_conditioning(self, text: str, reference_audio_16k, style_prompt: str = ""):
+        if self._ref_usable(reference_audio_16k):
+            raise NotImplementedError(
+                "voice cloning needs voice-prompt conditioning (ECAPA speaker embedding, "
+                "kaldi fbank prompt mel, FSQ prompt speech tokens), which the port does "
+                "not have yet; synthesize without a reference")
+        ids = self._text_ids(text, style_prompt, reference_audio_16k)
+        bucket = _bucket_capped(max(len(ids), 1), TEXT_BUCKETS)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, : len(ids)] = _fit_vocab(ids, self.cfg.lm.text_vocab, self.weightless, "text")
+        tmask = np.zeros((1, bucket), bool)
+        tmask[0, : len(ids)] = True
+        dev = self.device
+        spk = torch.zeros((1, self.cfg.flow.spk_embed_dim), dtype=self.dtype, device=dev)
+        pmel = torch.zeros((1, self._noref_frames, self.cfg.flow.n_mels), dtype=self.dtype,
+                           device=dev)
+        psp = torch.zeros((1, self._noref_tokens), dtype=torch.int32, device=dev)
+        pmm = torch.ones(pmel.shape[:2], dtype=torch.bool, device=dev)
+        seconds = float(np.clip(len(text) * self.seconds_per_char, 0.6, 30.0))
+        max_new = _bucket_capped(int(seconds * 25), TTS_BUDGET_BUCKETS)
+        return (torch.from_numpy(toks).to(dev), torch.from_numpy(tmask).to(dev),
+                spk, pmel, pmm, psp, max_new)
+
+    def synthesize(self, text: str, *, style_prompt: str = "",
+                   reference_audio_16k: Optional[np.ndarray] = None,
+                   language: str = "en") -> np.ndarray:
+        """→ float32 waveform at 24 kHz, trimmed to the EOS-determined length."""
+        toks, tmask, spk, pmel, pmm, psp, max_new = self._prepare_conditioning(
+            text, reference_audio_16k, style_prompt)
+        self._call_count += 1
+        out = cvm.synthesize(self.params, self.cfg, self._noise(self._call_count), toks, tmask,
+                             psp, torch.ones_like(psp, dtype=torch.bool), spk, pmel, pmm,
+                             max_new_tokens=max_new)
+        spt = self.cfg.flow.token_mel_ratio * self.cfg.vocoder.hop
+        n = max(int(out["token_lengths"][0]), 1) * spt
+        return out["audio"][0, :n].float().cpu().numpy()
+
+
+# ===================================================================== wiring
+
+
+def reference_scale_configs() -> Dict[str, Any]:
+    """The reference deployment's model scales: Whisper-medium ASR,
+    NLLB-200-distilled-600M NMT, CosyVoice2-0.5B TTS."""
+    return {"asr_cfg": wm.WhisperConfig.medium(),
+            "nmt_cfg": nlm.NLLBConfig.distilled_600m(),
+            "tts_cfg": cvm.CosyVoiceConfig()}
+
+
+def torch_engines(*, scale: str = "toy", device=None, **kwargs) -> Engines:
+    """Engines wired to the port's models (random weights unless supplied),
+    on the card unless ``device="cpu"``.
+
+    ``scale="reference"`` serves Whisper-medium / NLLB-600M / CosyVoice-0.5B
+    dims; ``"toy"`` the small structure-test dims. ``asr_cfg``/``asr_params``,
+    ``nmt_cfg``/``nmt_params``/``lang_code_to_id``, ``tts_cfg``/``tts_params``/
+    ``tts_noise``, ``tokenizer`` and ``dtype`` pass through to the engines."""
+    dev = resolve_device(device)
+    if scale == "reference":
+        for k, v in reference_scale_configs().items():
+            kwargs.setdefault(k, v)
+    elif scale != "toy":
+        raise ValueError(f"unknown scale {scale!r} (toy|reference)")
+    dtype = kwargs.get("dtype", torch.bfloat16)
+    tok = kwargs.get("tokenizer")
+    asr = TorchWhisperAsr(kwargs.get("asr_cfg"), kwargs.get("asr_params"), tok, device=dev,
+                          dtype=dtype)
+    nmt = TorchNllbNmt(kwargs.get("nmt_cfg"), kwargs.get("nmt_params"), tok, device=dev,
+                       lang_code_to_id=kwargs.get("lang_code_to_id"), dtype=dtype)
+    tts = TorchCosyVoiceTts(kwargs.get("tts_cfg"), kwargs.get("tts_params"), tok, device=dev,
+                            dtype=dtype, noise=kwargs.get("tts_noise"))
+    return Engines(asr=asr, nmt=nmt, tts=tts)

@@ -1,0 +1,241 @@
+"""The port's cascade against the JAX package's on the CPU, on shared weights.
+
+Tiny JAX engines draw their own random weights; the port's engines take the
+same parameter trees through ``from_jax_params`` and the TTS takes the JAX
+key schedule's noise (``fold_in(PRNGKey(42), call)`` → split into the LM and
+flow keys). ``translate_speech`` must then give token-exact transcripts and
+the same 16 kHz audio within 1e-4: everything after the vocoder is the same
+host numpy on both sides, and the vocoder output differs only by f32
+summation order.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from expressive_speech_translation_tpu.models import cosyvoice as jcv
+from expressive_speech_translation_tpu.models import nllb as jnl
+from expressive_speech_translation_tpu.models import qwen2 as jq2
+from expressive_speech_translation_tpu.models import whisper as jwh
+from expressive_speech_translation_tpu.pipeline.cascaded import CascadedBackend as JaxBackend
+from expressive_speech_translation_tpu.pipeline.engines import Engines as JaxEngines
+from expressive_speech_translation_tpu.pipeline.jax_engines import (
+    JaxCosyVoiceTts, JaxNllbNmt, JaxWhisperAsr)
+from expressive_speech_translation_tpu_torch.models import cosyvoice as tcv
+from expressive_speech_translation_tpu_torch.models import nllb as tnl
+from expressive_speech_translation_tpu_torch.models import qwen2 as tq2
+from expressive_speech_translation_tpu_torch.models import whisper as twh
+from expressive_speech_translation_tpu_torch.pipeline.cascaded import CascadedBackend
+from expressive_speech_translation_tpu_torch.pipeline.engines import Engines
+from expressive_speech_translation_tpu_torch.pipeline.languages import nllb_placeholder_lang_ids
+from expressive_speech_translation_tpu_torch.pipeline.torch_engines import (
+    TorchCosyVoiceTts, TorchNllbNmt, TorchWhisperAsr, torch_engines)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+AUDIO_ATOL = 1e-4
+
+
+def _fields(cfg):
+    return {f: getattr(cfg, f) for f in cfg.__dataclass_fields__}
+
+
+WCFG = jwh.WhisperConfig(
+    d_model=64, encoder_layers=2, decoder_layers=2, heads=4, ffn_dim=128,
+    vocab_size=365, max_target_positions=64, eos_token=260, bos_token=261,
+    lang_token_start=262, task_translate=361, task_transcribe=362, no_timestamps=363,
+    sop_token=364, no_speech_token=360)
+NCFG = jnl.NLLBConfig(d_model=64, encoder_layers=2, decoder_layers=2, heads=4, ffn_dim=128,
+                      vocab_size=384, max_positions=128)
+QCFG = jq2.Qwen2Config(hidden=64, layers=2, heads=4, kv_heads=2, ffn_dim=128, max_positions=1024)
+CCFG = jcv.CosyVoiceConfig(
+    lm=jcv.SpeechLMConfig(backbone=QCFG, text_vocab=384, speech_token_size=64),
+    flow=jcv.FlowConfig(token_vocab=67, dim=64, layers=2, heads=4),
+    vocoder=jcv.VocoderConfig(base_channels=64))
+TCCFG = tcv.CosyVoiceConfig(
+    lm=tcv.SpeechLMConfig(backbone=tq2.Qwen2Config(**_fields(QCFG)),
+                          **{f: v for f, v in _fields(CCFG.lm).items()
+                             if f in tcv.SpeechLMConfig.__dataclass_fields__ and f != "backbone"}),
+    flow=tcv.FlowConfig(**_fields(CCFG.flow)),
+    vocoder=tcv.VocoderConfig(**_fields(CCFG.vocoder)))
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+class JaxCallNoise:
+    """The JAX TTS engine's key schedule for synthesis call ``n``."""
+
+    def __init__(self, n):
+        key = jax.random.fold_in(jax.random.PRNGKey(42), jnp.uint32(n))
+        self.k_lm, self.k_flow = jax.random.split(key)
+
+    def ras_gumbel(self, step, shape):
+        k1, k2 = jax.random.split(jax.random.fold_in(self.k_lm, step))
+        return (_t(jax.random.gumbel(k1, shape, jnp.float32)),
+                _t(jax.random.gumbel(k2, shape, jnp.float32)))
+
+    def flow_x0(self, shape):
+        return _t(jax.random.normal(self.k_flow, shape, jnp.float32))
+
+
+def _speechlike(seconds, seed, sr=16_000):
+    g = np.random.default_rng(seed)
+    t = np.arange(int(sr * seconds)) / sr
+    x = 0.4 * np.sin(2 * np.pi * 220 * t) + 0.02 * g.standard_normal(t.shape)
+    return (x * (0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t) ** 2)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def cascades():
+    """(JAX backend, port backend) on the same weights. Each test calls both
+    once per synthesis, so their TTS call counters (the noise keys) agree."""
+    lang_ids = nllb_placeholder_lang_ids(NCFG.vocab_size)
+    jasr = JaxWhisperAsr(WCFG, None, dtype=jnp.float32, max_new_tokens=12,
+                         context_buckets=(2,))
+    jnmt = JaxNllbNmt(NCFG, None, dtype=jnp.float32, max_new_tokens=12)
+    jtts = JaxCosyVoiceTts(CCFG, None, dtype=jnp.float32)
+    cpu = "cpu"
+    asr = TorchWhisperAsr(twh.WhisperConfig(**_fields(WCFG)),
+                          twh.from_jax_params(_np(jasr.params), cpu), device=cpu,
+                          dtype=torch.float32, max_new_tokens=12, context_buckets=(2,),
+                          temperatures=(0.0,))
+    nmt = TorchNllbNmt(tnl.NLLBConfig(**_fields(NCFG)), tnl.from_jax_params(_np(jnmt.params), cpu),
+                       device=cpu, lang_code_to_id=lang_ids, dtype=torch.float32,
+                       max_new_tokens=12)
+    tts = TorchCosyVoiceTts(TCCFG, tcv.from_jax_params(_np(jtts.params), cpu), device=cpu,
+                            dtype=torch.float32, noise=JaxCallNoise)
+    # the JAX engines drew their own weights, so they run with the
+    # random-weight policies (no empty-translation failure, wrapped ids)
+    nmt.weightless = tts.weightless = True
+    return (JaxBackend(JaxEngines(asr=jasr, nmt=jnmt, tts=jtts)),
+            CascadedBackend(Engines(asr=asr, nmt=nmt, tts=tts)))
+
+
+def test_translate_speech_matches_jax_cascade(cascades):
+    """4.5 s through 2 s ASR windows: three windows, the later ones prompted
+    with the earlier windows' tokens (condition_on_previous_text)."""
+    jax_backend, backend = cascades
+    x = _speechlike(4.5, seed=5)
+    want = jax_backend.translate_speech(x, "eng", "fra", use_voice_cloning=False)
+    got = backend.translate_speech(x, "eng", "fra", use_voice_cloning=False)
+    assert got["transcripts"] == want["transcripts"]
+    assert got["transcripts"]["source"]
+    assert got["audio"].shape == want["audio"].shape
+    assert np.isfinite(got["audio"]).all()
+    np.testing.assert_allclose(got["audio"], want["audio"], atol=AUDIO_ATOL, rtol=0)
+    assert set(got["stage_summary"]) == {"asr", "nmt", "tts", "post", "total"}
+
+
+def test_translate_text_matches_jax_cascade(cascades):
+    jax_backend, backend = cascades
+    want = jax_backend.translate_text("hello there, friend", "eng", "deu", synthesize=True)
+    got = backend.translate_text("hello there, friend", "eng", "deu", synthesize=True)
+    assert got["target_text"] == want["target_text"]
+    assert got["audio"].shape == want["audio"].shape
+    np.testing.assert_allclose(got["audio"], want["audio"], atol=AUDIO_ATOL, rtol=0)
+    words = [{"word": "a", "start": 0.0, "end": 0.4}, {"word": "b", "start": 0.9, "end": 1.2},
+             {"word": "c", "start": 1.3, "end": 1.5}]
+    assert backend.extract_pauses(words) == jax_backend.extract_pauses(words)
+
+
+def test_asr_fallback_ladder_and_previous_text_prompts():
+    """Random weights fail the avg-logprob gate, so every rung of the ladder
+    runs and the last is kept; a window kept at a rung of at most 0.5 prompts
+    the next window with its tokens, and rungs above 0.5 drop that prompt
+    (openai-whisper transcribe semantics, as in the JAX engine)."""
+    asr = TorchWhisperAsr(twh.WhisperConfig(**_fields(WCFG)), device="cpu",
+                          dtype=torch.float32, max_new_tokens=12, context_buckets=(2,),
+                          temperatures=(0.0, 0.4))
+    calls = []
+    decode = asr._decode
+
+    def spy(padded, row, temperature):
+        calls.append((len(row), temperature))
+        return decode(padded, row, temperature)
+
+    asr._decode = spy
+    out = asr.transcribe(_speechlike(4.5, seed=6), language="eng")
+    assert [t for _, t in calls] == [0.0, 0.4] * 3
+    assert [n for n, _ in calls[:2]] == [4, 4]
+    assert all(n > 4 for n, _ in calls[2:])          # later windows carry prev text
+    assert out["language"] == "eng" and isinstance(out["words"], list)
+    calls.clear()
+    asr.temperatures = (0.0, 0.8)
+    padded, bucket_s = asr._pad_to_bucket(_speechlike(1.0, seed=7))
+    row = [WCFG.sop_token] + [40] * 8 + asr._prompt_row("eng")
+    *_, used = asr._decode_chunk_fallback(padded, row, 0.0, 1.0, bucket_s,
+                                          bare_row=asr._prompt_row("eng"))
+    assert calls == [(13, 0.0), (4, 0.8)] and used == 0.8
+    with pytest.raises(NotImplementedError, match="language detection"):
+        asr.transcribe(np.zeros(16_000, np.float32))
+
+
+def test_port_runs_without_jax_or_the_jax_package():
+    """A fresh process runs the port's tiny cascade on the CPU and must not
+    have imported jax or anything of the JAX package (this test process has
+    both: tests/conftest.py imports jax)."""
+    script = textwrap.dedent("""
+        import sys
+        import numpy as np, torch
+        from expressive_speech_translation_tpu_torch.models import cosyvoice as cv, nllb, qwen2, whisper
+        from expressive_speech_translation_tpu_torch.pipeline.cascaded import CascadedBackend
+        from expressive_speech_translation_tpu_torch.pipeline.torch_engines import torch_engines
+        eng = torch_engines(device="cpu", dtype=torch.float32,
+            asr_cfg=whisper.WhisperConfig(d_model=32, encoder_layers=1, decoder_layers=1, heads=2,
+                ffn_dim=64, vocab_size=365, max_target_positions=32, eos_token=260, bos_token=261,
+                lang_token_start=262, task_transcribe=362, no_timestamps=363, sop_token=364,
+                no_speech_token=360),
+            nmt_cfg=nllb.NLLBConfig(d_model=32, encoder_layers=1, decoder_layers=1, heads=2,
+                ffn_dim=64, vocab_size=384, max_positions=64),
+            tts_cfg=cv.CosyVoiceConfig(
+                lm=cv.SpeechLMConfig(backbone=qwen2.Qwen2Config(hidden=32, layers=1, heads=2,
+                    kv_heads=1, ffn_dim=64, max_positions=1024), text_vocab=384, speech_token_size=32),
+                flow=cv.FlowConfig(token_vocab=35, dim=32, layers=1, heads=2),
+                vocoder=cv.VocoderConfig(base_channels=32)))
+        eng.asr.max_new_tokens = eng.nmt.max_new_tokens = 8
+        backend = CascadedBackend(eng)
+        backend.initialize()
+        out = backend.translate_speech(np.zeros(16_000, np.float32), "eng", "fra",
+                                       use_voice_cloning=False)
+        assert out["audio"].ndim == 2 and np.isfinite(out["audio"]).all()
+        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m == "expressive_speech_translation_tpu"
+               or m.startswith("expressive_speech_translation_tpu.")]
+        print("FORBIDDEN", bad)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+def test_torch_engines_without_a_device_need_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default device is valid here")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_engines()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchNllbNmt(tnl.NLLBConfig(**_fields(NCFG)))
+
+
+def test_voice_cloning_raises_until_conditioning_is_ported():
+    tts = TorchCosyVoiceTts(TCCFG, device="cpu", dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="voice-prompt conditioning"):
+        tts.synthesize("hello", style_prompt="hi", reference_audio_16k=np.zeros(16_000, np.float32))
+    # a reference of 0.1 s or less engages no cloning, as in the JAX engine
+    assert tts.synthesize("hi", reference_audio_16k=np.zeros(1600, np.float32)).size > 0
