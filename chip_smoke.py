@@ -7,12 +7,20 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. devices  — the card's name and power limit (nvidia-smi);
 2. build    — nvcc builds every kernel of the main path from csrc/, in parallel;
 3. kernels  — each kernel against its plain PyTorch version at the shapes
-              the main path gives it, with its time, bound, plain time and
-              the time of one library call computing the same function;
+              the main path gives it (the decode kernels, which no path
+              calls, at the decode shapes of the reference models), with its
+              time, bound, plain time and the time of one library call (or,
+              for the decode kernels, of the cuBLAS chain) computing the same
+              function; the decode kernels are timed over stacks of distinct
+              weights larger than the 50 MB L2, as a decoder walks its layers,
+              each pass replayed as a CUDA graph;
 4. e2e      — ``torch_engines(scale="reference")`` (Whisper-medium,
-              NLLB-600M, CosyVoice2-0.5B dims, bf16, seeded random weights),
-              ``CascadedBackend.initialize()`` and three ``translate_speech``
-              requests, with every kernel's launch counter read around them;
+              NLLB-600M, CosyVoice2-0.5B dims, bf16, seeded random weights,
+              full-width ECAPA and speech-tokenizer conditioning models),
+              ``CascadedBackend.initialize()``, one voice-prompt conditioning
+              call timed on its own, and three ``translate_speech`` requests
+              at their defaults (voice cloning on), with every kernel's launch
+              counter read around the requests;
 5. the kernels line, the card line, and last the result line.
 
 The long report goes to chiprun_out/chip_smoke.json.
@@ -20,6 +28,7 @@ The long report goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -30,7 +39,10 @@ import time
 import numpy as np
 import torch
 
-from expressive_speech_translation_tpu_torch.ops import build, cuda_mel, cuda_vocoder
+import torch.nn.functional as F
+
+from expressive_speech_translation_tpu_torch.ops import (build, cuda_decode, cuda_int4,
+                                                          cuda_mel, cuda_vocoder)
 
 # NVIDIA H100 SXM data-sheet peaks (dense): FP32 on the CUDA cores, bf16 on
 # the tensor cores, HBM3 bandwidth.
@@ -41,6 +53,10 @@ PEAK_BYTES = 3.35e12
 MEL_ATOL = 1e-4          # normalised log-mel units, as tests/test_pallas_mel.py holds the JAX kernel
 RES_F32_RTOL = 1e-5      # max |kernel - plain| / max |plain|: f32 sums in another order
 RES_BF16_RTOL = 1.6e-2   # two bf16 ulps (2^-7 relative) of the peak, and a margin: operands and output round to bf16
+DEC_F32_RTOL = 1e-5      # decode kernels, f32: max |kernel - plain| / max |plain|, sums in another order
+DEC_BF16_RTOL = 1.6e-2   # decode kernels, bf16: an output rounded to bf16 plus summation order
+STACK_MIN_LAYERS = 24
+STACK_MIN_BYTES = 100e6
 KERNELS = (3, 7, 11)
 DILATIONS = ((1, 3, 5),) * 3
 OUT_DIR = "chiprun_out"
@@ -182,25 +198,260 @@ def check_resblock(dev, report):
     return rows
 
 
+# Decode shapes of the reference models (no path calls these kernels: the
+# JAX decode loops keep them off too).
+MATVEC_SHAPES = (  # (label, B, D, N, norm, eps)
+    ("whisper-medium qkv", 1, 1024, 3072, "layer", 1e-5),
+    ("qwen2-0.5b qkv", 1, 896, 1152, "rms", 1e-6),
+    ("whisper-medium qkv B=4", 4, 1024, 3072, "layer", 1e-5),
+)
+MLP_SHAPES = (  # (label, B, D, F, gated, norm, eps, activation)
+    ("whisper-medium / nllb-600m mlp", 1, 1024, 4096, False, "layer", 1e-5, "gelu"),
+    ("qwen2-0.5b gated mlp", 1, 896, 4864, True, "rms", 1e-6, "silu"),
+)
+INT4_SHAPES = ((8, 2048, 8192), (1, 1024, 4096))  # (B, K, N)
+
+
+def _stack_layers(layer_bytes: int) -> int:
+    """Distinct weight layers to time over: at least 24, and at least 100 MB,
+    so repeated launches cannot be served from the 50 MB L2."""
+    return max(STACK_MIN_LAYERS, math.ceil(STACK_MIN_BYTES / layer_bytes))
+
+
+def _stack_time(calls, reps: int = 20) -> tuple:
+    """(device ms, eager ms) of one call over passes of a layer stack. The
+    device time replays one pass captured as a CUDA graph, so the host's
+    launch cost (a few tens of µs of Python and ctypes a call, more than these
+    kernels take) stays out of it; the eager time launches from Python."""
+    eager = _sync_time(lambda: [c() for c in calls], 3, warmup=1) / len(calls)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in calls:
+            c()
+    device = _sync_time(graph.replay, reps) / len(calls)
+    del graph
+    return device, eager
+
+
+def _compare(label, dtype, got, want):
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    peak = float(want.float().abs().max())
+    tol = DEC_BF16_RTOL if dtype == torch.bfloat16 else DEC_F32_RTOL
+    if not (got.shape == want.shape and got.dtype == want.dtype and math.isfinite(err)
+            and err <= tol * peak):
+        raise AssertionError(f"{label} {dtype}: max |err| {err} > {tol} * {peak}")
+    return err, peak
+
+
+def _bound(nbytes: float, flops: float) -> dict:
+    bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_BF16) * 1e3
+    return {"bound_ms": bound_ms, "mbytes": nbytes / 1e6, "gflop": flops / 1e9}
+
+
+def _gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _randn(shape, g, dev, dtype, s=1.0):
+    return (torch.randn(shape, generator=g, device=dev) * s).to(dtype)
+
+
+def _time_stack(row, stack, kernel, plain, chain, chain_calls, nbytes, flops):
+    """Time one call of ``kernel``, ``plain`` and ``chain`` (each a function
+    of one layer's weights) over the layer ``stack``; add the times, the
+    bound and its share to ``row``."""
+    for key, fn in (("", kernel), ("plain_", plain), ("chain_", chain)):
+        row[f"{key}ms"], row[f"{key}eager_ms"] = _stack_time(
+            [functools.partial(fn, layer) for layer in stack])
+    row.update(layers=len(stack), chain_calls=chain_calls, **_bound(nbytes, flops))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+
+
+def _norm_chain(x, norm, d, scale, bias, eps):
+    return (F.layer_norm(x, (d,), scale, bias, eps) if norm == "layer"
+            else F.rms_norm(x, (d,), scale, eps))
+
+
+def check_ln_matvec(dev, report):
+    """Kernel 3 at the qkv shapes, bf16 and f32 against the plain version;
+    bf16 timed over a weight stack with the plain version and the cuBLAS chain
+    (layer_norm or rms_norm, then addmm: 2 calls)."""
+    rows = []
+    for label, bsz, d, n, norm, eps in MATVEC_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            g = _gen(dev, d + n + bsz)
+            x = _randn((bsz, d), g, dev, dtype)
+            sc, bi = 1 + 0.1 * _randn((d,), g, dev, torch.float32), 0.1 * _randn((d,), g, dev, torch.float32)
+            w, b = _randn((d, n), g, dev, dtype, d ** -0.5), 0.05 * _randn((n,), g, dev, torch.float32)
+            kw = dict(norm=norm, eps=eps)
+            got = cuda_decode.fused_ln_matvec(x, sc, bi, w, b, **kw)
+            want = cuda_decode.fused_ln_matvec_plain(x, sc, bi, w, b, **kw)
+            err, peak = _compare(f"ln_matvec {label}", dtype, got, want)
+            row = {"shape": label, "B": bsz, "D": d, "N": n, "norm": norm,
+                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "peak": peak}
+            if dtype == torch.bfloat16:
+                es = x.element_size()
+                stack = [w] + [_randn((d, n), g, dev, dtype, d ** -0.5)
+                               for _ in range(_stack_layers(d * n * es) - 1)]
+                sc16, bi16, b16 = sc.to(dtype), bi.to(dtype), b.to(dtype)
+                _time_stack(
+                    row, stack,
+                    lambda wl: cuda_decode.fused_ln_matvec(x, sc, bi, wl, b, **kw),
+                    lambda wl: cuda_decode.fused_ln_matvec_plain(x, sc, bi, wl, b, **kw),
+                    lambda wl: torch.addmm(b16, _norm_chain(x, norm, d, sc16, bi16, eps), wl),
+                    2, d * n * es + bsz * (d + n) * es + (2 * d + n) * 4, 2 * bsz * d * n)
+                del stack
+            rows.append(row)
+            _print_decode_row("ln_matvec", row)
+    report["ln_matvec"] = rows
+    return rows
+
+
+def check_ln_mlp(dev, report):
+    """Kernel 4 at the MLP shapes (residual on), bf16 and f32; bf16 timed over
+    a stack with the plain version and the cuBLAS chain (norm, addmm, act,
+    addmm, add: 5 calls; gated: norm, mm, silu, addmm, mul, addmm, add: 7)."""
+    rows = []
+    for label, bsz, d, f, gated, norm, eps, act in MLP_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            g = _gen(dev, d + f + bsz)
+            x = _randn((bsz, d), g, dev, dtype)
+            sc, bi = 1 + 0.1 * _randn((d,), g, dev, torch.float32), 0.1 * _randn((d,), g, dev, torch.float32)
+            b1, b2 = 0.05 * _randn((f,), g, dev, torch.float32), 0.05 * _randn((d,), g, dev, torch.float32)
+            rows_w = 3 * d if gated else 2 * d
+            wp = _randn((rows_w, f), g, dev, dtype, d ** -0.5)
+            kw = dict(gated=gated, norm=norm, eps=eps, activation=act, residual=True)
+            got = cuda_decode.fused_ln_mlp(x, sc, bi, wp, b1, b2, **kw)
+            want = cuda_decode.fused_ln_mlp_plain(x, sc, bi, wp, b1, b2, **kw)
+            err, peak = _compare(f"ln_mlp {label}", dtype, got, want)
+            row = {"shape": label, "B": bsz, "D": d, "F": f, "gated": gated, "norm": norm,
+                   "activation": act, "dtype": str(dtype).split(".")[-1],
+                   "max_abs_err": err, "peak": peak}
+            if dtype == torch.bfloat16:
+                es = x.element_size()
+                stack = [wp] + [_randn((rows_w, f), g, dev, dtype, d ** -0.5)
+                                for _ in range(_stack_layers(rows_w * f * es) - 1)]
+                sc16, bi16, b1_16, b2_16 = (v.to(dtype) for v in (sc, bi, b1, b2))
+
+                def chain(wl):
+                    xh = _norm_chain(x, norm, d, sc16, bi16, eps)
+                    if gated:
+                        u = F.silu(torch.mm(xh, wl[2 * d:])) * torch.addmm(b1_16, xh, wl[:d])
+                    else:
+                        u = F.gelu(torch.addmm(b1_16, xh, wl[:d]))
+                    return torch.addmm(b2_16, u, wl[d:2 * d].t()) + x
+
+                _time_stack(
+                    row, stack,
+                    lambda wl: cuda_decode.fused_ln_mlp(x, sc, bi, wl, b1, b2, **kw),
+                    lambda wl: cuda_decode.fused_ln_mlp_plain(x, sc, bi, wl, b1, b2, **kw),
+                    chain, 7 if gated else 5,
+                    rows_w * f * es + 2 * bsz * d * es + (f + 3 * d) * 4,
+                    2 * bsz * d * f * (3 if gated else 2))
+                del stack
+            rows.append(row)
+            _print_decode_row("ln_mlp", row)
+    report["ln_mlp"] = rows
+    return rows
+
+
+def check_int4(dev, report):
+    """Kernel 5 at B=8 K=2048 N=8192 and B=1 K=1024 N=4096, bf16 and f32;
+    bf16 timed over a stack with the plain version and torch.matmul on bf16
+    weights dequantised beforehand (1 call, 4x the weight bytes)."""
+    rows = []
+    for bsz, k, n in INT4_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            g = _gen(dev, k + n + bsz)
+            x = _randn((bsz, k), g, dev, dtype)
+            p, s = cuda_int4.pack_int4(_randn((k, n), g, dev, torch.float32))
+            got = cuda_int4.matmul_int4(x, p, s)
+            want = cuda_int4.matmul_int4_plain(x, p, s)
+            err, peak = _compare(f"int4 B={bsz} K={k} N={n}", dtype, got, want)
+            row = {"shape": f"B={bsz} K={k} N={n}", "B": bsz, "K": k, "N": n,
+                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "peak": peak}
+            if dtype == torch.bfloat16:
+                es = x.element_size()
+                stack = [(p, s)] + [cuda_int4.pack_int4(_randn((k, n), g, dev, torch.float32))
+                                    for _ in range(_stack_layers(k * n // 2) - 1)]
+                # the yardstick's weights are dequantised before the clock starts
+                deq = {id(pl): cuda_int4.unpack_int4(pl, sl, dtype) for pl, sl in stack}
+                _time_stack(
+                    row, stack,
+                    lambda layer: cuda_int4.matmul_int4(x, *layer),
+                    lambda layer: cuda_int4.matmul_int4_plain(x, *layer),
+                    lambda layer: torch.matmul(x, deq[id(layer[0])]),
+                    1, k * n // 2 + bsz * (k + n) * es + n * 4, 2 * bsz * k * n)
+                del stack, deq
+            rows.append(row)
+            _print_decode_row("int4", row)
+    report["int4"] = rows
+    return rows
+
+
+def _print_decode_row(name, row):
+    extra = ""
+    if "ms" in row:
+        extra = (f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                 f"cuBLAS chain of {row['chain_calls']} {row['chain_ms']:.4f} ms  "
+                 f"bound {row['bound_ms']:.4f} ms ({100 * row['bound_share']:.1f}% of bound, "
+                 f"{row['layers']} layers, graph-replayed; launched from Python: kernel "
+                 f"{row['eager_ms']:.4f}, plain {row['plain_eager_ms']:.4f}, chain "
+                 f"{row['chain_eager_ms']:.4f} ms)")
+    print(f"  {name} {row['shape']} {row['dtype']}: err {row['max_abs_err']:.2e} "
+          f"(peak {row['peak']:.3f}){extra}", flush=True)
+
+
 def kernels_phase(dev, report):
     print("== kernels against their plain versions", flush=True)
-    return check_log_mel(dev, report), check_resblock(dev, report)
+    rows = []
+    for check in (check_log_mel, check_resblock, check_ln_matvec, check_ln_mlp, check_int4):
+        rows.append(check(dev, report))
+        torch.cuda.empty_cache()   # the decode checks' weight stacks take up to 1.3 GB
+    return rows
 
 
 REQUEST_SECONDS = (5.0, 10.0, 20.0)
 
 
+LAUNCH_COUNTERS = {"log_mel_frames": cuda_mel.log_mel_frames,
+                   "fused_resblock_stage": cuda_vocoder.fused_resblock_stage,
+                   "fused_ln_matvec": cuda_decode.fused_ln_matvec,
+                   "fused_ln_mlp": cuda_decode.fused_ln_mlp,
+                   "matmul_int4": cuda_int4.matmul_int4}
+MAIN_PATH_KERNELS = ("log_mel_frames", "fused_resblock_stage")
+
+
+def _check_conditioning(tts, spk, pmel, psp):
+    ok = (tuple(spk.shape) == (1, tts.cfg.flow.spk_embed_dim)
+          and tuple(pmel.shape) == (1, tts._prompt_frames, tts.cfg.flow.n_mels)
+          and tuple(psp.shape) == (1, tts._prompt_tokens) and psp.dtype == torch.int32
+          and bool(torch.isfinite(spk.float()).all()) and bool(torch.isfinite(pmel.float()).all())
+          and abs(float(spk.float().norm()) - 1.0) < 1e-2
+          and int(psp.min()) >= 0 and int(psp.max()) < tts.cfg.lm.speech_token_size)
+    if not ok:
+        raise AssertionError(f"conditioning: bad outputs {tuple(spk.shape)} {tuple(pmel.shape)} "
+                             f"{tuple(psp.shape)} {psp.dtype}")
+
+
 def e2e_phase(dev, report, card):
-    """Reference-scale engines, initialize(), three translate_speech requests
-    (eng → fra, no voice cloning), with the kernels' launch counters read
-    around the requests."""
+    """Reference-scale engines with full-width conditioning models,
+    initialize(), one conditioning call on its own, three translate_speech
+    requests at their defaults (eng → fra, voice cloning on), with the
+    kernels' launch counters read around the requests."""
+    from expressive_speech_translation_tpu_torch.models import ecapa
+    from expressive_speech_translation_tpu_torch.models import speech_tokenizer as stm
     from expressive_speech_translation_tpu_torch.pipeline.cascaded import CascadedBackend
     from expressive_speech_translation_tpu_torch.pipeline.torch_engines import torch_engines
 
-    print("== e2e: reference scale (Whisper-medium, NLLB-600M, CosyVoice2-0.5B), bf16, "
-          "random weights", flush=True)
+    print("== e2e: reference scale (Whisper-medium, NLLB-600M, CosyVoice2-0.5B; ECAPA 1024 ch, "
+          "speech tokenizer dim 256 x 4), bf16, random weights, voice cloning on", flush=True)
     t0 = time.perf_counter()
-    engines = torch_engines(scale="reference")
+    ecfg, scfg = ecapa.EcapaConfig(), stm.SpeechTokenizerConfig()
+    engines = torch_engines(scale="reference",
+                            tts_ecapa=(ecapa.init_ecapa(3, ecfg, dev), ecfg),
+                            tts_speech_tokenizer=(stm.init_speech_tokenizer(4, scfg, dev), scfg))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     backend = CascadedBackend(engines)
@@ -211,13 +462,26 @@ def e2e_phase(dev, report, card):
     print(f"  engines {init_s:.1f} s, initialize {warm_s:.1f} s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
 
-    cuda_mel.log_mel_frames.launches = 0
-    cuda_vocoder.fused_resblock_stage.launches = 0
+    tts = engines.tts
+    ref = np.resize(_speechlike(REQUEST_SECONDS[0], seed=99), 16_000 * 10)
+    cond_runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        spk, pmel, psp = tts._cond(ref)
+        torch.cuda.synchronize()
+        cond_runs.append(time.perf_counter() - t0)
+    _check_conditioning(tts, spk, pmel, psp)
+    print(f"  conditioning (10 s reference: ECAPA, resample, prompt fbank, FSQ tokens): "
+          f"{min(cond_runs) * 1e3:.1f} ms (runs {', '.join(f'{c * 1e3:.1f}' for c in cond_runs)})"
+          f"  [{card}]", flush=True)
+
+    for fn in LAUNCH_COUNTERS.values():
+        fn.launches = 0
     requests = []
     for seconds in REQUEST_SECONDS:
         x = _speechlike(seconds, seed=int(seconds))
         t0 = time.perf_counter()
-        out = backend.translate_speech(x, "eng", "fra", use_voice_cloning=False)
+        out = backend.translate_speech(x, "eng", "fra")
         wall = time.perf_counter() - t0
         audio = out["audio"]
         if not (audio.ndim == 2 and audio.shape[0] == 1 and audio.shape[1] >= int(16_000 * seconds)
@@ -229,13 +493,12 @@ def e2e_phase(dev, report, card):
                          "target_chars": len(out["transcripts"]["target"])})
         print(f"  {seconds:4.1f} s request: wall {wall:.3f} s, RTF {wall / seconds:.4f}  "
               + "  ".join(f"{k} {v:.3f} s" for k, v in stages.items()) + f"  [{card}]", flush=True)
-    launches = {"log_mel_frames": cuda_mel.log_mel_frames.launches,
-                "fused_resblock_stage": cuda_vocoder.fused_resblock_stage.launches}
+    launches = {name: fn.launches for name, fn in LAUNCH_COUNTERS.items()}
     print(f"  kernel launches over {len(REQUEST_SECONDS)} requests: {launches}", flush=True)
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in MAIN_PATH_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     e2e = {"engines_s": init_s, "initialize_s": warm_s, "requests": requests,
-           "launches": launches,
+           "conditioning_s": cond_runs, "launches": launches,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
     report["e2e"] = e2e
     return e2e
@@ -245,10 +508,25 @@ def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
-def kernels_line(mel_rows, res_rows, e2e):
+def _decode_entry(name, source, replaces, rows, e2e):
+    """A decode kernel's entry: its first (bf16, B=1 or the first listed)
+    shape's times; the library call is null (no single PyTorch call computes
+    the fused function) and the cuBLAS chain's time rides beside it."""
+    timed = next(r for r in rows if "ms" in r)
+    return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
+            "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+            "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
+            "library_ms": None, "chain_ms": timed["chain_ms"],
+            "chain_calls": timed["chain_calls"]}
+
+
+def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e):
     """One entry per kernel. Log-mel at the default 30 s window; the resblock
     stage as both narrow stages of 10 s of speech in bf16 (C=128, T=24000 and
-    C=64, T=240000), their times and bounds summed."""
+    C=64, T=240000), their times and bounds summed; the decode kernels at the
+    Whisper-medium shapes (and int4 at B=8, K=2048, N=8192) in bf16."""
     mel = mel_rows[0]
     serving = [r for r in res_rows if r["dtype"] == "bfloat16" and "ms" in r]
     return [
@@ -270,6 +548,9 @@ def kernels_line(mel_rows, res_rows, e2e):
          "bound_by": _bound_by(sum(r["gflop"] for r in serving) * 1e9, PEAK_BF16,
                                sum(r["mbytes"] for r in serving) * 1e6),
          "library_ms": None},
+        _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e),
+        _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e),
+        _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e),
     ]
 
 
@@ -302,12 +583,12 @@ def main() -> int:
     print(f"  {card}", flush=True)
     report["card"] = card
     build_phase(report)
-    mel_rows, res_rows = kernels_phase(dev, report)
+    kernel_rows = kernels_phase(dev, report)
     e2e = e2e_phase(dev, report, card)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": kernels_line(mel_rows, res_rows, e2e)}))
+    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,12 @@
-"""Mel filterbanks and the Whisper log-mel frontend.
+"""Mel filterbanks, the Whisper log-mel frontend and Kaldi-style fbank.
 
-librosa-style slaney-scale, slaney-normed triangular filters; Whisper's
-n_fft=400, hop=160, 80 (or 128) mels at 16 kHz, log10 clamped at 1e-10,
-floored at (max - 8), then (x + 4) / 4 — the JAX package's ``ops/mel.py``.
+- Whisper: librosa-style slaney-scale, slaney-normed triangular filters;
+  n_fft=400, hop=160, 80 (or 128) mels at 16 kHz, log10 clamped at 1e-10,
+  floored at (max - 8), then (x + 4) / 4.
+- Kaldi fbank (the voice-prompt features): povey window, snip-edges framing,
+  HTK mel scale without norm, natural log.
+
+The JAX package's ``ops/mel.py``.
 """
 
 from __future__ import annotations
@@ -13,7 +17,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .stft import power_spectrogram
+from .stft import _dft_bases, frame_signal, power_spectrogram
+from .windows import povey
 
 WHISPER_N_FFT = 400
 WHISPER_HOP = 160
@@ -106,3 +111,61 @@ def whisper_log_mel(audio: torch.Tensor, *, n_mels: int = 80,
     fb = torch.as_tensor(mel_filterbank(WHISPER_SR, WHISPER_N_FFT, n_mels), device=audio.device)
     log_spec = torch.log10(torch.clamp_min(power @ fb, 1e-10))
     return normalize_log_mel(log_spec).transpose(-1, -2)
+
+
+# ------------------------------------------------------------- kaldi fbank
+
+
+@functools.lru_cache(maxsize=16)
+def _kaldi_constants(sr: int, frame_len: int, n_fft: int, n_mels: int, fmin: float,
+                     fmax: Optional[float], device: torch.device):
+    """(povey window [frame_len], the n_fft-point DFT bases' first frame_len
+    rows [frame_len, n_bins] ×2 (the zero pad contributes nothing), HTK
+    filterbank [n_bins, n_mels]) as f32 tensors on ``device``."""
+    cos_b, sin_b = _dft_bases(n_fft)
+    fb = mel_filterbank(sr, n_fft, n_mels, fmin=fmin, fmax=fmax, htk=True, norm=None)
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
+                 for a in (povey(frame_len), cos_b[:frame_len], sin_b[:frame_len], fb))
+
+
+def kaldi_fbank(
+    audio: torch.Tensor,
+    *,
+    sr: int = 24_000,
+    n_mels: int = 80,
+    frame_length_ms: float = 80.0,   # 1920 samples at 24 kHz
+    frame_shift_ms: float = 20.0,    # 480 samples
+    dither: float = 0.0,
+    preemphasis: float = 0.97,
+    remove_dc: bool = True,
+    fmin: float = 20.0,
+    fmax: Optional[float] = None,
+    log_floor: float = 1.1920928955078125e-07,  # kaldi EPSILON
+) -> torch.Tensor:
+    """Kaldi/torchaudio-compliance-style fbank: [..., T] → [..., frames, n_mels].
+
+    Snip-edges framing, per-frame DC removal, pre-emphasis with edge
+    replication, povey window, zero-pad to the next power of two, power
+    spectrum, HTK-scale mel (no norm), ln of the floored energies."""
+    if dither:
+        # dither needs a random source that the JAX reference does not have
+        # either; CosyVoice's features use none
+        raise NotImplementedError("kaldi_fbank: dither is not implemented; "
+                                  "pass dither=0.0 (the CosyVoice setting)")
+    frame_len = int(sr * frame_length_ms / 1000.0)
+    hop = int(sr * frame_shift_ms / 1000.0)
+    n_fft = 1 << (frame_len - 1).bit_length()  # kaldi round_to_power_of_two
+    window, cos_b, sin_b, fb = _kaldi_constants(sr, frame_len, n_fft, n_mels, fmin, fmax,
+                                                audio.device)
+
+    frames = frame_signal(audio, frame_len, hop, center=False)
+    if remove_dc:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+    if preemphasis:
+        prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+        frames = frames - preemphasis * prev
+    frames = frames * window
+    real = frames @ cos_b
+    imag = frames @ sin_b
+    power = real * real + imag * imag
+    return torch.log(torch.clamp_min(power @ fb, log_floor))

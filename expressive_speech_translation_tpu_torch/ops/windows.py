@@ -12,6 +12,12 @@ def hann(n: int, *, periodic: bool = True, dtype=np.float32) -> np.ndarray:
     return w[:n].astype(dtype)
 
 
+def povey(n: int, dtype=np.float32) -> np.ndarray:
+    """Kaldi's 'povey' window (hann ** 0.85), used by kaldi-style fbank."""
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / max(n - 1, 1))
+    return (w ** 0.85).astype(dtype)
+
+
 def kaiser_sinc_filter(
     orig_freq: int,
     new_freq: int,

@@ -39,13 +39,13 @@ class CascadedBackend:
         self.last_stage_summary: Dict[str, Any] = {}
 
     def initialize(self) -> None:
-        """Warm-up: 1 s of silence through ASR, a short sentence through NMT
-        and TTS. TTS warms without a reference: voice-prompt conditioning is
-        not ported yet."""
+        """Warm-up: 1 s of silence through ASR, a short sentence through NMT,
+        and the sentence through TTS with the silence as the cloning
+        reference, so the voice-prompt conditioning warms too."""
         silence = np.zeros(16_000, np.float32)
         self.engines.asr.transcribe(silence, language="eng")
         self.engines.nmt.translate("Hello world.", "eng", "fra")
-        self.engines.tts.synthesize("Hello world.", reference_audio_16k=None)
+        self.engines.tts.synthesize("Hello world.", reference_audio_16k=silence)
         self.initialized = True
         log.info("CascadedBackend initialized")
 

@@ -7,12 +7,12 @@ Port of the JAX package's ``pipeline/jax_engines.py`` single-request path:
   ``condition_on_previous_text``, SuppressBlank, and DTW word timestamps;
 - :class:`TorchNllbNmt` — NLLB greedy generate with the forced target-language
   BOS over bucketed source lengths;
-- :class:`TorchCosyVoiceTts` — CosyVoice synthesis without a voice prompt.
+- :class:`TorchCosyVoiceTts` — CosyVoice synthesis, cloning the voice of a
+  reference through voice-prompt conditioning (ECAPA speaker embedding,
+  Kaldi-fbank prompt mel, FSQ prompt speech tokens).
 
 Without checkpoints every model runs on seeded random weights ("weightless"),
-as the JAX engines do. Voice-prompt conditioning (ECAPA speaker embedding,
-kaldi fbank prompt mel, FSQ prompt speech tokens) is not ported yet:
-synthesis with a usable reference raises instead of dropping the cloning.
+as the JAX engines do.
 """
 
 from __future__ import annotations
@@ -26,11 +26,15 @@ import torch
 
 from ..core.device import resolve_device
 from ..models import cosyvoice as cvm
+from ..models import ecapa as ecm
 from ..models import nllb as nlm
 from ..models import qwen2 as q2
+from ..models import speech_tokenizer as stm
 from ..models import whisper as wm
 from ..models.common import cast_floats
 from ..ops.cuda_mel import whisper_log_mel_fused
+from ..ops.mel import kaldi_fbank
+from ..ops.resample import resample
 from .engines import Engines
 from .languages import NLLB_LANGUAGES, nllb_placeholder_lang_ids, whisper_lang_index
 from .tokenizer import ByteTokenizer, Tokenizer
@@ -329,7 +333,8 @@ class TorchNllbNmt:
 
 
 class TorchCosyVoiceTts:
-    """TTS engine: CosyVoice synthesis (speech-token LM → flow → vocoder)."""
+    """TTS engine: CosyVoice synthesis (speech-token LM → flow → vocoder)
+    with speaker conditioning from the reference audio."""
 
     sample_rate = 24_000
 
@@ -343,9 +348,15 @@ class TorchCosyVoiceTts:
         dtype=torch.bfloat16,
         seconds_per_char: float = 0.08,
         noise: Optional[Callable[[int], cvm.NoiseSource]] = None,
+        ecapa_weights=None,
+        speech_tokenizer_weights=None,
     ):
         """``noise(call_index)`` gives each synthesis its noise source
-        (default: a ``torch.Generator`` seeded with the call index)."""
+        (default: a ``torch.Generator`` seeded with the call index).
+        ``ecapa_weights`` / ``speech_tokenizer_weights``: optional
+        ``(params, cfg)`` of the conditioning models (the port's f32 trees);
+        without them both run on seeded random weights, which carry no
+        speaker identity (``conditioning_weightless``)."""
         self.device = resolve_device(device)
         self.cfg = cfg or cvm.CosyVoiceConfig(
             lm=cvm.SpeechLMConfig(
@@ -364,7 +375,27 @@ class TorchCosyVoiceTts:
         self.seconds_per_char = seconds_per_char
         self._noise = noise or (lambda n: cvm.GeneratorNoise(
             torch.Generator(device=self.device).manual_seed(n)))
+        # the conditioning models stay f32 in a bf16 engine (as in the JAX
+        # package); only their outputs are cast to the serving dtype
+        if ecapa_weights is not None:
+            self._ecapa, self._ecapa_cfg = ecapa_weights
+        else:
+            self._ecapa_cfg = ecm.EcapaConfig(channels=128, bottleneck=64, attn_channels=64)
+            self._ecapa = ecm.init_ecapa(3, self._ecapa_cfg, self.device)
+        if speech_tokenizer_weights is not None:
+            self._st, self._st_cfg = speech_tokenizer_weights
+        else:
+            self._st_cfg = stm.SpeechTokenizerConfig(dim=128, layers=2, heads=4)
+            self._st = stm.init_speech_tokenizer(4, self._st_cfg, self.device)
+        self.conditioning_weightless = ecapa_weights is None
+        if not self.weightless and self.conditioning_weightless:
+            log.warning("TorchCosyVoiceTts: main TTS weights are loaded but the ECAPA "
+                        "conditioning model is random: cloned voices carry no speaker identity")
+        # the voice-prompt window: mel frames == token_mel_ratio * tokens, or
+        # the flow's prompt strip mis-slices the generated frames
         ratio = self.cfg.flow.token_mel_ratio
+        self._prompt_tokens = 50                 # 2 s of FSQ tokens at 25 Hz
+        self._prompt_frames = self._prompt_tokens * ratio
         self._noref_tokens = 2                   # live zero prompt slots without a reference
         self._noref_frames = self._noref_tokens * ratio
         self._call_count = 0
@@ -384,12 +415,19 @@ class TorchCosyVoiceTts:
             ids = self.tokenizer.encode(style_prompt)[: min(room, 128)] + ids
         return ids
 
+    def _cond(self, ref16: np.ndarray):
+        """Voice-prompt conditioning of a 10 s 16 kHz reference → (speaker
+        embedding [1, spk_dim], prompt mel [1, 2 s of frames, n_mels] in the
+        serving dtype, prompt speech tokens [1, 50] int32)."""
+        x = torch.from_numpy(np.ascontiguousarray(ref16, np.float32)).to(self.device)
+        spk = ecm.embed_audio(self._ecapa, self._ecapa_cfg, x[None])
+        ref24 = resample(x, 16_000, 24_000)
+        pmel = kaldi_fbank(ref24[None], sr=24_000)[:, : self._prompt_frames].to(self.dtype)
+        ids = stm.tokenize_audio(self._st, self._st_cfg, ref24)
+        psp = (ids[None, : self._prompt_tokens] % self.cfg.lm.speech_token_size).to(torch.int32)
+        return spk.to(self.dtype), pmel, psp
+
     def _prepare_conditioning(self, text: str, reference_audio_16k, style_prompt: str = ""):
-        if self._ref_usable(reference_audio_16k):
-            raise NotImplementedError(
-                "voice cloning needs voice-prompt conditioning (ECAPA speaker embedding, "
-                "kaldi fbank prompt mel, FSQ prompt speech tokens), which the port does "
-                "not have yet; synthesize without a reference")
         ids = self._text_ids(text, style_prompt, reference_audio_16k)
         bucket = _bucket_capped(max(len(ids), 1), TEXT_BUCKETS)
         toks = np.zeros((1, bucket), np.int32)
@@ -397,10 +435,15 @@ class TorchCosyVoiceTts:
         tmask = np.zeros((1, bucket), bool)
         tmask[0, : len(ids)] = True
         dev = self.device
-        spk = torch.zeros((1, self.cfg.flow.spk_embed_dim), dtype=self.dtype, device=dev)
-        pmel = torch.zeros((1, self._noref_frames, self.cfg.flow.n_mels), dtype=self.dtype,
-                           device=dev)
-        psp = torch.zeros((1, self._noref_tokens), dtype=torch.int32, device=dev)
+        if self._ref_usable(reference_audio_16k):
+            # a fixed 10 s window; a shorter reference is tiled (np.resize)
+            ref = np.asarray(reference_audio_16k, np.float32).reshape(-1)[: 16_000 * 10]
+            spk, pmel, psp = self._cond(np.resize(ref, 16_000 * 10))
+        else:
+            spk = torch.zeros((1, self.cfg.flow.spk_embed_dim), dtype=self.dtype, device=dev)
+            pmel = torch.zeros((1, self._noref_frames, self.cfg.flow.n_mels), dtype=self.dtype,
+                               device=dev)
+            psp = torch.zeros((1, self._noref_tokens), dtype=torch.int32, device=dev)
         pmm = torch.ones(pmel.shape[:2], dtype=torch.bool, device=dev)
         seconds = float(np.clip(len(text) * self.seconds_per_char, 0.6, 30.0))
         max_new = _bucket_capped(int(seconds * 25), TTS_BUDGET_BUCKETS)
@@ -440,7 +483,8 @@ def torch_engines(*, scale: str = "toy", device=None, **kwargs) -> Engines:
     ``scale="reference"`` serves Whisper-medium / NLLB-600M / CosyVoice-0.5B
     dims; ``"toy"`` the small structure-test dims. ``asr_cfg``/``asr_params``,
     ``nmt_cfg``/``nmt_params``/``lang_code_to_id``, ``tts_cfg``/``tts_params``/
-    ``tts_noise``, ``tokenizer`` and ``dtype`` pass through to the engines."""
+    ``tts_noise``/``tts_ecapa``/``tts_speech_tokenizer`` (each ``(params,
+    cfg)``), ``tokenizer`` and ``dtype`` pass through to the engines."""
     dev = resolve_device(device)
     if scale == "reference":
         for k, v in reference_scale_configs().items():
@@ -454,5 +498,7 @@ def torch_engines(*, scale: str = "toy", device=None, **kwargs) -> Engines:
     nmt = TorchNllbNmt(kwargs.get("nmt_cfg"), kwargs.get("nmt_params"), tok, device=dev,
                        lang_code_to_id=kwargs.get("lang_code_to_id"), dtype=dtype)
     tts = TorchCosyVoiceTts(kwargs.get("tts_cfg"), kwargs.get("tts_params"), tok, device=dev,
-                            dtype=dtype, noise=kwargs.get("tts_noise"))
+                            dtype=dtype, noise=kwargs.get("tts_noise"),
+                            ecapa_weights=kwargs.get("tts_ecapa"),
+                            speech_tokenizer_weights=kwargs.get("tts_speech_tokenizer"))
     return Engines(asr=asr, nmt=nmt, tts=tts)

@@ -1,0 +1,167 @@
+"""The port's decode kernels (fused norm→matvec, fused norm→MLP, packed-int4
+matmul) against the JAX package's Pallas kernels on the CPU.
+
+A CPU tensor makes each wrapper run its plain PyTorch version, which is held
+against the Pallas kernel in interpret mode on the same numpy-seeded f32
+inputs. Tolerances: the norm kernels to rtol = atol = 2e-5, as
+tests/test_pallas_decode.py holds the Pallas kernels against XLA (f32 sums
+over up to 1280 products in another order; the JAX gelu's A&S erf is within
+1.5e-7 of the exact erf used here); int4 to 1e-5 of the output's peak: both
+sides take f32 sums of the same exact integer weights, in another order. The
+packings are byte-exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from expressive_speech_translation_tpu.ops import pallas_decode as jpd
+from expressive_speech_translation_tpu.ops import pallas_int4 as jpi
+from expressive_speech_translation_tpu_torch.ops import cuda_decode, cuda_int4
+
+DECODE_TOL = 2e-5
+INT4_RTOL = 1e-5
+
+
+def _mk(g, *shape, s=0.05):
+    return (g.standard_normal(shape) * s).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("bsz,d,n,norm,eps", [
+    (2, 256, 768, "layer", 1e-5),     # qkv
+    (1, 128, 512, "none", 1e-5),
+    (4, 256, 384, "rms", 1e-6),
+])
+def test_ln_matvec_plain_matches_pallas(bsz, d, n, norm, eps):
+    g = np.random.default_rng(d + n)
+    x, sc, bi = _mk(g, bsz, d, s=1.0), _mk(g, d, s=1.0), _mk(g, d)
+    w, b = _mk(g, d, n), _mk(g, n)
+    want = jpd.fused_ln_matvec(*map(jnp.asarray, (x, sc, bi, w, b)), norm=norm, eps=eps,
+                               interpret=True)
+    got = cuda_decode.fused_ln_matvec(*map(_t, (x, sc, bi, w, b)), norm=norm, eps=eps)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (bsz, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=DECODE_TOL, atol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("bsz,d,f,gated,norm,eps,activation,residual", [
+    (1, 256, 1024, False, "layer", 1e-5, "gelu", True),     # whisper / NLLB mlp
+    (4, 256, 1024, False, "layer", 1e-5, "gelu", True),
+    (2, 128, 512, False, "layer", 1e-5, "gelu", False),
+    (1, 256, 1280, True, "rms", 1e-6, "silu", True),        # qwen2 gated mlp
+    (2, 128, 384, False, "none", 1e-5, "relu", True),
+])
+def test_ln_mlp_plain_matches_pallas(bsz, d, f, gated, norm, eps, activation, residual):
+    g = np.random.default_rng(d + f + bsz)
+    x, sc, bi = _mk(g, bsz, d, s=1.0), _mk(g, d, s=1.0), _mk(g, d)
+    w1, b1, w2, b2 = _mk(g, d, f), _mk(g, f), _mk(g, f, d), _mk(g, d)
+    wg = _mk(g, d, f) if gated else None
+    jpacked = jpd.pack_mlp(jnp.asarray(w1), jnp.asarray(w2),
+                           None if wg is None else jnp.asarray(wg))
+    kw = dict(gated=gated, norm=norm, eps=eps, activation=activation, residual=residual)
+    want = jpd.fused_ln_mlp(jnp.asarray(x), jnp.asarray(sc), jnp.asarray(bi), jpacked,
+                            jnp.asarray(b1), jnp.asarray(b2), interpret=True, **kw)
+    packed = cuda_decode.pack_mlp(_t(w1), _t(w2), None if wg is None else _t(wg))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
+    got = cuda_decode.fused_ln_mlp(_t(x), _t(sc), _t(bi), packed, _t(b1), _t(b2), **kw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (bsz, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=DECODE_TOL, atol=DECODE_TOL)
+
+
+@pytest.mark.parametrize("b,k,n", [(8, 256, 512), (8, 128, 384), (1, 64, 128)])
+def test_matmul_int4_plain_matches_pallas(b, k, n):
+    g = np.random.default_rng(k + n)
+    w, x = g.standard_normal((k, n)).astype(np.float32), g.standard_normal((b, k)).astype(np.float32)
+    jpacked, jscale = jpi.pack_int4(jnp.asarray(w))
+    packed, scale = cuda_int4.pack_int4(_t(w))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))
+    assert packed.dtype == torch.int8 and scale.dtype == torch.float32
+    want = np.asarray(jpi.matmul_int4(jnp.asarray(x), jpacked, jscale, block_n=128,
+                                      interpret=True))
+    got = cuda_int4.matmul_int4(_t(x), packed, scale).numpy()
+    assert got.shape == want.shape == (b, n)
+    assert np.abs(got - want).max() <= INT4_RTOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_and_unpack_int4_match_jax(dtype):
+    g = np.random.default_rng(5)
+    w = g.standard_normal((64, 256)).astype(np.float32)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jpacked, jscale = jpi.pack_int4(jnp.asarray(w, jdtype))
+    packed, scale = cuda_int4.pack_int4(_t(w).to(dtype))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(jpacked))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))
+    want = np.asarray(jpi.unpack_int4(jpacked, jscale, dtype=jnp.float32))
+    np.testing.assert_array_equal(cuda_int4.unpack_int4(packed, scale, torch.float32).numpy(), want)
+    with pytest.raises(ValueError, match="even K"):
+        cuda_int4.pack_int4(torch.zeros((7, 128)))
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    before = (cuda_decode.fused_ln_matvec.launches, cuda_decode.fused_ln_mlp.launches,
+              cuda_int4.matmul_int4.launches)
+    g = torch.Generator().manual_seed(0)
+    x, sc, bi = torch.randn((2, 128), generator=g), torch.randn(128, generator=g), torch.zeros(128)
+    w, b = torch.randn((128, 256), generator=g) * 0.05, torch.zeros(256)
+    assert torch.equal(cuda_decode.fused_ln_matvec(x, sc, bi, w, b),
+                       cuda_decode.fused_ln_matvec_plain(x, sc, bi, w, b))
+    packed = cuda_decode.pack_mlp(w, w.T.contiguous())
+    assert torch.equal(cuda_decode.fused_ln_mlp(x, sc, bi, packed, b, torch.zeros(128)),
+                       cuda_decode.fused_ln_mlp_plain(x, sc, bi, packed, b, torch.zeros(128)))
+    p, s = cuda_int4.pack_int4(w)
+    assert torch.equal(cuda_int4.matmul_int4(x, p, s), cuda_int4.matmul_int4_plain(x, p, s))
+    assert (cuda_decode.fused_ln_matvec.launches, cuda_decode.fused_ln_mlp.launches,
+            cuda_int4.matmul_int4.launches) == before
+
+
+def test_wrappers_validate_before_any_launch():
+    """Widths the JAX functions refuse raise on every device; a tensor on a
+    device other than CPU or CUDA reaches neither version; the checks a
+    launch needs (dtype, layout, alignment) raise before it."""
+    x, v = torch.zeros((1, 128)), torch.zeros(128)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cuda_decode.fused_ln_matvec(x, v, v, torch.zeros((128, 200)), torch.zeros(200))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cuda_decode.fused_ln_mlp(x, v, v, torch.zeros((256, 100)), torch.zeros(100), v)
+    with pytest.raises(ValueError, match="w_packed"):
+        cuda_decode.fused_ln_mlp(x, v, v, torch.zeros((256, 128)), torch.zeros(128), v,
+                                 gated=True)
+    with pytest.raises(ValueError, match=r"\[128, N\]"):
+        cuda_decode.fused_ln_matvec(x, v, v, torch.zeros((64, 128)), v)
+    with pytest.raises(ValueError, match="norm must be"):
+        cuda_decode.fused_ln_matvec(x, v, v, torch.zeros((128, 128)), v, norm="batch")
+    with pytest.raises(ValueError, match="activation must be"):
+        cuda_decode.fused_ln_mlp(x, v, v, torch.zeros((256, 128)), v, v, activation="tanh")
+    p, s = cuda_int4.pack_int4(torch.ones((64, 128)))
+    with pytest.raises(ValueError, match="does not match"):
+        cuda_int4.matmul_int4(torch.zeros((1, 100)), p, s)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cuda_int4.matmul_int4(torch.zeros((1, 64)), torch.zeros((32, 100), dtype=torch.int8),
+                              torch.ones((1, 100)))
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        cuda_decode.fused_ln_matvec(x.to(meta), v, v, torch.zeros((128, 128), device=meta), v)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        cuda_decode.fused_ln_mlp(x.to(meta), v, v, torch.zeros((256, 128), device=meta), v, v)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        cuda_int4.matmul_int4(torch.zeros((1, 64), device=meta), p.to(meta), s.to(meta))
+    w = torch.zeros((128, 128))
+    bad = (
+        (x.half(), (("w", w.half()),), (), TypeError, "float32 or bfloat16"),
+        (x, (("w", w.T),), (), ValueError, "contiguous"),
+        (x, (("w", w.bfloat16()),), (), ValueError, "contiguous torch.float32"),
+        (x, (("w", torch.zeros(128 * 128 + 1)[1:].view(128, 128)),), (), ValueError, "aligned"),
+        (x, (), (("b", torch.zeros(127), 128),), ValueError, "hold 128"),
+    )
+    for xx, mats, vecs, exc, match in bad:
+        with pytest.raises(exc, match=match):
+            cuda_decode._device_operands(xx, mats, vecs, "test")
+    scale, bias = cuda_decode._norm_vectors(x, torch.zeros(1), torch.zeros(1), "none", v)
+    assert scale is v and bias is v

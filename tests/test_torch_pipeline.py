@@ -1,12 +1,14 @@
 """The port's cascade against the JAX package's on the CPU, on shared weights.
 
 Tiny JAX engines draw their own random weights; the port's engines take the
-same parameter trees through ``from_jax_params`` and the TTS takes the JAX
-key schedule's noise (``fold_in(PRNGKey(42), call)`` → split into the LM and
-flow keys). ``translate_speech`` must then give token-exact transcripts and
-the same 16 kHz audio within 1e-4: everything after the vocoder is the same
-host numpy on both sides, and the vocoder output differs only by f32
-summation order.
+same parameter trees through ``from_jax_params`` (the TTS's conditioning
+models, ECAPA and the FSQ speech tokenizer, through its ``ecapa_weights`` /
+``speech_tokenizer_weights`` seams) and the TTS takes the JAX key schedule's
+noise (``fold_in(PRNGKey(42), call)`` → split into the LM and flow keys).
+``translate_speech`` must then give token-exact transcripts and the same
+16 kHz audio within 1e-4: everything after the vocoder is the same host
+numpy on both sides, and the vocoder output differs only by f32 summation
+order.
 """
 
 import os
@@ -30,8 +32,10 @@ from expressive_speech_translation_tpu.pipeline.engines import Engines as JaxEng
 from expressive_speech_translation_tpu.pipeline.jax_engines import (
     JaxCosyVoiceTts, JaxNllbNmt, JaxWhisperAsr)
 from expressive_speech_translation_tpu_torch.models import cosyvoice as tcv
+from expressive_speech_translation_tpu_torch.models import ecapa as tec
 from expressive_speech_translation_tpu_torch.models import nllb as tnl
 from expressive_speech_translation_tpu_torch.models import qwen2 as tq2
+from expressive_speech_translation_tpu_torch.models import speech_tokenizer as tst
 from expressive_speech_translation_tpu_torch.models import whisper as twh
 from expressive_speech_translation_tpu_torch.pipeline.cascaded import CascadedBackend
 from expressive_speech_translation_tpu_torch.pipeline.engines import Engines
@@ -115,8 +119,13 @@ def cascades():
     nmt = TorchNllbNmt(tnl.NLLBConfig(**_fields(NCFG)), tnl.from_jax_params(_np(jnmt.params), cpu),
                        device=cpu, lang_code_to_id=lang_ids, dtype=torch.float32,
                        max_new_tokens=12)
-    tts = TorchCosyVoiceTts(TCCFG, tcv.from_jax_params(_np(jtts.params), cpu), device=cpu,
-                            dtype=torch.float32, noise=JaxCallNoise)
+    tts = TorchCosyVoiceTts(
+        TCCFG, tcv.from_jax_params(_np(jtts.params), cpu), device=cpu, dtype=torch.float32,
+        noise=JaxCallNoise,
+        ecapa_weights=(tec.from_jax_params(_np(jtts._ecapa), cpu),
+                       tec.EcapaConfig(**_fields(jtts._ecapa_cfg))),
+        speech_tokenizer_weights=(tst.from_jax_params(_np(jtts._st), cpu),
+                                  tst.SpeechTokenizerConfig(**_fields(jtts._st_cfg))))
     # the JAX engines drew their own weights, so they run with the
     # random-weight policies (no empty-translation failure, wrapped ids)
     nmt.weightless = tts.weightless = True
@@ -137,6 +146,43 @@ def test_translate_speech_matches_jax_cascade(cascades):
     assert np.isfinite(got["audio"]).all()
     np.testing.assert_allclose(got["audio"], want["audio"], atol=AUDIO_ATOL, rtol=0)
     assert set(got["stage_summary"]) == {"asr", "nmt", "tts", "post", "total"}
+
+
+def test_translate_speech_at_its_defaults_clones_the_voice_like_jax(cascades):
+    """``translate_speech(x, src, tgt)`` with default arguments clones the
+    source voice: the first 10 s of the source (tiled when shorter)
+    conditions TTS through ECAPA, the Kaldi-fbank prompt mel and the FSQ
+    prompt tokens, and the source transcript rides ahead of the text."""
+    jax_backend, backend = cascades
+    x = _speechlike(4.5, seed=8)
+    want = jax_backend.translate_speech(x, "eng", "fra")
+    got = backend.translate_speech(x, "eng", "fra")
+    assert got["transcripts"] == want["transcripts"]
+    assert got["audio"].shape == want["audio"].shape
+    assert np.isfinite(got["audio"]).all()
+    np.testing.assert_allclose(got["audio"], want["audio"], atol=AUDIO_ATOL, rtol=0)
+
+
+def test_synthesize_with_a_reference_matches_jax(cascades):
+    """The cloning branch on its own: the conditioning (speaker embedding,
+    prompt mel, prompt speech tokens) and the synthesized audio."""
+    jax_backend, backend = cascades
+    jtts, tts = jax_backend.engines.tts, backend.engines.tts
+    ref = _speechlike(3.2, seed=12)
+    ref10 = np.resize(ref, 16_000 * 10)
+    jspk, jpmel, jpsp = jtts._cond_fn(jtts._ecapa, jtts._st, ref10)
+    spk, pmel, psp = tts._cond(ref10)
+    assert psp.dtype == torch.int32 and tuple(psp.shape) == (1, 50)
+    np.testing.assert_array_equal(psp.numpy(), np.asarray(jpsp))
+    assert tuple(pmel.shape) == (1, 50 * TCCFG.flow.token_mel_ratio, TCCFG.flow.n_mels)
+    np.testing.assert_allclose(spk.numpy(), np.asarray(jspk), atol=1e-5, rtol=0)
+    # ln fbank: 1e-4 for bands within 50 dB of the frame's peak (see
+    # tests/test_torch_conditioning.py); the weakest bands only to 1e-3
+    np.testing.assert_allclose(pmel.numpy(), np.asarray(jpmel), atol=1e-3, rtol=0)
+    want = jtts.synthesize("bonjour a tous", style_prompt="hello all", reference_audio_16k=ref)
+    got = tts.synthesize("bonjour a tous", style_prompt="hello all", reference_audio_16k=ref)
+    assert got.shape == want.shape and got.size > 0
+    np.testing.assert_allclose(got, want, atol=AUDIO_ATOL, rtol=0)
 
 
 def test_translate_text_matches_jax_cascade(cascades):
@@ -207,10 +253,14 @@ def test_port_runs_without_jax_or_the_jax_package():
                 vocoder=cv.VocoderConfig(base_channels=32)))
         eng.asr.max_new_tokens = eng.nmt.max_new_tokens = 8
         backend = CascadedBackend(eng)
-        backend.initialize()
-        out = backend.translate_speech(np.zeros(16_000, np.float32), "eng", "fra",
-                                       use_voice_cloning=False)
-        assert out["audio"].ndim == 2 and np.isfinite(out["audio"]).all()
+        backend.initialize()              # warms TTS through the cloning path
+        x = np.sin(np.arange(24_000) / 7.0).astype(np.float32)
+        for cloning in (True, False):
+            out = backend.translate_speech(x, "eng", "fra", use_voice_cloning=cloning)
+            assert out["audio"].ndim == 2 and np.isfinite(out["audio"]).all()
+        from expressive_speech_translation_tpu_torch.models import ecapa, speech_tokenizer
+        from expressive_speech_translation_tpu_torch.ops import (
+            cuda_decode, cuda_int4, mel, resample)
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "expressive_speech_translation_tpu"
                or m.startswith("expressive_speech_translation_tpu.")]
@@ -233,9 +283,16 @@ def test_torch_engines_without_a_device_need_the_card():
         TorchNllbNmt(tnl.NLLBConfig(**_fields(NCFG)))
 
 
-def test_voice_cloning_raises_until_conditioning_is_ported():
+def test_a_reference_of_at_most_a_tenth_of_a_second_engages_no_cloning():
+    """As in the JAX engine: above 1600 samples the reference conditions the
+    speech (and its transcript is prepended); at or below, nothing does."""
     tts = TorchCosyVoiceTts(TCCFG, device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="voice-prompt conditioning"):
-        tts.synthesize("hello", style_prompt="hi", reference_audio_16k=np.zeros(16_000, np.float32))
-    # a reference of 0.1 s or less engages no cloning, as in the JAX engine
-    assert tts.synthesize("hi", reference_audio_16k=np.zeros(1600, np.float32)).size > 0
+    calls = []
+    cond = tts._cond
+    tts._cond = lambda ref: calls.append(ref.shape) or cond(ref)
+    assert tts.synthesize("hi", style_prompt="yo", reference_audio_16k=np.zeros(1600, np.float32)).size > 0
+    assert calls == []
+    assert tts._text_ids("hi", "yo", np.zeros(1600)) == tts._text_ids("hi", "", None)
+    assert tts.synthesize("hi", style_prompt="yo", reference_audio_16k=np.ones(1601, np.float32)).size > 0
+    assert calls == [(160_000,)]
+    assert tts.conditioning_weightless and tts._ecapa_cfg.channels == 128
