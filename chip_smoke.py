@@ -32,7 +32,6 @@ import functools
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -41,6 +40,7 @@ import torch
 
 import torch.nn.functional as F
 
+from expressive_speech_translation_tpu_torch.obs.perf import card_line, stack_time, sync_time
 from expressive_speech_translation_tpu_torch.ops import (build, cuda_decode, cuda_int4,
                                                           cuda_mel, cuda_vocoder)
 
@@ -62,28 +62,6 @@ DILATIONS = ((1, 3, 5),) * 3
 OUT_DIR = "chiprun_out"
 PORT = "expressive_speech_translation_tpu_torch"
 REFERENCE = PORT.removesuffix("_torch")  # the JAX package the port replaces
-
-
-def _sync_time(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds of ``fn()`` over ``iters`` launches (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
-    return out.splitlines()[0]
 
 
 def _speechlike(seconds: float, seed: int, sr: int = 16_000) -> np.ndarray:
@@ -112,8 +90,8 @@ def check_log_mel(dev, report):
         if not (got.shape == (80, chunk // 160) and math.isfinite(err) and err <= MEL_ATOL):
             raise AssertionError(f"log-mel {window_s}s: shape {tuple(got.shape)}, "
                                  f"max |err| {err} > {MEL_ATOL}")
-        ms = _sync_time(lambda: cuda_mel.log_mel_frames(audio, 80, chunk), 200)
-        plain_ms = _sync_time(lambda: cuda_mel.log_mel_frames_plain(audio, 80, chunk), 50)
+        ms = sync_time(lambda: cuda_mel.log_mel_frames(audio, 80, chunk), 200)
+        plain_ms = sync_time(lambda: cuda_mel.log_mel_frames_plain(audio, 80, chunk), 50)
         win = torch.hann_window(400, device=dev)
         fb = torch.as_tensor(cuda_mel._constants_np(80)[2], device=dev)
         x = audio[:chunk]
@@ -123,7 +101,7 @@ def check_log_mel(dev, report):
                               return_complex=True)
             return (spec.abs() ** 2).T @ fb
 
-        library_ms = _sync_time(library, 200)
+        library_ms = sync_time(library, 200)
         frames = chunk // 160
         flops = 2 * frames * 400 * 402 + 2 * frames * 201 * 80
         nbytes = chunk * 4 + 2 * 400 * 201 * 4 + 201 * 80 * 4 + frames * 80 * 4
@@ -175,9 +153,9 @@ def check_resblock(dev, report):
             row = {"C": c, "T": t, "dtype": str(dtype).split(".")[-1],
                    "max_abs_err": err, "peak": peak}
             if t % 1000 == 0:
-                row["ms"] = _sync_time(lambda: cuda_vocoder.fused_resblock_stage(
+                row["ms"] = sync_time(lambda: cuda_vocoder.fused_resblock_stage(
                     x, w, kernels=KERNELS, dilations=DILATIONS), 20, warmup=2)
-                row["plain_ms"] = _sync_time(lambda: cuda_vocoder.resblock_stage_plain(
+                row["plain_ms"] = sync_time(lambda: cuda_vocoder.resblock_stage_plain(
                     x, w, kernels=KERNELS, dilations=DILATIONS), 10, warmup=2)
                 taps = sum(2 * k * len(d) for k, d in zip(KERNELS, DILATIONS))
                 flops = 2 * c * c * t * taps
@@ -209,28 +187,17 @@ MLP_SHAPES = (  # (label, B, D, F, gated, norm, eps, activation)
     ("whisper-medium / nllb-600m mlp", 1, 1024, 4096, False, "layer", 1e-5, "gelu"),
     ("qwen2-0.5b gated mlp", 1, 896, 4864, True, "rms", 1e-6, "silu"),
 )
-INT4_SHAPES = ((8, 2048, 8192), (1, 1024, 4096))  # (B, K, N)
+INT4_SHAPES = ((8, 2048, 8192), (1, 1024, 4096))  # (B, K, N), timed
+# correctness only, for the tensor-core kernel: K/2 = 100 and 104 end in a
+# ragged k-step (x copied element by element, and with cp.async); 16 rows
+# take two n-tiles; 20 rows a group of 16 and then a group of 4
+INT4_EDGE_SHAPES = ((3, 200, 384), (3, 208, 384), (16, 2048, 1024), (20, 2048, 1024))
 
 
 def _stack_layers(layer_bytes: int) -> int:
     """Distinct weight layers to time over: at least 24, and at least 100 MB,
     so repeated launches cannot be served from the 50 MB L2."""
     return max(STACK_MIN_LAYERS, math.ceil(STACK_MIN_BYTES / layer_bytes))
-
-
-def _stack_time(calls, reps: int = 20) -> tuple:
-    """(device ms, eager ms) of one call over passes of a layer stack. The
-    device time replays one pass captured as a CUDA graph, so the host's
-    launch cost (a few tens of µs of Python and ctypes a call, more than these
-    kernels take) stays out of it; the eager time launches from Python."""
-    eager = _sync_time(lambda: [c() for c in calls], 3, warmup=1) / len(calls)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for c in calls:
-            c()
-    device = _sync_time(graph.replay, reps) / len(calls)
-    del graph
-    return device, eager
 
 
 def _compare(label, dtype, got, want):
@@ -262,7 +229,7 @@ def _time_stack(row, stack, kernel, plain, chain, chain_calls, nbytes, flops):
     of one layer's weights) over the layer ``stack``; add the times, the
     bound and its share to ``row``."""
     for key, fn in (("", kernel), ("plain_", plain), ("chain_", chain)):
-        row[f"{key}ms"], row[f"{key}eager_ms"] = _stack_time(
+        row[f"{key}ms"], row[f"{key}eager_ms"] = stack_time(
             [functools.partial(fn, layer) for layer in stack])
     row.update(layers=len(stack), chain_calls=chain_calls, **_bound(nbytes, flops))
     row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -357,11 +324,14 @@ def check_ln_mlp(dev, report):
 
 
 def check_int4(dev, report):
-    """Kernel 5 at B=8 K=2048 N=8192 and B=1 K=1024 N=4096, bf16 and f32;
-    bf16 timed over a stack with the plain version and torch.matmul on bf16
-    weights dequantised beforehand (1 call, 4x the weight bytes)."""
+    """Kernel 5, bf16 (tensor-core variant) and f32 (CUDA-core variant), at
+    B=8 K=2048 N=8192 and B=1 K=1024 N=4096, and for correctness alone at a
+    ragged k-step (B=3 K=200 N=384) and two n-tiles (B=16 K=2048 N=1024);
+    bf16 at the first two timed over a stack with the plain version and
+    torch.matmul on bf16 weights dequantised beforehand (1 call, 4x the
+    weight bytes)."""
     rows = []
-    for bsz, k, n in INT4_SHAPES:
+    for bsz, k, n in INT4_SHAPES + INT4_EDGE_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             g = _gen(dev, k + n + bsz)
             x = _randn((bsz, k), g, dev, dtype)
@@ -370,8 +340,9 @@ def check_int4(dev, report):
             want = cuda_int4.matmul_int4_plain(x, p, s)
             err, peak = _compare(f"int4 B={bsz} K={k} N={n}", dtype, got, want)
             row = {"shape": f"B={bsz} K={k} N={n}", "B": bsz, "K": k, "N": n,
-                   "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "peak": peak}
-            if dtype == torch.bfloat16:
+                   "dtype": str(dtype).split(".")[-1], "variant": cuda_int4.variant(dtype),
+                   "max_abs_err": err, "peak": peak}
+            if dtype == torch.bfloat16 and (bsz, k, n) in INT4_SHAPES:
                 es = x.element_size()
                 stack = [(p, s)] + [cuda_int4.pack_int4(_randn((k, n), g, dev, torch.float32))
                                     for _ in range(_stack_layers(k * n // 2) - 1)]
@@ -399,7 +370,8 @@ def _print_decode_row(name, row):
                  f"{row['layers']} layers, graph-replayed; launched from Python: kernel "
                  f"{row['eager_ms']:.4f}, plain {row['plain_eager_ms']:.4f}, chain "
                  f"{row['chain_eager_ms']:.4f} ms)")
-    print(f"  {name} {row['shape']} {row['dtype']}: err {row['max_abs_err']:.2e} "
+    variant = f" [{row['variant']}]" if "variant" in row else ""
+    print(f"  {name} {row['shape']} {row['dtype']}{variant}: err {row['max_abs_err']:.2e} "
           f"(peak {row['peak']:.3f}){extra}", flush=True)
 
 
@@ -560,11 +532,13 @@ def build_phase(report):
     logs = build.build()
     seconds = time.perf_counter() - t0
     for name, info in logs.items():
-        ptxas = [ln for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln or "smem" in ln]
         print(f"  {name}: {info['seconds']:.1f} s", flush=True)
-        for ln in ptxas:
-            print(f"    {ln.strip()}", flush=True)
+        for ln in info["log"].splitlines():
+            if "Compiling entry function" in ln:  # names the kernel the next lines describe
+                kernel = ln.split("'")[1]
+                print(f"    {kernel}", flush=True)
+            elif "registers" in ln or "spill" in ln or "smem" in ln:
+                print(f"    {ln.strip()}", flush=True)
     print(f"  build total {seconds:.1f} s", flush=True)
     report["build_seconds"] = seconds
     return seconds

@@ -1,12 +1,16 @@
 """Per-stage wall time and real-time factor (copy of the JAX package's
-obs/perf.py ``StageTimer``, without its psutil dependency)."""
+obs/perf.py ``StageTimer``, without its psutil dependency), and the card's
+clock for kernels: CUDA-event times, CUDA-graph replays, the card line."""
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Sequence
+
+import torch
 
 
 def rtf(processing_seconds: float, audio_seconds: float) -> float:
@@ -45,3 +49,41 @@ class StageTimer:
         total = self.total_seconds()
         out["total"] = {"seconds": total, "xrt": rtf(total, self.audio_seconds)}
         return out
+
+
+def sync_time(fn: Callable[[], object], iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds of ``fn()`` over ``iters`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def stack_time(calls: Sequence[Callable[[], object]], reps: int = 20) -> tuple:
+    """(device ms, eager ms) of one call over passes of a layer stack. The
+    device time replays one pass captured as a CUDA graph, so the host's
+    launch cost (a few tens of µs of Python and ctypes a call, more than the
+    decode kernels take) stays out of it; the eager time launches from Python."""
+    eager = sync_time(lambda: [c() for c in calls], 3, warmup=1) / len(calls)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in calls:
+            c()
+    device = sync_time(graph.replay, reps) / len(calls)
+    del graph
+    return device, eager
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    return out.splitlines()[0]

@@ -67,11 +67,18 @@ def _lib():
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.est_matmul_int4.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.est_matmul_int4.restype = i
-        lib.est_int4_splits.argtypes = [i, i]
-        lib.est_int4_splits.restype = i
-        lib.est_int4_smem.argtypes = [i, i, i]
-        lib.est_int4_smem.restype = q
+        for fn in (lib.est_int4_scratch_floats, lib.est_int4_smem):
+            fn.argtypes = [i, i, i, i]
+            fn.restype = q
     return lib
+
+
+def variant(dtype: torch.dtype) -> str:
+    """The kernel a CUDA tensor of this dtype launches, decided here alone
+    (:func:`matmul_int4` passes it on as the C entry point's bf16 flag): bf16
+    x runs its products on the tensor cores, f32 x on the CUDA cores (tensor
+    cores would round x to bf16 or TF32)."""
+    return "tensor-core" if dtype == torch.bfloat16 else "cuda-core"
 
 
 def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -79,7 +86,11 @@ def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> t
     dtype — the port of ``matmul_int4``.
 
     A CPU tensor takes :func:`matmul_int4_plain`; a CUDA tensor launches the
-    kernel (counted in ``matmul_int4.launches``) or raises."""
+    kernel (counted in ``matmul_int4.launches``) or raises: the
+    :func:`variant` of x's dtype."""
+    if x.dim() != 2 or packed.dim() != 2:
+        raise ValueError(f"matmul_int4 takes x [B, K] and packed [K/2, N], got "
+                         f"{tuple(x.shape)} and {tuple(packed.shape)}")
     bsz, k = x.shape
     kh, n = packed.shape
     if kh * 2 != k:
@@ -102,18 +113,17 @@ def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> t
     if scale.device != x.device:
         raise ValueError(f"int4 scale must be on {x.device}")
     lib = _lib()
-    if lib.est_int4_smem(k, n, bsz) > SMEM_OPTIN_BYTES:
+    bf16 = int(variant(x.dtype) == "tensor-core")
+    if lib.est_int4_smem(bsz, k, n, bf16) > SMEM_OPTIN_BYTES:
         raise ValueError(f"matmul_int4: K={k} does not fit a block's shared memory")
     scale32 = scale.reshape(-1).float().contiguous()
     out = torch.empty((bsz, n), dtype=x.dtype, device=x.device)
     if bsz == 0:
         return out
-    splits = lib.est_int4_splits(k, n)
-    part = torch.empty((splits * min(bsz, 8) * n if splits > 1 else 1,), dtype=torch.float32,
-                       device=x.device)
+    part = torch.empty((max(1, lib.est_int4_scratch_floats(bsz, k, n, bf16)),),
+                       dtype=torch.float32, device=x.device)
     status = lib.est_matmul_int4(x.data_ptr(), packed.data_ptr(), scale32.data_ptr(),
-                                 out.data_ptr(), part.data_ptr(), bsz, k, n,
-                                 int(x.dtype == torch.bfloat16),
+                                 out.data_ptr(), part.data_ptr(), bsz, k, n, bf16,
                                  torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "matmul_int4")
     matmul_int4.launches += 1

@@ -73,7 +73,13 @@ def test_ln_mlp_plain_matches_pallas(bsz, d, f, gated, norm, eps, activation, re
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=DECODE_TOL, atol=DECODE_TOL)
 
 
-@pytest.mark.parametrize("b,k,n", [(8, 256, 512), (8, 128, 384), (1, 64, 128)])
+@pytest.mark.parametrize("b,k,n", [
+    (8, 256, 512), (8, 128, 384), (1, 64, 128),
+    (3, 200, 384),     # K/2 = 100: a ragged last k-step for the tensor-core kernel
+    (16, 256, 256),    # 16 batch rows: two n-tiles in one launch
+    (3, 208, 384),     # K/2 = 104: a ragged last k-step with 16-byte copies of x
+    (20, 256, 256),    # 20 batch rows: a group of 16, then a group of 4
+])
 def test_matmul_int4_plain_matches_pallas(b, k, n):
     g = np.random.default_rng(k + n)
     w, x = g.standard_normal((k, n)).astype(np.float32), g.standard_normal((b, k)).astype(np.float32)
@@ -121,6 +127,14 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
             cuda_int4.matmul_int4.launches) == before
 
 
+@pytest.mark.parametrize("dtype,kernel", [(torch.bfloat16, "tensor-core"),
+                                          (torch.float32, "cuda-core")])
+def test_int4_variant_follows_the_dtype(dtype, kernel):
+    """bf16 x takes the tensor-core kernel; f32 keeps the CUDA-core one, whose
+    sums of unrounded x meet the 1e-5 tolerance."""
+    assert cuda_int4.variant(dtype) == kernel
+
+
 def test_wrappers_validate_before_any_launch():
     """Widths the JAX functions refuse raise on every device; a tensor on a
     device other than CPU or CUDA reaches neither version; the checks a
@@ -145,6 +159,8 @@ def test_wrappers_validate_before_any_launch():
     with pytest.raises(ValueError, match="multiple of 128"):
         cuda_int4.matmul_int4(torch.zeros((1, 64)), torch.zeros((32, 100), dtype=torch.int8),
                               torch.ones((1, 100)))
+    with pytest.raises(ValueError, match=r"x \[B, K\] and packed \[K/2, N\]"):
+        cuda_int4.matmul_int4(torch.zeros(64), p, s)
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         cuda_decode.fused_ln_matvec(x.to(meta), v, v, torch.zeros((128, 128), device=meta), v)
