@@ -81,6 +81,31 @@ def stack_time(calls: Sequence[Callable[[], object]], reps: int = 20) -> tuple:
     return device, eager
 
 
+def graph_turns(fns: Dict[str, Callable[[], object]], calls: int = 50, rounds: int = 4,
+                reps: int = 10) -> Dict[str, list]:
+    """Device ms of one call of each ``fn``, one time per turn. Each ``fn`` is
+    warmed up eagerly, then captured ``calls`` times in a row into a CUDA graph
+    of its own, so the host's launch cost stays out of a call of a few µs; the
+    graphs are replayed in turns (A B C, C B A, …) ``rounds`` times, ``reps``
+    replays a turn, so versions compared share the card's clocks and caches."""
+    graphs = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graphs[name] = graph
+    times: Dict[str, list] = {name: [] for name in fns}
+    order = list(graphs)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(sync_time(graphs[name].replay, reps, warmup=1) / calls)
+    del graphs
+    return times
+
+
 def card_line() -> str:
     """The first card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(

@@ -18,6 +18,7 @@ as the JAX engines do.
 from __future__ import annotations
 
 import logging
+import os
 import zlib
 from typing import Any, Callable, Dict, List, Optional
 
@@ -37,7 +38,7 @@ from ..ops.mel import kaldi_fbank
 from ..ops.resample import resample
 from .engines import Engines
 from .languages import NLLB_LANGUAGES, nllb_placeholder_lang_ids, whisper_lang_index
-from .tokenizer import ByteTokenizer, Tokenizer
+from .tokenizer import ByteTokenizer, Tokenizer, nllb_lang_ids
 
 log = logging.getLogger(__name__)
 
@@ -298,6 +299,10 @@ class TorchNllbNmt:
             params = nlm.init_nllb(1, self.cfg, self.device)
         self.params = cast_floats(params, dtype)
         self.tokenizer = tokenizer or ByteTokenizer()
+        if lang_code_to_id is None and hasattr(self.tokenizer, "token_to_id"):
+            # language tokens resolve through the tokenizer's vocab, as the
+            # JAX engine resolves FLORES codes
+            lang_code_to_id = nllb_lang_ids(self.tokenizer)
         self.lang_code_to_id = lang_code_to_id or {}
         if not self.lang_code_to_id and self.weightless:
             self.lang_code_to_id = nllb_placeholder_lang_ids(self.cfg.vocab_size)
@@ -307,7 +312,8 @@ class TorchNllbNmt:
         for key in (code, NLLB_LANGUAGES.get(code, "")):
             if key in self.lang_code_to_id:
                 return self.lang_code_to_id[key]
-        raise KeyError(f"language {code!r} has no token id — supply lang_code_to_id")
+        raise KeyError(f"language {code!r} has no token id — supply lang_code_to_id or a "
+                       "tokenizer whose vocab contains the FLORES language tokens")
 
     def _encode_src(self, text: str, source_lang: str) -> List[int]:
         """NLLB source layout: ``[src_lang] tokens … [eos]``."""
@@ -476,15 +482,64 @@ def reference_scale_configs() -> Dict[str, Any]:
             "tts_cfg": cvm.CosyVoiceConfig()}
 
 
+# Keys of the JAX factory that ask for a feature the port lacks: key → (the
+# JAX default, which asks for nothing, and the ROADMAP Queue 1 item that
+# brings the feature). Any other value raises NotImplementedError.
+_QUEUED_KEYS = {
+    "batch_tts": (False, 2), "batch_asr": (False, 2), "batch_nmt": (False, 2),
+    "max_batch": (8, 2), "batch_wait_ms": (20.0, 2),
+    "tts_mtp": (0, 6), "tts_spec": (False, 6),
+    "quantize": (False, 7),
+    "tts_official": (None, 8),
+    "mesh": (None, 12), "stage_parallel": (False, 12), "stage_tp": (1, 12),
+    "stage_meshes": (None, 12),
+}
+_QUEUE_ITEMS = {2: "batched paths", 6: "MTP and speculative speech-token generators",
+                7: "int8", 8: "the official CosyVoice chain and the checkpoint loaders",
+                12: "meshes and stage-parallel serving"}
+_PASSED_KEYS = frozenset((
+    "asr_cfg", "asr_params", "asr_context_buckets", "asr_tokenizer", "nmt_cfg", "nmt_params",
+    "nmt_tokenizer", "lang_code_to_id", "tts_cfg", "tts_params", "tts_tokenizer", "tts_noise",
+    "tts_ecapa", "tts_speech_tokenizer", "tokenizer", "dtype"))
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1 item {item} "
+                               f"({_QUEUE_ITEMS[item]})")
+
+
+def _check_keys(kwargs: Dict[str, Any]) -> None:
+    """Raise for every key the port would otherwise drop: a JAX factory key
+    asking for a feature still queued, a set ``EST_MODELS_DIR``, or a key
+    neither factory knows."""
+    for key, value in kwargs.items():
+        if key in _QUEUED_KEYS:
+            default, item = _QUEUED_KEYS[key]
+            asks = value is not None if default is None else value != default
+            if asks:
+                raise _not_ported(f"torch_engines({key}={value!r})", item)
+        elif key not in _PASSED_KEYS:
+            raise TypeError(f"torch_engines() got an unexpected keyword argument {key!r}")
+    if os.environ.get("EST_MODELS_DIR"):
+        raise _not_ported("loading checkpoints from EST_MODELS_DIR", 8)
+
+
 def torch_engines(*, scale: str = "toy", device=None, **kwargs) -> Engines:
     """Engines wired to the port's models (random weights unless supplied),
     on the card unless ``device="cpu"``.
 
     ``scale="reference"`` serves Whisper-medium / NLLB-600M / CosyVoice-0.5B
-    dims; ``"toy"`` the small structure-test dims. ``asr_cfg``/``asr_params``,
-    ``nmt_cfg``/``nmt_params``/``lang_code_to_id``, ``tts_cfg``/``tts_params``/
-    ``tts_noise``/``tts_ecapa``/``tts_speech_tokenizer`` (each ``(params,
-    cfg)``), ``tokenizer`` and ``dtype`` pass through to the engines."""
+    dims; ``"toy"`` the small structure-test dims. ``asr_cfg``/``asr_params``/
+    ``asr_context_buckets`` (default ``(30,)``), ``nmt_cfg``/``nmt_params``/
+    ``lang_code_to_id``, ``tts_cfg``/``tts_params``/``tts_noise``/``tts_ecapa``/
+    ``tts_speech_tokenizer`` (each ``(params, cfg)``) and ``dtype`` pass
+    through to the engines; ``asr_tokenizer``/``nmt_tokenizer``/
+    ``tts_tokenizer`` override the shared ``tokenizer``, as in the JAX
+    factory. The JAX factory's other keys (batching, MTP and speculative
+    decoding, int8, the official CosyVoice chain, meshes) are accepted at
+    their defaults and raise ``NotImplementedError`` naming the ROADMAP item
+    that brings them otherwise, as does a set ``EST_MODELS_DIR``."""
+    _check_keys(kwargs)
     dev = resolve_device(device)
     if scale == "reference":
         for k, v in reference_scale_configs().items():
@@ -493,11 +548,14 @@ def torch_engines(*, scale: str = "toy", device=None, **kwargs) -> Engines:
         raise ValueError(f"unknown scale {scale!r} (toy|reference)")
     dtype = kwargs.get("dtype", torch.bfloat16)
     tok = kwargs.get("tokenizer")
-    asr = TorchWhisperAsr(kwargs.get("asr_cfg"), kwargs.get("asr_params"), tok, device=dev,
-                          dtype=dtype)
-    nmt = TorchNllbNmt(kwargs.get("nmt_cfg"), kwargs.get("nmt_params"), tok, device=dev,
+    asr = TorchWhisperAsr(kwargs.get("asr_cfg"), kwargs.get("asr_params"),
+                          kwargs.get("asr_tokenizer", tok), device=dev, dtype=dtype,
+                          context_buckets=kwargs.get("asr_context_buckets", (30,)))
+    nmt = TorchNllbNmt(kwargs.get("nmt_cfg"), kwargs.get("nmt_params"),
+                       kwargs.get("nmt_tokenizer", tok), device=dev,
                        lang_code_to_id=kwargs.get("lang_code_to_id"), dtype=dtype)
-    tts = TorchCosyVoiceTts(kwargs.get("tts_cfg"), kwargs.get("tts_params"), tok, device=dev,
+    tts = TorchCosyVoiceTts(kwargs.get("tts_cfg"), kwargs.get("tts_params"),
+                            kwargs.get("tts_tokenizer", tok), device=dev,
                             dtype=dtype, noise=kwargs.get("tts_noise"),
                             ecapa_weights=kwargs.get("tts_ecapa"),
                             speech_tokenizer_weights=kwargs.get("tts_speech_tokenizer"))

@@ -61,6 +61,57 @@ def test_log_mel_rejects_odd_windows():
         cuda_mel.whisper_log_mel_fused(torch.zeros(16_000), chunk_samples=16_000 * 3)
 
 
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_bands_cover_exactly_the_filterbank_nonzeros(n_mels):
+    fb = np.asarray(tmel.mel_filterbank(16_000, 400, n_mels), np.float32)
+    bands, weights = cuda_mel.mel_bands(fb)
+    assert bands.dtype == np.int32 and bands.shape == (n_mels, 3)
+    assert weights.dtype == np.float32 and weights.size == np.count_nonzero(fb)
+    dense = np.zeros_like(fb)
+    for m, (lo, hi, off) in enumerate(bands):
+        band = weights[off:off + hi - lo]
+        assert hi > lo and np.all(band != 0)
+        dense[lo:hi, m] = band
+    np.testing.assert_array_equal(dense, fb)
+    assert list(bands[:, 2]) == list(np.cumsum([0] + [hi - lo for lo, hi, _ in bands[:-1]]))
+    with pytest.raises(ValueError, match="gap"):
+        gapped = fb.copy()
+        widest = int(np.argmax(bands[:, 1] - bands[:, 0]))   # at least 3 bins wide
+        gapped[bands[widest, 0] + 1, widest] = 0.0
+        cuda_mel.mel_bands(gapped)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_banded_mel_product_equals_the_dense_one(n_mels):
+    """The kernel's projection (each filter over its band, ascending k, f32
+    fused multiply-adds) against power @ fb: the same nonzero products, so
+    they differ by f32 rounding alone."""
+    fb = np.asarray(tmel.mel_filterbank(16_000, 400, n_mels), np.float32)
+    bands, weights = cuda_mel.mel_bands(fb)
+    g = np.random.default_rng(n_mels)
+    power = (g.standard_exponential((64, 201)) * 10.0 ** g.uniform(-6, 4, (64, 1))).astype(np.float32)
+    banded = np.zeros((64, n_mels), np.float32)
+    for m, (lo, hi, off) in enumerate(bands):
+        for i in range(hi - lo):
+            banded[:, m] = (banded[:, m].astype(np.float64)
+                            + power[:, lo + i].astype(np.float64) * weights[off + i]).astype(np.float32)
+    dense = power @ fb
+    assert np.all(np.abs(banded - dense) <= 16 * 2.0 ** -24 * dense)
+
+
+def test_fft_twiddles_are_float64_rounded_to_f32():
+    tw = cuda_mel.fft_twiddles()
+    assert tw.dtype == np.float32 and tw.shape == (400, 2)
+    angle = 2 * np.pi * np.arange(400) / 400
+    want = np.stack([np.cos(angle), -np.sin(angle)], -1)
+    ulp = np.spacing(np.abs(want).astype(np.float32))
+    assert np.all(np.abs(tw.astype(np.float64) - want) <= ulp)
+    window, twiddles, bands, band_w = cuda_mel._kernel_tables_np(80)
+    np.testing.assert_array_equal(twiddles, tw)
+    np.testing.assert_array_equal(window, np.asarray(torch.hann_window(400, dtype=torch.float64),
+                                                     np.float32))
+
+
 def _torch_stage(stage):
     """JAX resblock stage params → the port's (conv kernels [out, in, k])."""
     def conv(p):
