@@ -13,16 +13,22 @@ Phases, in order; any failure exits non-zero and prints no result:
               for the decode kernels, of the cuBLAS chain) computing the same
               function; the log-mel kernel, its plain version and the
               torch.stft chain are each captured as a CUDA graph and replayed
-              in turns at the 10, 20 and 30 s windows; the decode kernels are
-              timed over stacks of distinct weights larger than the 50 MB L2,
-              as a decoder walks its layers, each pass replayed as a CUDA graph;
+              in turns at the 10, 20 and 30 s windows; the resblock kernel's
+              plan (variant, window, shared memory) is held against the
+              kernel source's own estimate, and the kernel is checked in the
+              contiguous layout and in vocode's (the transposed view of
+              [B, C, T]) and timed with CUDA events in both; the decode kernels
+              are timed over stacks of distinct weights larger than the 50 MB
+              L2, as a decoder walks its layers, each pass replayed as a CUDA
+              graph;
 4. e2e      — ``torch_engines(scale="reference")`` (Whisper-medium,
               NLLB-600M, CosyVoice2-0.5B dims, bf16, seeded random weights,
               full-width ECAPA and speech-tokenizer conditioning models),
               ``CascadedBackend.initialize()``, one voice-prompt conditioning
               call timed on its own, and three ``translate_speech`` requests
               at their defaults (voice cloning on), with every kernel's launch
-              counter read around the requests;
+              counter read around the requests; the resblock kernel at the
+              (C, T) the 10 s request handed it, checked and timed;
 5. the kernels line, the card line, and last the result line.
 
 The long report goes to chiprun_out/chip_smoke.json.
@@ -30,12 +36,14 @@ The long report goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
 import os
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -259,16 +267,88 @@ def _stage_weights(c: int, dtype, dev, seed: int):
             torch.stack(biases).to(dev, dtype).contiguous())
 
 
+# (C, T) of the two narrow stages of 10 s of speech (HiFi-GAN base 512, rates 8 6 10)
+RES_STAGES = ((128, 24_000), (64, 240_000))
+RES_SHAPES = (  # (C, T, layout, timed); layout "bct": x is the transposed view of [B, C, T]
+    *((c, t, layout, True) for layout in ("bct", "btc") for c, t in RES_STAGES),
+    (128, 24_001, "btc", False), (64, 240_007, "btc", False),
+    (128, 24_001, "bct", False), (64, 240_007, "bct", False),
+    (48, 20_011, "btc", False),     # C % 32 != 0: the CUDA-core variant in bf16 too
+    (96, 20_011, "btc", True),      # C % 64 != 0: the CUDA-core variant under the wgmma routing
+)
+
+
+def _res_input(c: int, t: int, layout: str, dtype, dev) -> torch.Tensor:
+    """x [1, T, C]: contiguous ("btc"), or the transposed view of a
+    contiguous [1, C, T] ("bct"), as vocode hands it to the kernel."""
+    g = torch.Generator(device="cpu").manual_seed(c + t)
+    x = 0.3 * torch.randn((1, t, c), generator=g)
+    if layout == "bct":
+        return x.transpose(1, 2).contiguous().to(dev, dtype).transpose(1, 2)
+    return x.to(dev, dtype)
+
+
+def _res_work(c: int, t: int, es: int, w) -> tuple:
+    """(FLOPs, bytes) of one stage: 2 C^2 T a tap; x read once, the output
+    written once, the weights and biases read once."""
+    taps = sum(2 * k * len(d) for k, d in zip(KERNELS, DILATIONS))
+    return 2 * c * c * t * taps, 2 * t * c * es + (w[0].numel() + w[1].numel()) * es
+
+
+def time_resblock(row: dict, x, w) -> dict:
+    """Add the kernel's and the plain version's CUDA-event times, the bound
+    and its share to ``row``."""
+    kw = dict(kernels=KERNELS, dilations=DILATIONS)
+    row["ms"] = sync_time(lambda: cuda_vocoder.fused_resblock_stage(x, w, **kw), 20, warmup=2)
+    row["plain_ms"] = sync_time(lambda: cuda_vocoder.resblock_stage_plain(x, w, **kw),
+                                10, warmup=2)
+    _, t, c = x.shape
+    flops, nbytes = _res_work(c, t, x.element_size(), w)
+    peak_rate = PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_FP32
+    row["bound_ms"] = max(flops / peak_rate, nbytes / PEAK_BYTES) * 1e3
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["gflop"] = flops / 1e9
+    row["mbytes"] = nbytes / 1e6
+    return row
+
+
+def check_resblock_plans() -> list:
+    """The wrapper's plan for every width and dtype checked: its shared memory
+    (computed in Python) equals the kernel source's own estimate and fits a
+    block, and the two 10 s stages run the wgmma variant in bf16."""
+    lib = cuda_vocoder._lib()
+    margin = cuda_vocoder.stage_margin(KERNELS, DILATIONS)
+    plans = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in sorted({c for c, *_ in RES_SHAPES}):
+            pl = cuda_vocoder.plan(c, dtype, KERNELS, DILATIONS)
+            est = (lib.est_resblock_wg_smem_bytes(c, pl.window, margin) if pl.variant == "wgmma"
+                   else lib.est_resblock_smem_bytes(c, pl.window // 32, 2 if dtype == torch.bfloat16
+                                                    else 4))
+            main = dtype == torch.bfloat16 and c in dict(RES_STAGES)
+            if est != pl.smem_bytes or est > cuda_vocoder.SMEM_OPTIN_BYTES or (
+                    main and pl.variant != "wgmma"):
+                raise AssertionError(f"resblock plan C={c} {dtype}: {pl}, kernel's estimate {est}")
+            plans.append({"C": c, "dtype": str(dtype).split(".")[-1], **pl._asdict()})
+            print(f"  resblock plan C={c:3d} {plans[-1]['dtype']:>8}: {pl.variant}, window "
+                  f"{pl.window}, {pl.smem_bytes} B of shared memory, {pl.threads} threads",
+                  flush=True)
+    return plans
+
+
 def check_resblock(dev, report):
     """Kernel 2 at the two narrow stages of 10 s of speech (C=128, T=24000;
-    C=64, T=240000), in bf16 (serving) and f32, plus ragged lengths."""
+    C=64, T=240000) and ragged lengths, in bf16 (serving) and f32, in the
+    contiguous layout and in the main path's (the transposed view of
+    [1, C, T]); C=48 and C=96 run the CUDA-core variant. The 10 s stages and
+    C=96 are timed in bf16, each with its bound and share."""
+    for ln in report.get("ptxas", {}).get("resblock", []):
+        print(f"  resblock ptxas: {ln}", flush=True)
+    report["resblock_plans"] = check_resblock_plans()
     rows = []
-    # the last shape (C % 32 != 0) runs the CUDA-core variant in bf16 too
-    shapes = ((128, 24_000), (64, 240_000), (128, 24_001), (64, 240_007), (48, 20_011))
     for dtype in (torch.bfloat16, torch.float32):
-        for c, t in shapes:
-            g = torch.Generator(device="cpu").manual_seed(c + t)
-            x = (0.3 * torch.randn((1, t, c), generator=g)).to(dev, dtype)
+        for c, t, layout, timed in RES_SHAPES:
+            x = _res_input(c, t, layout, dtype, dev)
             w = _stage_weights(c, dtype, dev, seed=c)
             got = cuda_vocoder.fused_resblock_stage(x, w, kernels=KERNELS, dilations=DILATIONS)
             want = cuda_vocoder.resblock_stage_plain(x, w, kernels=KERNELS, dilations=DILATIONS)
@@ -276,31 +356,27 @@ def check_resblock(dev, report):
             err = float((got.float() - want.float()).abs().max())
             peak = float(want.float().abs().max())
             tol = RES_BF16_RTOL if dtype == torch.bfloat16 else RES_F32_RTOL
-            if not (got.shape == x.shape and math.isfinite(err) and err <= tol * peak):
-                raise AssertionError(f"resblock C={c} T={t} {dtype}: max |err| {err} > "
-                                     f"{tol} * {peak}")
-            row = {"C": c, "T": t, "dtype": str(dtype).split(".")[-1],
+            if not (got.shape == x.shape and got.stride() == x.stride() and math.isfinite(err)
+                    and err <= tol * peak):
+                raise AssertionError(f"resblock C={c} T={t} {layout} {dtype}: max |err| {err} > "
+                                     f"{tol} * {peak} (shape {tuple(got.shape)}, strides "
+                                     f"{got.stride()})")
+            row = {"C": c, "T": t, "layout": layout, "dtype": str(dtype).split(".")[-1],
+                   "variant": cuda_vocoder.variant(x, KERNELS, DILATIONS),
                    "max_abs_err": err, "peak": peak}
-            if t % 1000 == 0:
-                row["ms"] = sync_time(lambda: cuda_vocoder.fused_resblock_stage(
-                    x, w, kernels=KERNELS, dilations=DILATIONS), 20, warmup=2)
-                row["plain_ms"] = sync_time(lambda: cuda_vocoder.resblock_stage_plain(
-                    x, w, kernels=KERNELS, dilations=DILATIONS), 10, warmup=2)
-                taps = sum(2 * k * len(d) for k, d in zip(KERNELS, DILATIONS))
-                flops = 2 * c * c * t * taps
-                es = x.element_size()
-                nbytes = 2 * t * c * es + w[0].numel() * es + w[1].numel() * es
-                peak_rate = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
-                row["bound_ms"] = max(flops / peak_rate, nbytes / PEAK_BYTES) * 1e3
-                row["bound_share"] = row["bound_ms"] / row["ms"]
-                row["gflop"] = flops / 1e9
-                row["mbytes"] = nbytes / 1e6
+            if timed and dtype == torch.bfloat16:
+                time_resblock(row, x, w)
             rows.append(row)
-            extra = (f"  kernel {row['ms']:.3f} ms  plain {row['plain_ms']:.3f} ms  "
+            extra = (f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  "
                      f"bound {row['bound_ms']:.4f} ms ({100 * row['bound_share']:.2f}% of bound)"
                      if "ms" in row else "")
-            print(f"  resblock C={c:3d} T={t:6d} {row['dtype']:>8}: err {err:.2e} "
-                  f"(peak {peak:.3f}){extra}", flush=True)
+            print(f"  resblock C={c:3d} T={t:6d} {layout} {row['dtype']:>8} [{row['variant']}]: "
+                  f"err {err:.2e} (peak {peak:.3f}){extra}", flush=True)
+    stages = [r for r in rows if (r["C"], r["T"]) in RES_STAGES and r["layout"] == "bct"
+              and "ms" in r]
+    print(f"  resblock pair, main-path layout: {sum(r['ms'] for r in stages):.4f} ms, bound "
+          f"{sum(r['bound_ms'] for r in stages):.4f} ms, plain "
+          f"{sum(r['plain_ms'] for r in stages):.3f} ms  [{report['card']}]", flush=True)
     report["resblock"] = rows
     return rows
 
@@ -536,6 +612,66 @@ def _check_conditioning(tts, spk, pmel, psp):
                              f"{tuple(psp.shape)} {psp.dtype}")
 
 
+RES_REQUEST_SECONDS = 10.0   # the request whose resblock launches are recorded and timed
+
+
+@contextlib.contextmanager
+def _recording_resblock_shapes(shapes: list):
+    """Append (C, T, strides) of every resblock launch inside the block to
+    ``shapes``: for the block's duration vocode sees a copy of the
+    ``cuda_vocoder`` module whose ``fused_resblock_stage`` records its input
+    and calls the wrapper, whose launch counter still counts each launch."""
+    from expressive_speech_translation_tpu_torch.models import cosyvoice
+
+    kernel = cuda_vocoder.fused_resblock_stage
+
+    def recording(x, *args, **kwargs):
+        if x.is_cuda:
+            shapes.append((int(x.shape[2]), int(x.shape[1]), tuple(x.stride())))
+        return kernel(x, *args, **kwargs)
+
+    cosyvoice.cuda_vocoder = types.SimpleNamespace(**{**vars(cuda_vocoder),
+                                                      "fused_resblock_stage": recording})
+    try:
+        yield shapes
+    finally:
+        cosyvoice.cuda_vocoder = cuda_vocoder
+
+
+def time_request_resblock(dev, shapes, card) -> list:
+    """The kernel at the (C, T) a request handed it, in the main path's
+    layout, against its plain version; timed with its bound."""
+    rows = []
+    for c, t, strides in shapes:
+        if strides[1] != 1:
+            raise AssertionError(f"vocode handed the resblock kernel strides {strides}, "
+                                 "not the transposed view of [B, C, T]")
+        x = _res_input(c, t, "bct", torch.bfloat16, dev)
+        w = _stage_weights(c, torch.bfloat16, dev, seed=c)
+        kw = dict(kernels=KERNELS, dilations=DILATIONS)
+        got = cuda_vocoder.fused_resblock_stage(x, w, **kw)
+        want = cuda_vocoder.resblock_stage_plain(x, w, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        peak = float(want.float().abs().max())
+        if not (math.isfinite(err) and err <= RES_BF16_RTOL * peak):
+            raise AssertionError(f"resblock request shape C={c} T={t}: {err} > "
+                                 f"{RES_BF16_RTOL} * {peak}")
+        variant = cuda_vocoder.variant(x, KERNELS, DILATIONS)
+        if variant != "wgmma":
+            raise AssertionError(f"resblock request shape C={c} T={t} runs {variant}")
+        row = time_resblock({"C": c, "T": t, "variant": variant, "max_abs_err": err,
+                             "peak": peak}, x, w)
+        rows.append(row)
+        print(f"  resblock at a {RES_REQUEST_SECONDS:.0f} s request's shape C={c} T={t} "
+              f"[{row['variant']}]: err {err:.2e}  kernel {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
+              f"({100 * row['bound_share']:.2f}% of bound)  [{card}]", flush=True)
+    if not rows:
+        raise AssertionError("the recorded request launched no resblock kernel")
+    return rows
+
+
 def e2e_phase(dev, report, card):
     """Reference-scale engines with full-width conditioning models,
     initialize(), one conditioning call on its own, three translate_speech
@@ -579,10 +715,12 @@ def e2e_phase(dev, report, card):
     for fn in LAUNCH_COUNTERS.values():
         fn.launches = 0
     requests = []
+    res_shapes = []
     for seconds in REQUEST_SECONDS:
         x = _speechlike(seconds, seed=int(seconds))
         t0 = time.perf_counter()
-        out = backend.translate_speech(x, "eng", "fra")
+        with _recording_resblock_shapes(res_shapes if seconds == RES_REQUEST_SECONDS else []):
+            out = backend.translate_speech(x, "eng", "fra")
         wall = time.perf_counter() - t0
         audio = out["audio"]
         if not (audio.ndim == 2 and audio.shape[0] == 1 and audio.shape[1] >= int(16_000 * seconds)
@@ -600,7 +738,8 @@ def e2e_phase(dev, report, card):
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     e2e = {"engines_s": init_s, "initialize_s": warm_s, "requests": requests,
            "conditioning_s": cond_runs, "launches": launches,
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "resblock_request": time_request_resblock(dev, res_shapes, card)}
     report["e2e"] = e2e
     return e2e
 
@@ -627,10 +766,13 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e):
     """One entry per kernel. Log-mel at the default 30 s window and 80 mels,
     its times graph-replayed; the resblock
     stage as both narrow stages of 10 s of speech in bf16 (C=128, T=24000 and
-    C=64, T=240000), their times and bounds summed; the decode kernels at the
+    C=64, T=240000) in the main path's layout, their times and bounds summed
+    (the contiguous layout, C=96 and the request's shapes are timed beside,
+    not summed); the decode kernels at the
     Whisper-medium shapes (and int4 at B=8, K=2048, N=8192) in bf16."""
     mel = next(r for r in mel_rows if r["window_s"] == 30 and r["n_mels"] == 80)
-    serving = [r for r in res_rows if r["dtype"] == "bfloat16" and "ms" in r]
+    serving = [r for r in res_rows if r["dtype"] == "bfloat16" and "ms" in r
+               and (r["C"], r["T"]) in RES_STAGES and r["layout"] == "bct"]
     return [
         {"name": "log_mel_frames", "route": "cuda",
          "source": f"{PORT}/csrc/log_mel.cu",
