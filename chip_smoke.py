@@ -17,10 +17,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               plan (variant, window, shared memory) is held against the
               kernel source's own estimate, and the kernel is checked in the
               contiguous layout and in vocode's (the transposed view of
-              [B, C, T]) and timed with CUDA events in both; the decode kernels
-              are timed over stacks of distinct weights larger than the 50 MB
-              L2, as a decoder walks its layers, each pass replayed as a CUDA
-              graph;
+              [B, C, T]) and timed with CUDA events in both; the decode
+              kernels' work split is held against the Python mirror, both
+              are replayed from a CUDA graph against their eager launches,
+              checked in bf16 and f32 at batch 1-16 and the Qwen2 widths, and
+              timed at batch 1, 4 and 8 over stacks of distinct weights larger
+              than the 50 MB L2, as a decoder walks its layers, each pass
+              replayed as a CUDA graph;
 4. e2e      — ``torch_engines(scale="reference")`` (Whisper-medium,
               NLLB-600M, CosyVoice2-0.5B dims, bf16, seeded random weights,
               full-width ECAPA and speech-tokenizer conditioning models),
@@ -382,15 +385,20 @@ def check_resblock(dev, report):
 
 
 # Decode shapes of the reference models (no path calls these kernels: the
-# JAX decode loops keep them off too).
-MATVEC_SHAPES = (  # (label, B, D, N, norm, eps)
-    ("whisper-medium qkv", 1, 1024, 3072, "layer", 1e-5),
-    ("qwen2-0.5b qkv", 1, 896, 1152, "rms", 1e-6),
-    ("whisper-medium qkv B=4", 4, 1024, 3072, "layer", 1e-5),
+# JAX decode loops keep them off too). Timed in bf16 at decode batch 1, 4 and
+# 8 (Whisper) and 1 and 8 (Qwen2); the rest are checked for correctness only:
+# batches that cross the groups of 8 rows (3, 5, 9, 16), and the Qwen2 widths
+# (D = 896, N = 1152, F = 4864 gated), which split unevenly into tiles.
+MATVEC_SHAPES = (  # (label, B, D, N, norm, eps, timed)
+    *((f"whisper-medium qkv B={b}", b, 1024, 3072, "layer", 1e-5, b in (1, 4, 8))
+      for b in (1, 4, 8, 3, 5, 9, 16)),
+    *((f"qwen2-0.5b qkv B={b}", b, 896, 1152, "rms", 1e-6, b in (1, 8)) for b in (1, 8, 5, 9)),
 )
-MLP_SHAPES = (  # (label, B, D, F, gated, norm, eps, activation)
-    ("whisper-medium / nllb-600m mlp", 1, 1024, 4096, False, "layer", 1e-5, "gelu"),
-    ("qwen2-0.5b gated mlp", 1, 896, 4864, True, "rms", 1e-6, "silu"),
+MLP_SHAPES = (  # (label, B, D, F, gated, norm, eps, activation, timed)
+    *((f"whisper-medium / nllb-600m mlp B={b}", b, 1024, 4096, False, "layer", 1e-5, "gelu",
+       b in (1, 4, 8)) for b in (1, 4, 8, 3, 5, 9, 16)),
+    *((f"qwen2-0.5b gated mlp B={b}", b, 896, 4864, True, "rms", 1e-6, "silu", b in (1, 8))
+      for b in (1, 8, 3, 9, 16)),
 )
 INT4_SHAPES = ((8, 2048, 8192), (1, 1024, 4096))  # (B, K, N), timed
 # correctness only, for the tensor-core kernel: K/2 = 100 and 104 end in a
@@ -445,12 +453,64 @@ def _norm_chain(x, norm, d, scale, bias, eps):
             else F.rms_norm(x, (d,), scale, eps))
 
 
+def check_decode_plans(dev) -> list:
+    """The split ``decode.cu`` reports for every decode shape and dtype
+    checked equals the Python mirror's (``cuda_decode.stream_plan`` /
+    ``out_plan``) at this card's SM count, and fits a block."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = []
+    cases = [(label, bsz, d, n, False, False) for label, bsz, d, n, *_ in MATVEC_SHAPES]
+    cases += [(label, bsz, d, f, True, gated) for label, bsz, d, f, gated, *_ in MLP_SHAPES]
+    for label, bsz, d, n, mlp, gated in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            got = cuda_decode.kernel_plans(d, n, bsz, dtype, mlp=mlp, gated=gated)
+            want = (cuda_decode.mlp_plan(d, n, bsz, gated, dtype, sms) if mlp
+                    else (cuda_decode.matvec_plan(d, n, bsz, dtype, sms),))
+            if got != want or max(p.smem for p in got) > cuda_decode.SMEM_OPTIN_BYTES:
+                raise AssertionError(f"decode plan {label} {dtype}: kernel {got}, mirror {want}")
+            plans.append({"shape": label, "dtype": str(dtype).split(".")[-1],
+                          "plans": [p._asdict() for p in got]})
+            if dtype == torch.bfloat16 and bsz in (1, 16):
+                print(f"  decode plan {label} bf16: " + "; ".join(
+                    f"cluster {p.cluster}, ks {p.ks}, {p.stages} stages in {p.slots} slots, "
+                    f"{p.smem} B" for p in got), flush=True)
+    return plans
+
+
+def check_decode_graph(dev) -> None:
+    """Both decode kernels captured into a CUDA graph (the MLP's second
+    kernel by programmatic dependent launch) and replayed give what they give
+    launched eagerly."""
+    g = _gen(dev, 7)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _randn((4, 1024), g, dev, dtype)
+        sc = 1 + 0.1 * _randn((1024,), g, dev, torch.float32)
+        bi = 0.1 * _randn((1024,), g, dev, torch.float32)
+        w, b = _randn((1024, 3072), g, dev, dtype, 1 / 32), _randn((3072,), g, dev, torch.float32)
+        wp, b1 = _randn((2048, 4096), g, dev, dtype, 1 / 32), _randn((4096,), g, dev, torch.float32)
+        calls = (lambda: cuda_decode.fused_ln_matvec(x, sc, bi, w, b),
+                 lambda: cuda_decode.fused_ln_mlp(x, sc, bi, wp, b1, sc))
+        for fn in calls:
+            eager = fn()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = fn()
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(eager, replayed):
+                raise AssertionError(f"decode kernel replayed from a CUDA graph differs ({dtype})")
+            del graph
+    print("  decode kernels under CUDA graph capture: replays equal eager launches", flush=True)
+
+
 def check_ln_matvec(dev, report):
     """Kernel 3 at the qkv shapes, bf16 and f32 against the plain version;
-    bf16 timed over a weight stack with the plain version and the cuBLAS chain
-    (layer_norm or rms_norm, then addmm: 2 calls)."""
+    the timed shapes in bf16 over a weight stack with the plain version and
+    the cuBLAS chain (layer_norm or rms_norm, then addmm: 2 calls)."""
+    report["decode_plans"] = check_decode_plans(dev)
+    check_decode_graph(dev)
     rows = []
-    for label, bsz, d, n, norm, eps in MATVEC_SHAPES:
+    for label, bsz, d, n, norm, eps, timed in MATVEC_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             g = _gen(dev, d + n + bsz)
             x = _randn((bsz, d), g, dev, dtype)
@@ -462,7 +522,7 @@ def check_ln_matvec(dev, report):
             err, peak = _compare(f"ln_matvec {label}", dtype, got, want)
             row = {"shape": label, "B": bsz, "D": d, "N": n, "norm": norm,
                    "dtype": str(dtype).split(".")[-1], "max_abs_err": err, "peak": peak}
-            if dtype == torch.bfloat16:
+            if timed and dtype == torch.bfloat16:
                 es = x.element_size()
                 stack = [w] + [_randn((d, n), g, dev, dtype, d ** -0.5)
                                for _ in range(_stack_layers(d * n * es) - 1)]
@@ -481,11 +541,11 @@ def check_ln_matvec(dev, report):
 
 
 def check_ln_mlp(dev, report):
-    """Kernel 4 at the MLP shapes (residual on), bf16 and f32; bf16 timed over
-    a stack with the plain version and the cuBLAS chain (norm, addmm, act,
+    """Kernel 4 at the MLP shapes (residual on), bf16 and f32; the timed
+    shapes in bf16 over a stack with the plain version and the cuBLAS chain (norm, addmm, act,
     addmm, add: 5 calls; gated: norm, mm, silu, addmm, mul, addmm, add: 7)."""
     rows = []
-    for label, bsz, d, f, gated, norm, eps, act in MLP_SHAPES:
+    for label, bsz, d, f, gated, norm, eps, act, timed in MLP_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             g = _gen(dev, d + f + bsz)
             x = _randn((bsz, d), g, dev, dtype)
@@ -500,7 +560,7 @@ def check_ln_mlp(dev, report):
             row = {"shape": label, "B": bsz, "D": d, "F": f, "gated": gated, "norm": norm,
                    "activation": act, "dtype": str(dtype).split(".")[-1],
                    "max_abs_err": err, "peak": peak}
-            if dtype == torch.bfloat16:
+            if timed and dtype == torch.bfloat16:
                 es = x.element_size()
                 stack = [wp] + [_randn((rows_w, f), g, dev, dtype, d ** -0.5)
                                 for _ in range(_stack_layers(rows_w * f * es) - 1)]

@@ -8,14 +8,15 @@ widths N and F multiples of 128, norm statistics in f32, x̂ cast to x's dtype
 before the first product, the MLP's hidden ``u`` cast to x's dtype before the
 second, every sum in f32, the output in x's dtype. The small vectors (norm
 scale and bias, biases) are read as f32. The TPU's weight-chunk width has no
-counterpart here: the kernels tile for the card themselves. Like the JAX
-functions, these are no part of a decode loop yet.
+counterpart here: the kernels tile for the card themselves, and
+:func:`stream_plan` / :func:`out_plan` mirror the split they choose. Like the
+JAX functions, these are no part of a decode loop yet.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +27,85 @@ NORMS = {"none": 0, "layer": 1, "rms": 2}
 ACTIVATIONS = {"none": 0, "gelu": 1, "silu": 2, "relu": 3}
 LANE = 128                  # the JAX kernels' weight-width quantum
 SMEM_OPTIN_BYTES = 232_448  # shared memory one block may opt into on Hopper
-MLP_CHUNK = 32              # csrc/decode.cu MLP_TF: columns of F a block
+
+# csrc/decode.cu's work split (tests/test_torch_decode_kernels.py holds these
+# against the source's constants)
+THREADS = 256
+MAX_NB = 16                 # batch rows a launch
+ROW_BYTES = 128             # a tile row: 64 bf16 or 32 f32 columns
+STAGE_ROWS = 32             # weight rows a stream-kernel ring stage
+STAGE_BYTES = STAGE_ROWS * ROW_BYTES
+KSTEP = 16                  # rows an mma k-step
+MAX_CLUSTER = 8
+RING_BYTES = 64 * 1024
+OUT_ROWS = 8                # second MLP kernel: rows of W2ᵀ a block
+OUT_CLUSTER = 2             # ... blocks a cluster, each a slice of F
+OUT_STAGE_ROW = 512         # ... bytes of a row a stage
+RING2_BYTES = 96 * 1024
+
+
+class Plan(NamedTuple):
+    """A kernel's work split: blocks a cluster, rows of D a block (``ks``;
+    the second MLP kernel's columns of F), ring stages, ring slots, shared
+    bytes a block."""
+    cluster: int
+    ks: int
+    stages: int
+    slots: int
+    smem: int
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def stream_plan(d: int, n: int, b: int, es: int, gated: bool, sms: int) -> Plan:
+    """The stream kernel's split for ``min(b, 16)`` batch rows, ``es`` bytes
+    an element: tiles of 128-byte rows, the smallest cluster of 1, 2, 4 or 8
+    slices of D that gives each of ``sms`` SMs a block and whose ring holds
+    the whole slice (``decode.cu`` ``stream_plan``)."""
+    g = 2 if gated else 1
+    nbp = 16 if min(b, MAX_NB) > 8 else 8
+    tn, parts = ROW_BYTES // es, 2 if es == 2 else THREADS // 32
+    max_slots = RING_BYTES // (g * STAGE_BYTES)
+    cluster = 1
+    while True:
+        ks = _ceil_div(_ceil_div(d, cluster), KSTEP) * KSTEP
+        stages = _ceil_div(ks, STAGE_ROWS)
+        if cluster == MAX_CLUSTER or (n // tn * cluster >= sms and stages <= max_slots):
+            break
+        cluster *= 2
+    slots = min(stages, max_slots)
+    smem = (1024 + slots * g * STAGE_BYTES + nbp * (ks * es + 16)
+            + g * (parts + 1) * nbp * tn * 4 + (slots + 1) * 8)
+    return Plan(cluster, ks, stages, slots, smem)
+
+
+def out_plan(f: int, b: int, es: int) -> Plan:
+    """The second MLP kernel's split: clusters of ``OUT_CLUSTER`` blocks over 8
+    rows of W2ᵀ, each block a slice of ``fs`` columns of F (whole 128-column
+    groups; reported as ``ks``) in stages of 512 bytes a row (four TMA boxes
+    of 8 x 128 bytes); bf16 keeps u's slice ``[nbp][fs + 8]`` and the warps'
+    partials beside the ring, which takes what is left of the block's shared
+    memory up to its budget (``decode.cu`` ``out_plan``)."""
+    stage, nbp = OUT_ROWS * OUT_STAGE_ROW, 16 if min(b, MAX_NB) > 8 else 8
+    fs = _ceil_div(f, OUT_CLUSTER * 128) * 128
+    fixed = (1024 + 2 * nbp * OUT_ROWS * 4
+             + (8 * 16 * OUT_ROWS * 4 + nbp * (fs * es + 16) if es == 2 else 0) + 16)
+    room = min(SMEM_OPTIN_BYTES - fixed, RING2_BYTES)
+    stages = _ceil_div(fs * es, OUT_STAGE_ROW)
+    slots = min(stages, max(1, room // (stage + 8)))
+    return Plan(OUT_CLUSTER, fs, stages, slots, slots * (stage + 8) + fixed)
+
+
+def matvec_plan(d: int, n: int, b: int, dtype: torch.dtype, sms: int) -> Plan:
+    return stream_plan(d, n, b, torch.tensor([], dtype=dtype).element_size(), False, sms)
+
+
+def mlp_plan(d: int, f: int, b: int, gated: bool, dtype: torch.dtype,
+             sms: int) -> Tuple[Plan, Plan]:
+    es = torch.tensor([], dtype=dtype).element_size()
+    return stream_plan(d, f, b, es, gated, sms), out_plan(f, b, es)
 
 
 def pack_mlp(w1: torch.Tensor, w2: torch.Tensor,
@@ -93,18 +172,44 @@ def fused_ln_mlp_plain(x, scale, bias, w_packed, b1, b2, *, gated: bool = False,
 def _lib():
     lib = build.load("decode")
     if lib.est_ln_matvec.argtypes is None:
-        p, i, f, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.est_ln_matvec.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, i, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.est_ln_matvec.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, p]
         lib.est_ln_matvec.restype = i
         lib.est_ln_mlp.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, i, i, i, i, p]
         lib.est_ln_mlp.restype = i
-        lib.est_ln_matvec_splits.argtypes = [i, i, i]
-        lib.est_ln_matvec_splits.restype = i
-        lib.est_ln_matvec_smem.argtypes = [i, i, i, i]
-        lib.est_ln_matvec_smem.restype = q
-        lib.est_ln_mlp_smem.argtypes = [i, i, i]
-        lib.est_ln_mlp_smem.restype = q
+        lib.est_ln_matvec_plan.argtypes = [i, i, i, i, i, p]
+        lib.est_ln_matvec_plan.restype = None
+        lib.est_ln_mlp_plan.argtypes = [i, i, i, i, i, i, p]
+        lib.est_ln_mlp_plan.restype = None
     return lib
+
+
+def kernel_plans(d: int, n: int, b: int, dtype: torch.dtype, sms: int = 0, *,
+                 mlp: bool = False, gated: bool = False) -> Tuple[Plan, ...]:
+    """The split ``decode.cu`` itself reports for a call (``sms`` 0: the
+    card's SM count): (stream plan,) for ln_matvec, (stream, second) for
+    ln_mlp. Needs the built library."""
+    lib = _lib()
+    out = (ctypes.c_int * 10)()
+    bf16 = int(dtype == torch.bfloat16)
+    if mlp:
+        lib.est_ln_mlp_plan(d, n, b, int(gated), bf16, sms, out)
+        return Plan(*out[:5]), Plan(*out[5:])
+    lib.est_ln_matvec_plan(d, n, b, bf16, sms, out)
+    return (Plan(*out[:5]),)
+
+
+def check_fits(plans, what: str) -> None:
+    """Raise before any launch when a kernel's split needs more shared memory
+    than one block may opt into (x^'s slice grows with D)."""
+    need = max(p.smem for p in plans)
+    if need > SMEM_OPTIN_BYTES:
+        raise ValueError(f"{what} does not fit a block's shared memory "
+                         f"({need} > {SMEM_OPTIN_BYTES} bytes)")
+
+
+def _sms(x: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
 def _check_width(width: int, what: str) -> None:
@@ -133,7 +238,8 @@ def _device_operands(x: torch.Tensor, mats, vecs, what: str):
     for name, v, n in vecs:
         if v.device != x.device or v.numel() != n:
             raise ValueError(f"{what} {name} must hold {n} values on {x.device}")
-        out.append(v.reshape(-1).float().contiguous())
+        v = v.reshape(-1).float().contiguous()
+        out.append(v if v.data_ptr() % 16 == 0 else v.clone())   # the kernels' 16-byte loads
     return out
 
 
@@ -173,19 +279,13 @@ def fused_ln_matvec(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"decode kernels run on CUDA or CPU tensors, got {x.device}")
     (b32,) = _device_operands(x, (("w", w),), (("b", b, n),), "fused_ln_matvec")
     scale32, bias32 = _norm_vectors(x, scale, bias, norm, b32)
-    lib = _lib()
-    bf16 = int(x.dtype == torch.bfloat16)
-    if lib.est_ln_matvec_smem(d, n, bsz, bf16) > SMEM_OPTIN_BYTES:
-        raise ValueError(f"fused_ln_matvec: D={d} does not fit a block's shared memory")
+    check_fits((matvec_plan(d, n, bsz, x.dtype, _sms(x)),), f"fused_ln_matvec: D={d}")
     out = torch.empty((bsz, n), dtype=x.dtype, device=x.device)
     if bsz == 0:
         return out
-    splits = lib.est_ln_matvec_splits(d, n, bf16)
-    part = torch.empty((splits * min(bsz, 8) * n if splits > 1 else 1,), dtype=torch.float32,
-                       device=x.device)
-    status = lib.est_ln_matvec(x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), w.data_ptr(),
-                               b32.data_ptr(), out.data_ptr(), part.data_ptr(), bsz, d, n,
-                               NORMS[norm], eps, bf16, _stream(x))
+    status = _lib().est_ln_matvec(x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
+                                  w.data_ptr(), b32.data_ptr(), out.data_ptr(), bsz, d, n,
+                                  NORMS[norm], eps, int(x.dtype == torch.bfloat16), _stream(x))
     build.check(status, "fused_ln_matvec")
     fused_ln_matvec.launches += 1
     return out
@@ -222,19 +322,16 @@ def fused_ln_mlp(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     b1_32, b2_32 = _device_operands(x, (("w_packed", w_packed),),
                                     (("b1", b1, f), ("b2", b2, d)), "fused_ln_mlp")
     scale32, bias32 = _norm_vectors(x, scale, bias, norm, b2_32)
-    lib = _lib()
-    if lib.est_ln_mlp_smem(d, bsz, int(gated)) > SMEM_OPTIN_BYTES:
-        raise ValueError(f"fused_ln_mlp: D={d} does not fit a block's shared memory")
+    check_fits(mlp_plan(d, f, bsz, gated, x.dtype, _sms(x)), f"fused_ln_mlp: D={d}, F={f}")
     out = torch.empty_like(x)
     if bsz == 0:
         return out
-    part = torch.empty((f // MLP_CHUNK * min(bsz, 8) * d,), dtype=torch.float32,
-                       device=x.device)
-    status = lib.est_ln_mlp(x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
-                            w_packed.data_ptr(), b1_32.data_ptr(), b2_32.data_ptr(),
-                            out.data_ptr(), part.data_ptr(), bsz, d, f, NORMS[norm], eps,
-                            ACTIVATIONS[activation], int(gated), int(residual),
-                            int(x.dtype == torch.bfloat16), _stream(x))
+    u = torch.empty((min(bsz, MAX_NB), f), dtype=x.dtype, device=x.device)
+    status = _lib().est_ln_mlp(x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
+                               w_packed.data_ptr(), b1_32.data_ptr(), b2_32.data_ptr(),
+                               out.data_ptr(), u.data_ptr(), bsz, d, f, NORMS[norm], eps,
+                               ACTIVATIONS[activation], int(gated), int(residual),
+                               int(x.dtype == torch.bfloat16), _stream(x))
     build.check(status, "fused_ln_mlp")
     fused_ln_mlp.launches += 1
     return out

@@ -11,6 +11,8 @@ sides take f32 sums of the same exact integer weights, in another order. The
 packings are byte-exact.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -19,10 +21,12 @@ import jax.numpy as jnp
 
 from expressive_speech_translation_tpu.ops import pallas_decode as jpd
 from expressive_speech_translation_tpu.ops import pallas_int4 as jpi
-from expressive_speech_translation_tpu_torch.ops import cuda_decode, cuda_int4
+from expressive_speech_translation_tpu_torch.ops import build, cuda_decode, cuda_int4
 
 DECODE_TOL = 2e-5
 INT4_RTOL = 1e-5
+DECODE_SOURCE = (build.CSRC_DIR / "decode.cu").read_text()
+Plan = cuda_decode.Plan
 
 
 def _mk(g, *shape, s=0.05):
@@ -37,6 +41,9 @@ def _t(a):
     (2, 256, 768, "layer", 1e-5),     # qkv
     (1, 128, 512, "none", 1e-5),
     (4, 256, 384, "rms", 1e-6),
+    (4, 256, 768, "layer", 1e-5),     # qkv at decode batch 4
+    (8, 256, 768, "layer", 1e-5),     # ... and 8 (serve/batching max_batch)
+    (8, 128, 384, "rms", 1e-6),
 ])
 def test_ln_matvec_plain_matches_pallas(bsz, d, n, norm, eps):
     g = np.random.default_rng(d + n)
@@ -55,6 +62,8 @@ def test_ln_matvec_plain_matches_pallas(bsz, d, n, norm, eps):
     (2, 128, 512, False, "layer", 1e-5, "gelu", False),
     (1, 256, 1280, True, "rms", 1e-6, "silu", True),        # qwen2 gated mlp
     (2, 128, 384, False, "none", 1e-5, "relu", True),
+    (8, 256, 1024, False, "layer", 1e-5, "gelu", True),     # decode batch 8
+    (8, 256, 1280, True, "rms", 1e-6, "silu", True),        # gated, batch 8
 ])
 def test_ln_mlp_plain_matches_pallas(bsz, d, f, gated, norm, eps, activation, residual):
     g = np.random.default_rng(d + f + bsz)
@@ -181,3 +190,99 @@ def test_wrappers_validate_before_any_launch():
             cuda_decode._device_operands(xx, mats, vecs, "test")
     scale, bias = cuda_decode._norm_vectors(x, torch.zeros(1), torch.zeros(1), "none", v)
     assert scale is v and bias is v
+    # a width whose x^ slice overflows a block's shared memory raises before
+    # any launch; the widest reference MLP (f32, 16 rows) fits
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_decode.check_fits((cuda_decode.matvec_plan(1 << 20, 128, 16, torch.bfloat16, 132),),
+                               "fused_ln_matvec")
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_decode.check_fits(cuda_decode.mlp_plan(1 << 20, 128, 1, True, torch.float32, 132),
+                               "fused_ln_mlp")
+    cuda_decode.check_fits(cuda_decode.mlp_plan(4096, 16384, 16, True, torch.float32, 132), "ok")
+
+
+def _source_constant(name: str) -> int:
+    """``constexpr int NAME = <product of integers>;`` in csrc/decode.cu."""
+    (expr,) = re.findall(rf"constexpr int {name} = ([0-9 *]+);", DECODE_SOURCE)
+    return int(np.prod([int(t) for t in expr.split("*")]))
+
+
+@pytest.mark.parametrize("name", ["THREADS", "MAX_NB", "ROW_BYTES", "STAGE_ROWS", "KSTEP",
+                                  "MAX_CLUSTER", "RING_BYTES", "OUT_ROWS", "OUT_CLUSTER",
+                                  "OUT_STAGE_ROW", "RING2_BYTES"])
+def test_decode_planner_constants_match_the_kernel_source(name):
+    assert getattr(cuda_decode, name) == _source_constant(name)
+
+
+@pytest.mark.parametrize("d,n,b,gated,mlp,want", [
+    # the plans csrc/decode.cu reports for the reference models on a 132-SM H100
+    (1024, 3072, 1, False, False, (Plan(4, 256, 8, 8, 44232),)),          # Whisper qkv
+    (1024, 3072, 16, False, False, (Plan(4, 256, 8, 8, 54600),)),
+    (896, 1152, 1, False, False, (Plan(8, 112, 4, 4, 25512),)),           # Qwen2 qkv
+    (1024, 4096, 1, False, True, (Plan(4, 256, 8, 8, 44232), Plan(2, 2048, 8, 8, 71376))),
+    (1024, 4096, 16, False, True, (Plan(4, 256, 8, 8, 54600), Plan(2, 2048, 8, 8, 104784))),
+    (896, 4864, 1, True, True, (Plan(4, 224, 7, 7, 74432), Plan(2, 2432, 10, 10, 85728))),
+    (896, 4864, 16, True, True, (Plan(4, 224, 7, 7, 90432), Plan(2, 2432, 10, 10, 125280))),
+])
+def test_decode_plans_of_the_reference_models(d, n, b, gated, mlp, want):
+    got = (cuda_decode.mlp_plan(d, n, b, gated, torch.bfloat16, 132) if mlp
+           else (cuda_decode.matvec_plan(d, n, b, torch.bfloat16, 132),))
+    assert got == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gated", [False, True])
+def test_stream_plans_cover_d_in_whole_k_steps_and_fit(dtype, gated):
+    """Every split: a cluster of 1, 2, 4 or 8 whose slices of whole k-steps
+    cover D and share the tile's columns evenly; a ring within its budget
+    holding every stage when it can; the shared memory of the kernel's
+    layout (1 KB of alignment for the swizzled ring, the ring, x^ slice,
+    partials, the sums the cluster sends a block, a barrier a slot and one
+    for those sums) within the opt-in limit; the
+    grid at least one block an SM unless the cluster is at its limit."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    g = 2 if gated else 1
+    for d in (128, 200, 896, 1024, 1280, 4096):
+        for n in (128, 384, 1152, 3072, 4864):
+            for b in (1, 3, 8, 9, 16, 40):
+                for sms in (132, 114):
+                    p = cuda_decode.stream_plan(d, n, b, es, gated, sms)
+                    tn = cuda_decode.ROW_BYTES // es
+                    assert p.cluster in (1, 2, 4, 8) and tn % p.cluster == 0
+                    assert p.ks % cuda_decode.KSTEP == 0 and p.cluster * p.ks >= d
+                    assert p.stages * cuda_decode.STAGE_ROWS >= p.ks
+                    assert p.slots <= p.stages
+                    assert p.slots * g * cuda_decode.STAGE_BYTES <= cuda_decode.RING_BYTES
+                    max_slots = cuda_decode.RING_BYTES // (g * cuda_decode.STAGE_BYTES)
+                    assert p.slots == min(p.stages, max_slots)
+                    assert p.cluster == 8 or (n // tn * p.cluster >= sms and p.stages <= max_slots)
+                    nbp = 16 if min(b, 16) > 8 else 8
+                    parts = 2 if es == 2 else 8
+                    assert p.smem == (1024 + p.slots * g * 4096 + nbp * (p.ks * es + 16)
+                                      + g * (parts + 1) * nbp * tn * 4 + 8 * (p.slots + 1))
+                    assert p.smem <= cuda_decode.SMEM_OPTIN_BYTES
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_out_plans_split_f_over_a_cluster_in_512_byte_stages(dtype):
+    """The MLP's second kernel: clusters of 2 blocks over 8 rows of W2^T,
+    each a slice of F of whole 128-column groups covering F, in stages of 512
+    bytes a row (4 KB, an mbarrier a stage), after 1 KB that aligns the
+    swizzled ring; a ring of at most 96 KB in what
+    the block's sums, the sums sent to it, u's slice ([nbp][fs + 8] bf16) and
+    the warps' 16 x 8 partials (bf16) leave of a block's shared memory; f32
+    reads u from device memory."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    for f in (128, 384, 4096, 4864, 5120):
+        for b in (1, 8, 9, 16):
+            p = cuda_decode.out_plan(f, b, es)
+            nbp = 16 if b > 8 else 8
+            assert p.cluster == cuda_decode.OUT_CLUSTER == 2
+            assert p.ks % 128 == 0 and p.cluster * p.ks >= f > (p.cluster - 1) * p.ks - 128
+            fixed = 1024 + 2 * nbp * 8 * 4 + (4096 + nbp * (2 * p.ks + 16) if es == 2 else 0) + 16
+            assert p.stages == -(-p.ks * es // 512)
+            assert 1 <= p.slots <= min(p.stages, 23)
+            assert p.smem == p.slots * (4096 + 8) + fixed
+            assert p.smem <= cuda_decode.SMEM_OPTIN_BYTES
+            if p.slots < p.stages:
+                assert p.smem + 4104 > cuda_decode.SMEM_OPTIN_BYTES or p.slots == 23
