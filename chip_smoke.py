@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero and prints no result:
               plan (variant, window, shared memory) is held against the
               kernel source's own estimate, and the kernel is checked in the
               contiguous layout and in vocode's (the transposed view of
-              [B, C, T]) and timed with CUDA events in both; the decode
+              [B, C, T]) at B = 1 and at the B = 8 of a batched dispatch, and
+              timed with CUDA events in both; the decode
               kernels' work split is held against the Python mirror, both
               are replayed from a CUDA graph against their eager launches,
               checked in bf16 and f32 at batch 1-16 and the Qwen2 widths, and
@@ -31,8 +32,16 @@ Phases, in order; any failure exits non-zero and prints no result:
               call timed on its own, and three ``translate_speech`` requests
               at their defaults (voice cloning on), with every kernel's launch
               counter read around the requests; the resblock kernel at the
-              (C, T) the 10 s request handed it, checked and timed;
-5. the kernels line, the card line, and last the result line.
+              (C, T) the 10 s request handed it, checked and timed; language
+              detection of the 10 s request (one log-mel launch);
+5. batched  — the same engines behind the three micro-batchers
+              (``torch_engines(batch_*=True, max_batch=8)``), ``initialize()``,
+              8 concurrent 10 s ``translate_speech`` requests from 8 threads:
+              requests per second against the e2e phase's 10 s request served
+              alone, the batches formed, peak memory; the resblock kernel must
+              have launched at B > 1, and is checked and timed at the shapes
+              the requests handed it;
+6. the kernels line, the card line, and last the result line.
 
 The long report goes to chiprun_out/chip_smoke.json.
 """
@@ -41,10 +50,12 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
 import sys
+import threading
 import time
 import types
 
@@ -281,21 +292,33 @@ RES_SHAPES = (  # (C, T, layout, timed); layout "bct": x is the transposed view 
 )
 
 
-def _res_input(c: int, t: int, layout: str, dtype, dev) -> torch.Tensor:
-    """x [1, T, C]: contiguous ("btc"), or the transposed view of a
-    contiguous [1, C, T] ("bct"), as vocode hands it to the kernel."""
+# The batched TTS dispatch of 8 requests: random-weight NMT text is empty, so
+# each row speaks the 64-token minimum (128 mel frames): the same (C, T) as
+# one request, at B = 8; and a ragged T of each stage
+RES_BATCH = 8
+RES_BATCH_SHAPES = (  # (C, T, layout, timed)
+    *((c, t, layout, True) for layout in ("bct", "btc")
+      for c, t in ((128, 6_144), (64, 61_440))),
+    *((c, t, layout, False) for layout in ("bct", "btc")
+      for c, t in ((128, 6_151), (64, 61_447))),
+)
+
+
+def _res_input(c: int, t: int, layout: str, dtype, dev, b: int = 1) -> torch.Tensor:
+    """x [B, T, C]: contiguous ("btc"), or the transposed view of a
+    contiguous [B, C, T] ("bct"), as vocode hands it to the kernel."""
     g = torch.Generator(device="cpu").manual_seed(c + t)
-    x = 0.3 * torch.randn((1, t, c), generator=g)
+    x = 0.3 * torch.randn((b, t, c), generator=g)
     if layout == "bct":
         return x.transpose(1, 2).contiguous().to(dev, dtype).transpose(1, 2)
     return x.to(dev, dtype)
 
 
-def _res_work(c: int, t: int, es: int, w) -> tuple:
-    """(FLOPs, bytes) of one stage: 2 C^2 T a tap; x read once, the output
-    written once, the weights and biases read once."""
+def _res_work(b: int, c: int, t: int, es: int, w) -> tuple:
+    """(FLOPs, bytes) of one stage over B rows: 2 C^2 T a tap a row; x read
+    once, the output written once, the weights and biases read once."""
     taps = sum(2 * k * len(d) for k, d in zip(KERNELS, DILATIONS))
-    return 2 * c * c * t * taps, 2 * t * c * es + (w[0].numel() + w[1].numel()) * es
+    return 2 * c * c * t * taps * b, 2 * b * t * c * es + (w[0].numel() + w[1].numel()) * es
 
 
 def time_resblock(row: dict, x, w) -> dict:
@@ -305,8 +328,8 @@ def time_resblock(row: dict, x, w) -> dict:
     row["ms"] = sync_time(lambda: cuda_vocoder.fused_resblock_stage(x, w, **kw), 20, warmup=2)
     row["plain_ms"] = sync_time(lambda: cuda_vocoder.resblock_stage_plain(x, w, **kw),
                                 10, warmup=2)
-    _, t, c = x.shape
-    flops, nbytes = _res_work(c, t, x.element_size(), w)
+    b, t, c = x.shape
+    flops, nbytes = _res_work(b, c, t, x.element_size(), w)
     peak_rate = PEAK_BF16 if x.dtype == torch.bfloat16 else PEAK_FP32
     row["bound_ms"] = max(flops / peak_rate, nbytes / PEAK_BYTES) * 1e3
     row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -349,9 +372,11 @@ def check_resblock(dev, report):
         print(f"  resblock ptxas: {ln}", flush=True)
     report["resblock_plans"] = check_resblock_plans()
     rows = []
+    cases = [(1, *shape) for shape in RES_SHAPES] + [(RES_BATCH, *shape)
+                                                      for shape in RES_BATCH_SHAPES]
     for dtype in (torch.bfloat16, torch.float32):
-        for c, t, layout, timed in RES_SHAPES:
-            x = _res_input(c, t, layout, dtype, dev)
+        for b, c, t, layout, timed in cases:
+            x = _res_input(c, t, layout, dtype, dev, b)
             w = _stage_weights(c, dtype, dev, seed=c)
             got = cuda_vocoder.fused_resblock_stage(x, w, kernels=KERNELS, dilations=DILATIONS)
             want = cuda_vocoder.resblock_stage_plain(x, w, kernels=KERNELS, dilations=DILATIONS)
@@ -361,10 +386,10 @@ def check_resblock(dev, report):
             tol = RES_BF16_RTOL if dtype == torch.bfloat16 else RES_F32_RTOL
             if not (got.shape == x.shape and got.stride() == x.stride() and math.isfinite(err)
                     and err <= tol * peak):
-                raise AssertionError(f"resblock C={c} T={t} {layout} {dtype}: max |err| {err} > "
-                                     f"{tol} * {peak} (shape {tuple(got.shape)}, strides "
-                                     f"{got.stride()})")
-            row = {"C": c, "T": t, "layout": layout, "dtype": str(dtype).split(".")[-1],
+                raise AssertionError(f"resblock B={b} C={c} T={t} {layout} {dtype}: max |err| "
+                                     f"{err} > {tol} * {peak} (shape {tuple(got.shape)}, "
+                                     f"strides {got.stride()})")
+            row = {"B": b, "C": c, "T": t, "layout": layout, "dtype": str(dtype).split(".")[-1],
                    "variant": cuda_vocoder.variant(x, KERNELS, DILATIONS),
                    "max_abs_err": err, "peak": peak}
             if timed and dtype == torch.bfloat16:
@@ -373,15 +398,25 @@ def check_resblock(dev, report):
             extra = (f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  "
                      f"bound {row['bound_ms']:.4f} ms ({100 * row['bound_share']:.2f}% of bound)"
                      if "ms" in row else "")
-            print(f"  resblock C={c:3d} T={t:6d} {layout} {row['dtype']:>8} [{row['variant']}]: "
-                  f"err {err:.2e} (peak {peak:.3f}){extra}", flush=True)
-    stages = [r for r in rows if (r["C"], r["T"]) in RES_STAGES and r["layout"] == "bct"
-              and "ms" in r]
-    print(f"  resblock pair, main-path layout: {sum(r['ms'] for r in stages):.4f} ms, bound "
-          f"{sum(r['bound_ms'] for r in stages):.4f} ms, plain "
-          f"{sum(r['plain_ms'] for r in stages):.3f} ms  [{report['card']}]", flush=True)
+            print(f"  resblock B={b} C={c:3d} T={t:6d} {layout} {row['dtype']:>8} "
+                  f"[{row['variant']}]: err {err:.2e} (peak {peak:.3f}){extra}", flush=True)
+            del x, got, want
+    for label, b in (("pair", 1), (f"B={RES_BATCH} pair", RES_BATCH)):
+        pair = _res_pair(rows, b)
+        print(f"  resblock {label}, main-path layout: {sum(r['ms'] for r in pair):.4f} ms, bound "
+              f"{sum(r['bound_ms'] for r in pair):.4f} ms, plain "
+              f"{sum(r['plain_ms'] for r in pair):.3f} ms  [{report['card']}]", flush=True)
     report["resblock"] = rows
     return rows
+
+
+def _res_pair(rows, b: int) -> list:
+    """The timed bf16 rows of the two narrow stages at batch ``b`` in the
+    main path's layout: 10 s of speech at B = 1, a batched dispatch's rows
+    at B = RES_BATCH."""
+    stages = RES_STAGES if b == 1 else [(c, t) for c, t, _, timed in RES_BATCH_SHAPES if timed]
+    return [r for r in rows if r["B"] == b and (r["C"], r["T"]) in stages
+            and r["layout"] == "bct" and r["dtype"] == "bfloat16" and "ms" in r]
 
 
 # Decode shapes of the reference models (no path calls these kernels: the
@@ -677,7 +712,7 @@ RES_REQUEST_SECONDS = 10.0   # the request whose resblock launches are recorded 
 
 @contextlib.contextmanager
 def _recording_resblock_shapes(shapes: list):
-    """Append (C, T, strides) of every resblock launch inside the block to
+    """Append (B, C, T, strides) of every resblock launch inside the block to
     ``shapes``: for the block's duration vocode sees a copy of the
     ``cuda_vocoder`` module whose ``fused_resblock_stage`` records its input
     and calls the wrapper, whose launch counter still counts each launch."""
@@ -687,7 +722,8 @@ def _recording_resblock_shapes(shapes: list):
 
     def recording(x, *args, **kwargs):
         if x.is_cuda:
-            shapes.append((int(x.shape[2]), int(x.shape[1]), tuple(x.stride())))
+            shapes.append((int(x.shape[0]), int(x.shape[2]), int(x.shape[1]),
+                           tuple(x.stride())))
         return kernel(x, *args, **kwargs)
 
     cosyvoice.cuda_vocoder = types.SimpleNamespace(**{**vars(cuda_vocoder),
@@ -698,15 +734,15 @@ def _recording_resblock_shapes(shapes: list):
         cosyvoice.cuda_vocoder = cuda_vocoder
 
 
-def time_request_resblock(dev, shapes, card) -> list:
-    """The kernel at the (C, T) a request handed it, in the main path's
-    layout, against its plain version; timed with its bound."""
+def time_request_resblock(dev, shapes, card, label: str) -> list:
+    """The kernel at each distinct (B, C, T) requests handed it, in the main
+    path's layout, against its plain version; timed with its bound."""
     rows = []
-    for c, t, strides in shapes:
-        if strides[1] != 1:
+    for b, c, t, strides in dict.fromkeys(shapes):
+        if strides[1] != 1 or strides[0] != c * t:
             raise AssertionError(f"vocode handed the resblock kernel strides {strides}, "
                                  "not the transposed view of [B, C, T]")
-        x = _res_input(c, t, "bct", torch.bfloat16, dev)
+        x = _res_input(c, t, "bct", torch.bfloat16, dev, b)
         w = _stage_weights(c, torch.bfloat16, dev, seed=c)
         kw = dict(kernels=KERNELS, dilations=DILATIONS)
         got = cuda_vocoder.fused_resblock_stage(x, w, **kw)
@@ -715,20 +751,21 @@ def time_request_resblock(dev, shapes, card) -> list:
         err = float((got.float() - want.float()).abs().max())
         peak = float(want.float().abs().max())
         if not (math.isfinite(err) and err <= RES_BF16_RTOL * peak):
-            raise AssertionError(f"resblock request shape C={c} T={t}: {err} > "
+            raise AssertionError(f"resblock request shape B={b} C={c} T={t}: {err} > "
                                  f"{RES_BF16_RTOL} * {peak}")
         variant = cuda_vocoder.variant(x, KERNELS, DILATIONS)
         if variant != "wgmma":
-            raise AssertionError(f"resblock request shape C={c} T={t} runs {variant}")
-        row = time_resblock({"C": c, "T": t, "variant": variant, "max_abs_err": err,
-                             "peak": peak}, x, w)
+            raise AssertionError(f"resblock request shape B={b} C={c} T={t} runs {variant}")
+        row = time_resblock({"B": b, "C": c, "T": t, "variant": variant, "max_abs_err": err,
+                             "peak": peak,
+                             "scratch_mb": b * c * t * 4 / 1e6}, x, w)
         rows.append(row)
-        print(f"  resblock at a {RES_REQUEST_SECONDS:.0f} s request's shape C={c} T={t} "
-              f"[{row['variant']}]: err {err:.2e}  kernel {row['ms']:.4f} ms  plain "
-              f"{row['plain_ms']:.3f} ms  bound {row['bound_ms']:.4f} ms "
-              f"({100 * row['bound_share']:.2f}% of bound)  [{card}]", flush=True)
+        print(f"  resblock at {label}'s shape B={b} C={c} T={t} [{row['variant']}]: err "
+              f"{err:.2e}  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({100 * row['bound_share']:.2f}% of bound), branch-sum "
+              f"scratch {row['scratch_mb']:.1f} MB  [{card}]", flush=True)
     if not rows:
-        raise AssertionError("the recorded request launched no resblock kernel")
+        raise AssertionError(f"{label} launched no resblock kernel")
     return rows
 
 
@@ -772,8 +809,7 @@ def e2e_phase(dev, report, card):
           f"{min(cond_runs) * 1e3:.1f} ms (runs {', '.join(f'{c * 1e3:.1f}' for c in cond_runs)})"
           f"  [{card}]", flush=True)
 
-    for fn in LAUNCH_COUNTERS.values():
-        fn.launches = 0
+    _reset_launches()
     requests = []
     res_shapes = []
     for seconds in REQUEST_SECONDS:
@@ -782,39 +818,188 @@ def e2e_phase(dev, report, card):
         with _recording_resblock_shapes(res_shapes if seconds == RES_REQUEST_SECONDS else []):
             out = backend.translate_speech(x, "eng", "fra")
         wall = time.perf_counter() - t0
-        audio = out["audio"]
-        if not (audio.ndim == 2 and audio.shape[0] == 1 and audio.shape[1] >= int(16_000 * seconds)
-                and np.isfinite(audio).all() and np.abs(audio).max() <= 1.0):
-            raise AssertionError(f"{seconds}s request: bad output {audio.shape}")
+        _check_request(out, seconds, f"{seconds} s request")
         stages = {k: v["seconds"] for k, v in out["stage_summary"].items()}
         requests.append({"audio_s": seconds, "wall_s": wall, "rtf": wall / seconds,
-                         "stages_s": stages, "out_samples": int(audio.shape[1]),
+                         "stages_s": stages, "out_samples": int(out["audio"].shape[1]),
                          "target_chars": len(out["transcripts"]["target"])})
         print(f"  {seconds:4.1f} s request: wall {wall:.3f} s, RTF {wall / seconds:.4f}  "
               + "  ".join(f"{k} {v:.3f} s" for k, v in stages.items()) + f"  [{card}]", flush=True)
-    launches = {name: fn.launches for name, fn in LAUNCH_COUNTERS.items()}
+    launches = _read_launches()
     print(f"  kernel launches over {len(REQUEST_SECONDS)} requests: {launches}", flush=True)
     if min(launches[k] for k in MAIN_PATH_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     e2e = {"engines_s": init_s, "initialize_s": warm_s, "requests": requests,
            "conditioning_s": cond_runs, "launches": launches,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "resblock_request": time_request_resblock(dev, res_shapes, card)}
+           "resblock_request": time_request_resblock(
+               dev, res_shapes, card, f"a {RES_REQUEST_SECONDS:.0f} s request"),
+           "detect": detect_check(engines.asr, card)}
     report["e2e"] = e2e
     return e2e
+
+
+def _reset_launches() -> None:
+    for fn in LAUNCH_COUNTERS.values():
+        fn.launches = 0
+
+
+def _read_launches() -> dict:
+    return {name: fn.launches for name, fn in LAUNCH_COUNTERS.items()}
+
+
+def detect_check(asr, card) -> dict:
+    """Language detection of the 10 s request on the single-request path:
+    one log-mel kernel launch, one decoder pass; the code it gives must be
+    one the decode prompt takes."""
+    from expressive_speech_translation_tpu_torch.pipeline.languages import whisper_lang_index
+
+    x = _speechlike(RES_REQUEST_SECONDS, seed=int(RES_REQUEST_SECONDS))
+    _reset_launches()
+    t0 = time.perf_counter()
+    lang = asr.detect_language(x)
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    whisper_lang_index(lang)
+    if launches["log_mel_frames"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"detect_language launched {launches}, not one log-mel kernel")
+    print(f"  detect_language of the {RES_REQUEST_SECONDS:.0f} s request: {lang!r} in "
+          f"{seconds * 1e3:.1f} ms, launches {launches}  [{card}]", flush=True)
+    return {"language": lang, "seconds": seconds, "launches": launches}
+
+
+def _check_request(out, seconds: float, label: str) -> None:
+    """A translate_speech result is a [1, T] float32 16 kHz waveform at least
+    as long as the input, finite and within [-1, 1]."""
+    audio = out["audio"]
+    if not (audio.ndim == 2 and audio.shape[0] == 1 and audio.shape[1] >= int(16_000 * seconds)
+            and np.isfinite(audio).all() and np.abs(audio).max() <= 1.0):
+        raise AssertionError(f"{label}: bad output {audio.shape}")
+
+
+BATCH_REQUESTS = 8
+BATCH_SECONDS = 10.0
+
+
+def batched_phase(dev, report, card, e2e):
+    """Reference-scale engines behind the three micro-batchers
+    (``torch_engines(batch_asr=True, batch_nmt=True, batch_tts=True,
+    max_batch=8)``, the same conditioning models as the e2e phase),
+    ``initialize()`` (language detection in a batched pass), then 8
+    concurrent 10 s ``translate_speech`` requests from 8 threads (eng → fra,
+    voice cloning on), with the launch counters read around them and the
+    resblock launches recorded: the kernel must have launched at B > 1, and
+    is checked and timed at the recorded shapes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from expressive_speech_translation_tpu_torch.models import cosyvoice, ecapa
+    from expressive_speech_translation_tpu_torch.models import speech_tokenizer as stm
+    from expressive_speech_translation_tpu_torch.pipeline.cascaded import CascadedBackend
+    from expressive_speech_translation_tpu_torch.pipeline.torch_engines import torch_engines
+
+    print(f"== batched: the same engines behind micro-batchers (max_batch {BATCH_REQUESTS}), "
+          f"{BATCH_REQUESTS} concurrent {BATCH_SECONDS:.0f} s requests", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ecfg, scfg = ecapa.EcapaConfig(), stm.SpeechTokenizerConfig()
+    engines = torch_engines(scale="reference", batch_asr=True, batch_nmt=True, batch_tts=True,
+                            max_batch=BATCH_REQUESTS,
+                            tts_ecapa=(ecapa.init_ecapa(3, ecfg, dev), ecfg),
+                            tts_speech_tokenizer=(stm.init_speech_tokenizer(4, scfg, dev), scfg))
+    stages = {"asr": engines.asr, "nmt": engines.nmt, "tts": engines.tts}
+    try:
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        backend = CascadedBackend(engines)
+        t0 = time.perf_counter()
+        backend.initialize()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        print(f"  engines {init_s:.1f} s, initialize {warm_s:.1f} s", flush=True)
+        inputs = [_speechlike(BATCH_SECONDS, seed=100 + i) for i in range(BATCH_REQUESTS)]
+        start = threading.Barrier(BATCH_REQUESTS)
+
+        def request(x):
+            start.wait(timeout=120)
+            t = time.perf_counter()
+            out = backend.translate_speech(x, "eng", "fra")
+            return out, time.perf_counter() - t
+
+        before = {k: st.stats for k, st in stages.items()}
+        res_shapes = []
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _recording_resblock_shapes(res_shapes), \
+                ThreadPoolExecutor(BATCH_REQUESTS, thread_name_prefix="request") as pool:
+            results = [f.result() for f in [pool.submit(request, x) for x in inputs]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        formed = {k: {m: st.stats[m] - before[k][m] for m in ("items", "batches")}
+                  for k, st in stages.items()}
+    finally:
+        for st in stages.values():
+            st.shutdown()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    requests = []
+    for i, (out, seconds) in enumerate(results):
+        _check_request(out, BATCH_SECONDS, f"batched request {i}")
+        split = {k: v["seconds"] for k, v in out["stage_summary"].items()}
+        requests.append({"wall_s": seconds, "stages_s": split,
+                         "out_samples": int(out["audio"].shape[1])})
+        print(f"  request {i}: wall {seconds:.3f} s  "
+              + "  ".join(f"{k} {v:.3f} s" for k, v in split.items()), flush=True)
+    serial = next(r["wall_s"] for r in e2e["requests"] if r["audio_s"] == BATCH_SECONDS)
+    rps, rps_serial = BATCH_REQUESTS / wall, 1.0 / serial
+    print(f"  {BATCH_REQUESTS} concurrent {BATCH_SECONDS:.0f} s requests: wall {wall:.3f} s, "
+          f"{rps:.4f} requests/s; serially (the e2e phase's {BATCH_SECONDS:.0f} s request, "
+          f"{serial:.3f} s) {rps_serial:.4f} requests/s: {rps / rps_serial:.2f}x; peak memory "
+          f"{peak:.2f} GiB  [{card}]", flush=True)
+    print(f"  batches formed (items / batches): {formed}; kernel launches {launches}; resblock "
+          f"launches (B, C, T): {[shape[:3] for shape in res_shapes]}", flush=True)
+    if launches["fused_resblock_stage"] <= 0 or not any(b > 1 for b, *_ in res_shapes):
+        raise AssertionError(f"the resblock kernel never launched at B > 1: {res_shapes}")
+    # the branch-sum scratch (B C T f32) of the largest TTS dispatch: 16 rows
+    # at the 768-token budget, in the last stage
+    cfg = cosyvoice.CosyVoiceConfig()
+    c_last = cfg.vocoder.base_channels // 2 ** len(cfg.vocoder.upsample_rates)
+    t_last = 768 * cfg.flow.token_mel_ratio * cfg.vocoder.hop
+    worst_scratch_gb = 16 * c_last * t_last * 4 / 1e9
+    print(f"  resblock branch-sum scratch at 16 rows x 768 tokens (C={c_last}, T={t_last}): "
+          f"{worst_scratch_gb:.2f} GB, reckoned from the shapes", flush=True)
+    batched = {"engines_s": init_s, "initialize_s": warm_s, "wall_s": wall,
+               "requests_per_s": rps, "serial_request_s": serial,
+               "serial_requests_per_s": rps_serial, "requests": requests, "formed": formed,
+               "launches": launches, "peak_memory_gib": peak,
+               "resblock_shapes": [list(shape[:3]) for shape in res_shapes],
+               "worst_scratch_gb": worst_scratch_gb,
+               "resblock_request": time_request_resblock(
+                   dev, res_shapes, card, f"{BATCH_REQUESTS} batched requests")}
+    report["batched"] = batched
+    return batched
 
 
 def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
-def _decode_entry(name, source, replaces, rows, e2e):
+def _launches(name, e2e, batched) -> dict:
+    """A kernel's launch count on each path driven: the three single
+    requests, the detection of the 10 s request, the batched requests."""
+    return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
+            "batched": batched["launches"][name]}
+
+
+def _decode_entry(name, source, replaces, rows, e2e, batched):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
     timed = next(r for r in rows if "ms" in r)
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
+            "launches_by_path": _launches(name, e2e, batched),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -822,22 +1007,24 @@ def _decode_entry(name, source, replaces, rows, e2e):
             "chain_calls": timed["chain_calls"]}
 
 
-def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e):
-    """One entry per kernel. Log-mel at the default 30 s window and 80 mels,
-    its times graph-replayed; the resblock
-    stage as both narrow stages of 10 s of speech in bf16 (C=128, T=24000 and
-    C=64, T=240000) in the main path's layout, their times and bounds summed
-    (the contiguous layout, C=96 and the request's shapes are timed beside,
-    not summed); the decode kernels at the
-    Whisper-medium shapes (and int4 at B=8, K=2048, N=8192) in bf16."""
+def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched):
+    """One entry per kernel. ``launches`` counts the three single requests;
+    ``launches_by_path`` adds the detection and the batched requests.
+    Log-mel at the default 30 s window and 80 mels, its times
+    graph-replayed; the resblock stage as both narrow stages of 10 s of
+    speech in bf16 (C=128, T=24000 and C=64, T=240000) at B=1 in the main
+    path's layout, their times and bounds summed (the B=8 pair of a batched
+    dispatch beside them, under ``b8_``; the contiguous layout, C=96 and the
+    requests' shapes are timed beside, not summed); the decode kernels at
+    the Whisper-medium shapes (and int4 at B=8, K=2048, N=8192) in bf16."""
     mel = next(r for r in mel_rows if r["window_s"] == 30 and r["n_mels"] == 80)
-    serving = [r for r in res_rows if r["dtype"] == "bfloat16" and "ms" in r
-               and (r["C"], r["T"]) in RES_STAGES and r["layout"] == "bct"]
+    serving, b8 = _res_pair(res_rows, 1), _res_pair(res_rows, RES_BATCH)
     return [
         {"name": "log_mel_frames", "route": "cuda",
          "source": f"{PORT}/csrc/log_mel.cu",
          "replaces": f"{REFERENCE}/ops/pallas_mel.py:79",
          "launches": e2e["launches"]["log_mel_frames"],
+         "launches_by_path": _launches("log_mel_frames", e2e, batched),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -846,15 +1033,21 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e):
          "source": f"{PORT}/csrc/resblock.cu",
          "replaces": f"{REFERENCE}/ops/pallas_vocoder.py:113",
          "launches": e2e["launches"]["fused_resblock_stage"],
+         "launches_by_path": _launches("fused_resblock_stage", e2e, batched),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
          "bound_by": _bound_by(sum(r["gflop"] for r in serving) * 1e9, PEAK_BF16,
                                sum(r["mbytes"] for r in serving) * 1e6),
-         "library_ms": None},
-        _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e),
-        _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e),
-        _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e),
+         "library_ms": None,
+         "b8_ms": sum(r["ms"] for r in b8), "b8_plain_ms": sum(r["plain_ms"] for r in b8),
+         "b8_bound_ms": sum(r["bound_ms"] for r in b8)},
+        _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
+                      batched),
+        _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
+                      batched),
+        _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
+                      batched),
     ]
 
 
@@ -880,6 +1073,7 @@ def build_phase(report):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -894,10 +1088,13 @@ def main() -> int:
     build_phase(report)
     kernel_rows = kernels_phase(dev, report)
     e2e = e2e_phase(dev, report, card)
+    batched = batched_phase(dev, report, card, e2e)
+    report["seconds"] = time.perf_counter() - t_start
+    print(f"== done in {report['seconds']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e)}))
+    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, batched)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

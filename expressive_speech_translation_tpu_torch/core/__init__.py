@@ -1,1 +1,1 @@
-"""Device selection and error types."""
+"""Device selection, error types and static-shape bucketing."""

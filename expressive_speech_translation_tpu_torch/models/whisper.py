@@ -1,10 +1,10 @@
 """Whisper-family ASR: encoder + KV-cached autoregressive decoder.
 
 The port of the JAX package's ``models/whisper.py`` (``encode``,
-``decode_with_alignment``, ``dtw_token_times``): conv1d×2 frontend (stride
-2), fixed sinusoidal encoder positions, pre-LN blocks, learned decoder
-positions, cross-attention over precomputed encoder K/V, tied output head,
-no bias on k. Decoding is a Python loop over one decoder step with early exit
+``decode_with_alignment``, ``detect_language``, ``dtw_token_times``):
+conv1d×2 frontend (stride 2), fixed sinusoidal encoder positions, pre-LN
+blocks, learned decoder positions, cross-attention over precomputed encoder
+K/V, tied output head, no bias on k. Decoding is a Python loop over one decoder step with early exit
 at EOT; the prompt is teacher-forced through the same step.
 
 Layouts: dense kernels [in, out] as in the JAX package; the two conv kernels
@@ -255,6 +255,30 @@ def decode_with_alignment(
         tokens[:, pos + 1] = nxt
         done = done | (nxt == cfg.eos_token)
     return tokens, aligns, slp, ngen, nsp
+
+
+def detect_language(params: Params, cfg: WhisperConfig,
+                    mel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whisper language identification: one decoder pass from
+    ``<|startoftranscript|>`` over the encoder output, the logits restricted
+    to the language-token block (clamped for tiny vocabularies that lack it).
+    mel [B, n_mels, frames] → (language token ids [B], probabilities
+    [B, n_langs] f32).
+
+    The JAX function runs the teacher-forced ``decode_full`` over the one
+    token; here one :func:`decode_step_with_attn` at position 0 over a fresh
+    cache computes the same logits."""
+    enc_out = encode(params, cfg, mel)
+    cross_kv = precompute_cross_kv(params, cfg, enc_out)
+    b = mel.shape[0]
+    cache = init_kv_cache(cfg, b, enc_out.dtype, mel.device, 1)
+    sot = torch.full((b,), cfg.bos_token, dtype=torch.int32, device=mel.device)
+    logits, _ = decode_step_with_attn(params, cfg, sot, 0, cache, cross_kv)
+    start = min(cfg.lang_token_start, max(cfg.vocab_size - 1, 0))
+    width = max(1, min(cfg.n_langs, cfg.vocab_size - start))
+    lang_logits = logits[:, start:start + width]
+    probs = torch.softmax(lang_logits.float(), dim=-1)
+    return start + torch.argmax(lang_logits, dim=-1), probs
 
 
 def dtw_token_times(alignment: np.ndarray, n_tokens: int, audio_seconds: float) -> np.ndarray:

@@ -39,11 +39,12 @@ class CascadedBackend:
         self.last_stage_summary: Dict[str, Any] = {}
 
     def initialize(self) -> None:
-        """Warm-up: 1 s of silence through ASR, a short sentence through NMT,
-        and the sentence through TTS with the silence as the cloning
-        reference, so the voice-prompt conditioning warms too."""
+        """Warm-up: 1 s of silence through ASR with no language (so language
+        detection warms too), a short sentence through NMT, and the sentence
+        through TTS with the silence as the cloning reference, so the
+        voice-prompt conditioning warms too."""
         silence = np.zeros(16_000, np.float32)
-        self.engines.asr.transcribe(silence, language="eng")
+        self.engines.asr.transcribe(silence)
         self.engines.nmt.translate("Hello world.", "eng", "fra")
         self.engines.tts.synthesize("Hello world.", reference_audio_16k=silence)
         self.initialized = True

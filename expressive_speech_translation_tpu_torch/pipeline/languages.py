@@ -1,6 +1,7 @@
 """Language code tables (host copy of the JAX package's
 pipeline/languages.py): app code → CosyVoice short code, → NLLB FLORES-200
-code, and Whisper language-token positions."""
+code, and Whisper language tokens (ids of the multilingual vocab, positions
+in its language block, and the detected token back to an app code)."""
 
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ _WHISPER_LANG_ORDER = [
     "mt", "sa", "lb", "my", "bo", "tl", "mg", "as", "tt", "haw", "ln", "ha",
     "ba", "jw", "su",
 ]
+WHISPER_LANG_TOKENS = {code: 50259 + i for i, code in enumerate(_WHISPER_LANG_ORDER)}
 
 _APP_TO_WHISPER = {
     "eng": "en", "fra": "fr", "deu": "de", "spa": "es", "ita": "it",
@@ -40,6 +42,12 @@ _APP_TO_WHISPER = {
     "ces": "cs", "arb": "ar", "cmn": "zh", "jpn": "ja", "hun": "hu",
     "kor": "ko", "hin": "hi", "ell": "el", "ukr": "uk",
 }
+
+
+def whisper_lang_token(code: str) -> int:
+    """App code or whisper short code → its token id in the multilingual
+    vocab (<|en|> = 50259)."""
+    return WHISPER_LANG_TOKENS[_APP_TO_WHISPER.get(code, code)]
 
 
 def whisper_lang_index(code: str) -> int:
@@ -69,3 +77,15 @@ def nllb_placeholder_lang_ids(vocab_size: int) -> dict[str, int]:
         out[app] = tid
         out[NLLB_LANGUAGES[app]] = tid
     return out
+
+
+_WHISPER_TOKEN_TO_SHORT = {tok: code for code, tok in WHISPER_LANG_TOKENS.items()}
+_WHISPER_TO_APP = {v: k for k, v in reversed(_APP_TO_WHISPER.items())}
+
+
+def whisper_token_to_app(token: int) -> str:
+    """Whisper language-token id (of the 50259-based block) → app code;
+    languages outside the 19 app codes come back as the whisper short code,
+    which :func:`whisper_lang_index` also accepts."""
+    short = _WHISPER_TOKEN_TO_SHORT.get(int(token), "en")
+    return _WHISPER_TO_APP.get(short, short)

@@ -4,12 +4,18 @@ Port of the JAX package's ``pipeline/jax_engines.py`` single-request path:
 
 - :class:`TorchWhisperAsr` — fused log-mel kernel → Whisper encode + KV-cached
   decode with context buckets, the temperature-fallback ladder and its gates,
-  ``condition_on_previous_text``, SuppressBlank, and DTW word timestamps;
+  ``condition_on_previous_text``, SuppressBlank, DTW word timestamps, and
+  language detection when the caller names no language;
 - :class:`TorchNllbNmt` — NLLB greedy generate with the forced target-language
   BOS over bucketed source lengths;
 - :class:`TorchCosyVoiceTts` — CosyVoice synthesis, cloning the voice of a
   reference through voice-prompt conditioning (ECAPA speaker embedding,
   Kaldi-fbank prompt mel, FSQ prompt speech tokens).
+
+Each engine also serves a batch of requests in one device pass
+(``transcribe_batch``, ``translate_batch``, ``synthesize_batch``), padded to
+the buckets of ``core/buckets.py``; ``torch_engines(batch_*=True)`` puts the
+micro-batchers of ``serve/batching.py`` in front of them.
 
 Without checkpoints every model runs on seeded random weights ("weightless"),
 as the JAX engines do.
@@ -25,6 +31,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.buckets import bucket_batch, bucket_size, row_slices
 from ..core.device import resolve_device
 from ..models import cosyvoice as cvm
 from ..models import ecapa as ecm
@@ -34,10 +41,12 @@ from ..models import speech_tokenizer as stm
 from ..models import whisper as wm
 from ..models.common import cast_floats
 from ..ops.cuda_mel import whisper_log_mel_fused
-from ..ops.mel import kaldi_fbank
+from ..ops.mel import kaldi_fbank, whisper_log_mel
 from ..ops.resample import resample
+from ..serve.batching import BatchedAsr, BatchedNmt, BatchedTts
 from .engines import Engines
-from .languages import NLLB_LANGUAGES, nllb_placeholder_lang_ids, whisper_lang_index
+from .languages import (NLLB_LANGUAGES, nllb_placeholder_lang_ids, whisper_lang_index,
+                        whisper_token_to_app)
 from .tokenizer import ByteTokenizer, Tokenizer, nllb_lang_ids
 
 log = logging.getLogger(__name__)
@@ -46,21 +55,10 @@ TEXT_BUCKETS = (16, 32, 64, 128, 256)
 TTS_BUDGET_BUCKETS = (64, 128, 256, 512, 768)
 
 
-def _bucket_size(n: int, buckets) -> int:
-    """Smallest bucket ≥ n; keeps doubling above the top bucket."""
-    for b in buckets:
-        if n <= b:
-            return b
-    b = buckets[-1]
-    while b < n:
-        b *= 2
-    return b
-
-
 def _bucket_capped(n: int, buckets) -> int:
     """Smallest bucket ≥ n, clamped to the top bucket (only for budgets with
     an intended ceiling)."""
-    return min(_bucket_size(n, buckets), buckets[-1])
+    return min(bucket_size(n, buckets), buckets[-1])
 
 
 def _fit_vocab(ids, vocab_size: int, weightless: bool, label: str) -> np.ndarray:
@@ -191,12 +189,37 @@ class TorchWhisperAsr:
                           "end": round(chunk_offset + chunk_seconds, 3)})
         return chunk_text, [w for w in words if w["word"]], [t for _, t in keep]
 
+    def _mel(self, padded: np.ndarray) -> torch.Tensor:
+        """Log-mel [n_mels, frames] of one bucket-padded chunk, by the
+        log-mel kernel on the card, in the serving dtype."""
+        audio = torch.from_numpy(padded).to(self.device)
+        return whisper_log_mel_fused(audio, n_mels=self.cfg.n_mels,
+                                     chunk_samples=len(padded)).to(self.dtype)
+
+    def _mel_b(self, audio: np.ndarray) -> torch.Tensor:
+        """Log-mel [N, n_mels, frames] of zero-padded rows [N, samples]. The
+        plain ``ops/mel.py`` version, as the JAX batched programs take XLA's
+        mel and not the Pallas kernel (which takes one waveform)."""
+        return whisper_log_mel(torch.from_numpy(audio).to(self.device), n_mels=self.cfg.n_mels,
+                               chunk_samples=audio.shape[-1]).to(self.dtype)
+
+    def _lang_code(self, token: int) -> str:
+        """A detected language token → app code, read in the standard
+        50259-based block (a tiny vocabulary places the block elsewhere)."""
+        return whisper_token_to_app(token - self.cfg.lang_token_start + 50_259)
+
+    def detect_language(self, audio_16k: np.ndarray) -> str:
+        """The spoken language of the first 30 s as an app code (whisper
+        ``detect_language``): the chunk padded to its context bucket, the
+        log-mel kernel, one decoder pass over the language tokens."""
+        x = np.asarray(audio_16k, np.float32).reshape(-1)[: 16_000 * 30]
+        padded, _ = self._pad_to_bucket(x)
+        ids, _ = wm.detect_language(self.params, self.cfg, self._mel(padded)[None])
+        return self._lang_code(int(ids[0]))
+
     def _decode(self, padded: np.ndarray, prompt_row: List[int], temperature: float):
         """One decode of a bucket-padded chunk → host (tokens, aligns, slp,
         ngen, nsp) of row 0."""
-        audio = torch.from_numpy(padded).to(self.device)
-        mel = whisper_log_mel_fused(audio, n_mels=self.cfg.n_mels,
-                                    chunk_samples=len(padded)).to(self.dtype)
         self._seed += 1
         gumbel = None
         if temperature > 0:
@@ -204,49 +227,62 @@ class TorchWhisperAsr:
                 torch.Generator(device=self.device).manual_seed(self._seed))
         prompt = torch.tensor([prompt_row], dtype=torch.int32, device=self.device)
         out = wm.decode_with_alignment(
-            self.params, self.cfg, mel[None], prompt, max_new_tokens=self.max_new_tokens,
-            temperature=temperature, gumbel=gumbel, suppress_tokens=self._suppress[0],
-            suppress_first_tokens=self._suppress[1],
+            self.params, self.cfg, self._mel(padded)[None], prompt,
+            max_new_tokens=self.max_new_tokens, temperature=temperature, gumbel=gumbel,
+            suppress_tokens=self._suppress[0], suppress_first_tokens=self._suppress[1],
             # the prompt row always ends [sot, lang, task, no_timestamps]
             sot_index=len(prompt_row) - 4)
         return [t[0].cpu().numpy() for t in out]
 
+    def _gates_pass(self, text: str, avg_logprob: float) -> bool:
+        """whisper.transcribe's compression-ratio and avg-logprob gates."""
+        raw = text.encode("utf-8")
+        compression_ratio = (len(raw) / len(zlib.compress(raw))) if raw else 0.0
+        ok = (compression_ratio <= self.compression_ratio_threshold
+              and avg_logprob >= self.logprob_threshold)
+        if not ok:
+            log.info("temperature fallback: rejected (compression %.2f, avg_logprob %.2f)",
+                     compression_ratio, avg_logprob)
+        return ok
+
+    def _no_speech(self, no_speech_prob: float, avg_logprob: float, offset_s: float) -> bool:
+        """whisper's no-speech gate: a chunk likely silent and decoded with
+        low confidence gives no text."""
+        if no_speech_prob > self.no_speech_threshold and avg_logprob < self.logprob_threshold:
+            log.info("no-speech gate: chunk at %.1fs suppressed (p=%.2f, avg_logprob=%.2f)",
+                     offset_s, no_speech_prob, avg_logprob)
+            return True
+        return False
+
     def _decode_chunk_fallback(self, padded, prompt_row, offset_s, chunk_s, bucket_s,
-                               bare_row=None):
+                               bare_row=None, temperatures=None):
         """whisper.transcribe's temperature-fallback ladder: decode at each
         temperature until the compression-ratio and avg-logprob gates pass;
         the last rung is accepted as is. Rungs above 0.5 drop the
-        previous-text prompt."""
-        for i, temp in enumerate(self.temperatures):
+        previous-text prompt. ``temperatures`` replaces ``self.temperatures``
+        (the batch path starts above the greedy rung its dispatch ran)."""
+        temperatures = self.temperatures if temperatures is None else temperatures
+        for i, temp in enumerate(temperatures):
             row = bare_row if (temp > 0.5 and bare_row is not None) else prompt_row
             tokens, aligns, slp, ngen, nsp = self._decode(padded, row, temp)
             text, words, kept = self._decode_chunk_host(tokens, aligns, len(row), offset_s,
                                                         chunk_s, window_seconds=bucket_s)
             avg_logprob = float(slp) / max(int(ngen), 1)
-            if float(nsp) > self.no_speech_threshold and avg_logprob < self.logprob_threshold:
-                log.info("no-speech gate: chunk at %.1fs suppressed (p=%.2f, avg_logprob=%.2f)",
-                         offset_s, float(nsp), avg_logprob)
+            if self._no_speech(float(nsp), avg_logprob, offset_s):
                 return "", [], [], temp
-            if i == len(self.temperatures) - 1:
+            if i == len(temperatures) - 1 or self._gates_pass(text, avg_logprob):
                 return text, words, kept, temp
-            raw = text.encode("utf-8")
-            compression_ratio = (len(raw) / len(zlib.compress(raw))) if raw else 0.0
-            if (compression_ratio <= self.compression_ratio_threshold
-                    and avg_logprob >= self.logprob_threshold):
-                return text, words, kept, temp
-            log.info("temperature fallback: t=%.1f rejected (compression %.2f, avg_logprob %.2f)",
-                     temp, compression_ratio, avg_logprob)
         return text, words, kept, temp
 
     def transcribe(self, audio_16k: np.ndarray, language: Optional[str] = None) -> Dict[str, Any]:
-        """→ {"text", "language", "words": [{"word", "start", "end"}]}. The
+        """→ {"text", "language", "words": [{"word", "start", "end"}]}. Without
+        a ``language`` it is detected first (:meth:`detect_language`). The
         audio is decoded in windows of the top context bucket; each window's
         prompt carries the previous windows' tokens (truncated to a bucket)
         unless a rung above 0.5 reset it."""
-        if language is None:
-            raise NotImplementedError("language detection is not ported yet: pass the "
-                                      "source language")
         x = np.asarray(audio_16k, np.float32).reshape(-1)
+        if language is None:
+            language = self.detect_language(x)
         base_row = self._prompt_row(language)
         chunk = 16_000 * self.context_buckets[-1]
         prev_ids: List[int] = []
@@ -270,7 +306,90 @@ class TorchWhisperAsr:
             if text:
                 texts.append(text)
             words.extend(seg_words)
-        return {"text": " ".join(texts), "language": language, "words": words}
+        return {"text": " ".join(texts), "language": language or "eng", "words": words}
+
+    def _gated_chunk(self, tokens, aligns, p_len, offset_s, chunk_s, bucket_s, *,
+                     avg_logprob, no_speech_prob, seg, prompt_row) -> tuple:
+        """The single path's gates on one batch-decoded row → (text, words):
+        the no-speech gate, then the compression/logprob gates; a failing row
+        re-runs through the single path's ladder from ``temperatures[1:]``."""
+        text, words, _ = self._decode_chunk_host(tokens, aligns, p_len, offset_s, chunk_s,
+                                                 window_seconds=bucket_s)
+        if self._no_speech(no_speech_prob, avg_logprob, offset_s):
+            return "", []
+        if len(self.temperatures) <= 1 or self._gates_pass(text, avg_logprob):
+            return text, words
+        padded, pb = self._pad_to_bucket(np.asarray(seg, np.float32))
+        text, words, _, _ = self._decode_chunk_fallback(
+            padded, prompt_row, offset_s, chunk_s, pb, temperatures=self.temperatures[1:])
+        return text, words
+
+    def transcribe_batch(self, requests: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """Batched ASR: ``requests`` [{"audio_16k", "language" (None to
+        detect)}] → what :meth:`transcribe` gives each.
+
+        Windows of the top context bucket are flattened across requests (a
+        70 s request gives 3 rows), at most 32 rows a dispatch, zero-padded to
+        the dispatch's one context bucket (its longest row's), the row count
+        to a bucket of (1, 2, 4, 8, 16, 32). Every row decodes greedily from
+        the bare 4-token prompt, with the single path's token suppression and
+        no-speech probability; :meth:`_gated_chunk` gates each row. Unlike
+        :meth:`transcribe`, a request's windows decode independently: no
+        previous-text prompts. Rows without a language are detected first,
+        in one pass padded to a batch bucket."""
+        if not requests:
+            return []
+        chunk = 16_000 * self.context_buckets[-1]
+        langs = [r.get("language") for r in requests]
+        need = [i for i, lang in enumerate(langs) if lang is None]
+        if need:
+            det = np.zeros((bucket_batch(len(need)), 16_000 * 30), np.float32)
+            for j, i in enumerate(need):
+                seg = np.asarray(requests[i]["audio_16k"], np.float32).reshape(-1)[: 16_000 * 30]
+                det[j, : len(seg)] = seg
+            ids, _ = wm.detect_language(self.params, self.cfg, self._mel_b(det))
+            for j, i in enumerate(need):
+                langs[i] = self._lang_code(int(ids[j]))
+
+        specs = []   # (request index, window offset s, window s)
+        rows: List[np.ndarray] = []
+        prompts: List[List[int]] = []
+        for i, r in enumerate(requests):
+            x = np.asarray(r["audio_16k"], np.float32).reshape(-1)
+            prow = self._prompt_row(langs[i])
+            for start in range(0, max(len(x), 1), chunk):
+                seg = x[start:start + chunk]
+                rows.append(seg)
+                prompts.append(prow)
+                specs.append((i, start / 16_000.0, len(seg) / 16_000.0))
+        longest = max(len(r) for r in rows)
+        window_s = next((b for b in self.context_buckets if longest <= 16_000 * b),
+                        self.context_buckets[-1])
+        results = [{"text": [], "words": []} for _ in requests]
+        for lo, hi in row_slices(len(rows), 32):
+            nb = bucket_batch(hi - lo, (1, 2, 4, 8, 16, 32))
+            audio = np.zeros((nb, 16_000 * window_s), np.float32)
+            for j, row in enumerate(rows[lo:hi]):
+                audio[j, : len(row)] = row[: 16_000 * window_s]
+            prompt = np.tile(np.asarray(prompts[lo], np.int32), (nb, 1))
+            prompt[: hi - lo] = np.asarray(prompts[lo:hi], np.int32)
+            out = wm.decode_with_alignment(
+                self.params, self.cfg, self._mel_b(audio), torch.from_numpy(prompt).to(self.device),
+                max_new_tokens=self.max_new_tokens, suppress_tokens=self._suppress[0],
+                suppress_first_tokens=self._suppress[1], sot_index=0)
+            tokens, aligns, slp, ngen, nsp = (t.cpu().numpy() for t in out)
+            for row, (ri, offset, seconds) in enumerate(specs[lo:hi]):
+                text, words = self._gated_chunk(
+                    tokens[row], aligns[row], prompt.shape[1], offset, seconds, window_s,
+                    avg_logprob=float(slp[row]) / max(int(ngen[row]), 1),
+                    no_speech_prob=float(nsp[row]), seg=rows[lo + row],
+                    prompt_row=prompts[lo + row])
+                if text:
+                    results[ri]["text"].append(text)
+                results[ri]["words"].extend(words)
+        return [{"text": " ".join(res["text"]), "language": langs[i] or "eng",
+                 "words": res["words"]}
+                for i, res in enumerate(results)]
 
 
 # ========================================================================= NMT
@@ -315,6 +434,11 @@ class TorchNllbNmt:
         raise KeyError(f"language {code!r} has no token id — supply lang_code_to_id or a "
                        "tokenizer whose vocab contains the FLORES language tokens")
 
+    def _src_bucket(self, n: int) -> int:
+        """Source width: the smallest text bucket ≥ n (doubling above the
+        top), clamped to the encoder's positions."""
+        return min(bucket_size(n, TEXT_BUCKETS), self.cfg.max_positions)
+
     def _encode_src(self, text: str, source_lang: str) -> List[int]:
         """NLLB source layout: ``[src_lang] tokens … [eos]``."""
         ids = self.tokenizer.encode(text)[: self.cfg.max_positions - 2]
@@ -323,16 +447,45 @@ class TorchNllbNmt:
         except KeyError:
             return ids + [self.cfg.eos_token]
 
-    def translate(self, text: str, source_lang: str, target_lang: str) -> str:
-        src = self._encode_src(text, source_lang)
-        bucket = min(_bucket_size(len(src), TEXT_BUCKETS), self.cfg.max_positions)
-        padded = np.full((1, bucket), self.cfg.pad_token, np.int32)
-        padded[0, : len(src)] = _fit_vocab(src, self.cfg.vocab_size, self.weightless, "NMT")
+    def _generate(self, srcs: List[List[int]], forced_bos: int, rows: int) -> List[str]:
+        """Greedy generate of source rows padded to their shared bucket and
+        to ``rows`` rows → each source's text, pad and EOS stripped."""
+        padded = np.full((rows, self._src_bucket(max(len(s) for s in srcs))), self.cfg.pad_token,
+                         np.int32)
+        for row, src in enumerate(srcs):
+            padded[row, : len(src)] = _fit_vocab(src, self.cfg.vocab_size, self.weightless, "NMT")
         out = nlm.generate(self.params, self.cfg, torch.from_numpy(padded).to(self.device),
-                           self._lang_id(target_lang), max_new_tokens=self.max_new_tokens)
-        out = out[0].cpu().numpy()
-        content = [int(t) for t in out[2:] if t not in (self.cfg.eos_token, self.cfg.pad_token)]
-        return self.tokenizer.decode(content)
+                           forced_bos, max_new_tokens=self.max_new_tokens).cpu().numpy()
+        return [self.tokenizer.decode([int(t) for t in out[row, 2:]
+                                       if t not in (self.cfg.eos_token, self.cfg.pad_token)])
+                for row in range(len(srcs))]
+
+    def translate(self, text: str, source_lang: str, target_lang: str) -> str:
+        return self._generate([self._encode_src(text, source_lang)], self._lang_id(target_lang),
+                              1)[0]
+
+    def translate_batch(self, requests: List[Dict[str, Any]]) -> List[str]:
+        """Batched NMT: ``requests`` [{"text", "source_lang", "target_lang"}]
+        → each translation. Requests sharing a target language (the forced
+        BOS) ride one dispatch of at most 16 rows, padded to a batch
+        bucket."""
+        if not requests:
+            return []
+        if len(requests) > 16:
+            out: List[str] = []
+            for lo, hi in row_slices(len(requests), 16):
+                out.extend(self.translate_batch(requests[lo:hi]))
+            return out
+        results: List[str] = [""] * len(requests)
+        by_target: Dict[int, List[int]] = {}
+        for i, r in enumerate(requests):
+            by_target.setdefault(self._lang_id(r["target_lang"]), []).append(i)
+        for forced_bos, idxs in by_target.items():
+            srcs = [self._encode_src(requests[i]["text"], requests[i]["source_lang"])
+                    for i in idxs]
+            for i, text in zip(idxs, self._generate(srcs, forced_bos, bucket_batch(len(idxs)))):
+                results[i] = text
+        return results
 
 
 # ========================================================================= TTS
@@ -421,17 +574,39 @@ class TorchCosyVoiceTts:
             ids = self.tokenizer.encode(style_prompt)[: min(room, 128)] + ids
         return ids
 
+    def _cond_b(self, ref16: np.ndarray, has_ref: np.ndarray):
+        """Voice-prompt conditioning of N 10 s 16 kHz references [N, 160000]
+        in one pass → (speaker embeddings [N, spk_dim] and prompt mels
+        [N, 2 s of frames, n_mels] in the serving dtype, prompt speech tokens
+        [N, 50] int32, their mask [N, 50]). Rows whose ``has_ref`` is 0 are
+        zeroed and keep ``_noref_tokens`` live token slots."""
+        dev = self.device
+        x = torch.from_numpy(np.ascontiguousarray(ref16, np.float32)).to(dev)
+        spk = ecm.embed_audio(self._ecapa, self._ecapa_cfg, x)
+        ref24 = resample(x, 16_000, 24_000)
+        pmel = kaldi_fbank(ref24, sr=24_000)[:, : self._prompt_frames].to(self.dtype)
+        st_mel = kaldi_fbank(ref24, sr=24_000, frame_length_ms=40.0, frame_shift_ms=20.0,
+                             n_mels=self._st_cfg.n_mels)
+        ids, _ = stm.encode(self._st, self._st_cfg, st_mel,
+                            torch.ones(st_mel.shape[:2], dtype=torch.bool, device=dev))
+        psp = (ids[:, : self._prompt_tokens] % self.cfg.lm.speech_token_size).to(torch.int32)
+        hr32 = torch.from_numpy(np.asarray(has_ref, np.float32)).to(dev)
+        # the multiplier in the serving dtype: an f32 one would promote spk and
+        # the prompt mel, so these rows would run at another precision
+        hr = hr32.to(self.dtype)
+        spk = spk.to(self.dtype) * hr[:, None]
+        pmel = pmel * hr[:, None, None]
+        psp = psp * hr32.to(torch.int32)[:, None]
+        psm = (hr[:, None] != 0) | (torch.arange(psp.shape[1], device=dev)[None, :]
+                                    < self._noref_tokens)
+        return spk, pmel, psp, psm
+
     def _cond(self, ref16: np.ndarray):
-        """Voice-prompt conditioning of a 10 s 16 kHz reference → (speaker
+        """Voice-prompt conditioning of one 10 s 16 kHz reference → (speaker
         embedding [1, spk_dim], prompt mel [1, 2 s of frames, n_mels] in the
         serving dtype, prompt speech tokens [1, 50] int32)."""
-        x = torch.from_numpy(np.ascontiguousarray(ref16, np.float32)).to(self.device)
-        spk = ecm.embed_audio(self._ecapa, self._ecapa_cfg, x[None])
-        ref24 = resample(x, 16_000, 24_000)
-        pmel = kaldi_fbank(ref24[None], sr=24_000)[:, : self._prompt_frames].to(self.dtype)
-        ids = stm.tokenize_audio(self._st, self._st_cfg, ref24)
-        psp = (ids[None, : self._prompt_tokens] % self.cfg.lm.speech_token_size).to(torch.int32)
-        return spk.to(self.dtype), pmel, psp
+        spk, pmel, psp, _ = self._cond_b(np.asarray(ref16, np.float32)[None], np.ones(1))
+        return spk, pmel, psp
 
     def _prepare_conditioning(self, text: str, reference_audio_16k, style_prompt: str = ""):
         ids = self._text_ids(text, style_prompt, reference_audio_16k)
@@ -470,6 +645,59 @@ class TorchCosyVoiceTts:
         n = max(int(out["token_lengths"][0]), 1) * spt
         return out["audio"][0, :n].float().cpu().numpy()
 
+    def synthesize_batch(self, requests: List[Dict[str, Any]]) -> List[np.ndarray]:
+        """Batched synthesis: ``requests`` [{"text", "reference_audio_16k"
+        (or None), "style_prompt", "language"}] → each float32 waveform at
+        24 kHz, trimmed to its EOS-determined length.
+
+        At most 16 rows a dispatch, padded to a batch bucket; the text to the
+        longest row's text bucket; the decode budget to the longest text's.
+        One conditioning pass for the batch (:meth:`_cond_b`): rows with a
+        reference attend over the whole prompt mel, rows without over
+        ``_noref_frames`` frames, as :meth:`synthesize` conditions them. One
+        noise source a dispatch (``noise(call_index)``). The vocoder's narrow
+        stages run the resblock kernel on the whole batch."""
+        if not requests:
+            return []
+        n = len(requests)
+        if n > 16:
+            outs: List[np.ndarray] = []
+            for lo, hi in row_slices(n, 16):
+                outs.extend(self.synthesize_batch(requests[lo:hi]))
+            return outs
+        dev = self.device
+        nb = bucket_batch(n)
+        enc = [self._text_ids(r["text"], r.get("style_prompt", ""), r.get("reference_audio_16k"))
+               for r in requests]
+        width = _bucket_capped(max(max(len(e) for e in enc), 1), TEXT_BUCKETS)
+        toks = np.zeros((nb, width), np.int32)
+        tmask = np.zeros((nb, width), bool)
+        for i, e in enumerate(enc):
+            toks[i, : len(e)] = _fit_vocab(e, self.cfg.lm.text_vocab, self.weightless, "text")
+            tmask[i, : len(e)] = True
+        refs = np.zeros((nb, 16_000 * 10), np.float32)
+        has_ref = np.zeros((nb,), np.float32)
+        for i, r in enumerate(requests):
+            ra = r.get("reference_audio_16k")
+            if self._ref_usable(ra):
+                refs[i] = np.resize(np.asarray(ra, np.float32).reshape(-1)[: 16_000 * 10],
+                                    16_000 * 10)
+                has_ref[i] = 1.0
+        spk, pmel, psp, psm = self._cond_b(refs, has_ref)
+        frames = torch.arange(pmel.shape[1], device=dev)[None, :]
+        pmm = torch.from_numpy(has_ref > 0).to(dev)[:, None] | (frames < self._noref_frames)
+        seconds = max(float(np.clip(len(r["text"]) * self.seconds_per_char, 0.6, 30.0))
+                      for r in requests)
+        max_new = _bucket_capped(int(seconds * 25), TTS_BUDGET_BUCKETS)
+        self._call_count += 1
+        out = cvm.synthesize(self.params, self.cfg, self._noise(self._call_count),
+                             torch.from_numpy(toks).to(dev), torch.from_numpy(tmask).to(dev),
+                             psp, psm, spk, pmel, pmm, max_new_tokens=max_new)
+        audio = out["audio"].float().cpu().numpy()
+        lengths = out["token_lengths"].cpu().numpy()
+        spt = self.cfg.flow.token_mel_ratio * self.cfg.vocoder.hop
+        return [audio[i, : max(int(lengths[i]), 1) * spt] for i in range(n)]
+
 
 # ===================================================================== wiring
 
@@ -486,15 +714,13 @@ def reference_scale_configs() -> Dict[str, Any]:
 # JAX default, which asks for nothing, and the ROADMAP Queue 1 item that
 # brings the feature). Any other value raises NotImplementedError.
 _QUEUED_KEYS = {
-    "batch_tts": (False, 2), "batch_asr": (False, 2), "batch_nmt": (False, 2),
-    "max_batch": (8, 2), "batch_wait_ms": (20.0, 2),
     "tts_mtp": (0, 6), "tts_spec": (False, 6),
     "quantize": (False, 7),
     "tts_official": (None, 8),
     "mesh": (None, 12), "stage_parallel": (False, 12), "stage_tp": (1, 12),
     "stage_meshes": (None, 12),
 }
-_QUEUE_ITEMS = {2: "batched paths", 6: "MTP and speculative speech-token generators",
+_QUEUE_ITEMS = {6: "MTP and speculative speech-token generators",
                 7: "int8", 8: "the official CosyVoice chain and the checkpoint loaders",
                 12: "meshes and stage-parallel serving"}
 _PASSED_KEYS = frozenset((
@@ -524,18 +750,23 @@ def _check_keys(kwargs: Dict[str, Any]) -> None:
         raise _not_ported("loading checkpoints from EST_MODELS_DIR", 8)
 
 
-def torch_engines(*, scale: str = "toy", device=None, **kwargs) -> Engines:
+def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
+                  batch_asr: bool = False, batch_nmt: bool = False, max_batch: int = 8,
+                  batch_wait_ms: float = 20.0, **kwargs) -> Engines:
     """Engines wired to the port's models (random weights unless supplied),
     on the card unless ``device="cpu"``.
 
     ``scale="reference"`` serves Whisper-medium / NLLB-600M / CosyVoice-0.5B
-    dims; ``"toy"`` the small structure-test dims. ``asr_cfg``/``asr_params``/
-    ``asr_context_buckets`` (default ``(30,)``), ``nmt_cfg``/``nmt_params``/
-    ``lang_code_to_id``, ``tts_cfg``/``tts_params``/``tts_noise``/``tts_ecapa``/
-    ``tts_speech_tokenizer`` (each ``(params, cfg)``) and ``dtype`` pass
-    through to the engines; ``asr_tokenizer``/``nmt_tokenizer``/
-    ``tts_tokenizer`` override the shared ``tokenizer``, as in the JAX
-    factory. The JAX factory's other keys (batching, MTP and speculative
+    dims; ``"toy"`` the small structure-test dims. ``batch_tts/asr/nmt=True``
+    put a micro-batcher (``serve/batching.py``, up to ``max_batch`` requests
+    gathered for up to ``batch_wait_ms``) in front of the stage, so
+    concurrent requests share its batched dispatches, as in the JAX factory.
+    ``asr_cfg``/``asr_params``/``asr_context_buckets`` (default ``(30,)``),
+    ``nmt_cfg``/``nmt_params``/``lang_code_to_id``, ``tts_cfg``/
+    ``tts_params``/``tts_noise``/``tts_ecapa``/``tts_speech_tokenizer``
+    (each ``(params, cfg)``) and ``dtype`` pass through to the engines;
+    ``asr_tokenizer``/``nmt_tokenizer``/``tts_tokenizer`` override the
+    shared ``tokenizer``. The JAX factory's other keys (MTP and speculative
     decoding, int8, the official CosyVoice chain, meshes) are accepted at
     their defaults and raise ``NotImplementedError`` naming the ROADMAP item
     that brings them otherwise, as does a set ``EST_MODELS_DIR``."""
@@ -548,15 +779,22 @@ def torch_engines(*, scale: str = "toy", device=None, **kwargs) -> Engines:
         raise ValueError(f"unknown scale {scale!r} (toy|reference)")
     dtype = kwargs.get("dtype", torch.bfloat16)
     tok = kwargs.get("tokenizer")
-    asr = TorchWhisperAsr(kwargs.get("asr_cfg"), kwargs.get("asr_params"),
-                          kwargs.get("asr_tokenizer", tok), device=dev, dtype=dtype,
-                          context_buckets=kwargs.get("asr_context_buckets", (30,)))
-    nmt = TorchNllbNmt(kwargs.get("nmt_cfg"), kwargs.get("nmt_params"),
-                       kwargs.get("nmt_tokenizer", tok), device=dev,
-                       lang_code_to_id=kwargs.get("lang_code_to_id"), dtype=dtype)
-    tts = TorchCosyVoiceTts(kwargs.get("tts_cfg"), kwargs.get("tts_params"),
-                            kwargs.get("tts_tokenizer", tok), device=dev,
-                            dtype=dtype, noise=kwargs.get("tts_noise"),
-                            ecapa_weights=kwargs.get("tts_ecapa"),
-                            speech_tokenizer_weights=kwargs.get("tts_speech_tokenizer"))
+    asr: Any = TorchWhisperAsr(kwargs.get("asr_cfg"), kwargs.get("asr_params"),
+                               kwargs.get("asr_tokenizer", tok), device=dev, dtype=dtype,
+                               context_buckets=kwargs.get("asr_context_buckets", (30,)))
+    nmt: Any = TorchNllbNmt(kwargs.get("nmt_cfg"), kwargs.get("nmt_params"),
+                            kwargs.get("nmt_tokenizer", tok), device=dev,
+                            lang_code_to_id=kwargs.get("lang_code_to_id"), dtype=dtype)
+    tts: Any = TorchCosyVoiceTts(kwargs.get("tts_cfg"), kwargs.get("tts_params"),
+                                 kwargs.get("tts_tokenizer", tok), device=dev,
+                                 dtype=dtype, noise=kwargs.get("tts_noise"),
+                                 ecapa_weights=kwargs.get("tts_ecapa"),
+                                 speech_tokenizer_weights=kwargs.get("tts_speech_tokenizer"))
+    batching = dict(max_batch=max_batch, max_wait_ms=batch_wait_ms)
+    if batch_tts:
+        tts = BatchedTts(tts, **batching)
+    if batch_asr:
+        asr = BatchedAsr(asr, **batching)
+    if batch_nmt:
+        nmt = BatchedNmt(nmt, **batching)
     return Engines(asr=asr, nmt=nmt, tts=tts)

@@ -5,8 +5,9 @@
   does: the same forced BOS and the same tokens, with weights and weightless.
 - ``torch_engines`` takes every key of the JAX factory ``jax_engines``: it
   honours the ones the port can serve (ASR context buckets, per-stage
-  tokenizers) and raises ``NotImplementedError`` naming the ROADMAP item for
-  the rest, unless their value is the JAX default, which asks for nothing.
+  tokenizers, the micro-batchers) and raises ``NotImplementedError`` naming
+  the ROADMAP item for the rest, unless their value is the JAX default, which
+  asks for nothing.
 """
 
 import inspect
@@ -33,8 +34,10 @@ from expressive_speech_translation_tpu_torch.models.common import cast_floats
 from expressive_speech_translation_tpu_torch.pipeline import torch_engines as te
 from expressive_speech_translation_tpu_torch.pipeline.languages import NLLB_LANGUAGES
 from expressive_speech_translation_tpu_torch.pipeline.tokenizer import nllb_lang_ids
-from expressive_speech_translation_tpu_torch.pipeline.torch_engines import (TorchNllbNmt,
-                                                                            torch_engines)
+from expressive_speech_translation_tpu_torch.pipeline.torch_engines import (
+    TorchCosyVoiceTts, TorchNllbNmt, TorchWhisperAsr, torch_engines)
+from expressive_speech_translation_tpu_torch.serve.batching import (BatchedAsr, BatchedNmt,
+                                                                    BatchedTts)
 
 NCFG = jnl.NLLBConfig(d_model=64, encoder_layers=2, decoder_layers=2, heads=4, ffn_dim=128,
                       vocab_size=384, max_positions=128)
@@ -144,8 +147,8 @@ JAX_KEYS = {
     "nmt_cfg": (TINY["nmt_cfg"], None), "nmt_params": (None, None),
     "tts_cfg": (TINY["tts_cfg"], None), "tts_params": (None, None),
     "tts_ecapa": (None, None), "tts_speech_tokenizer": (None, None),
-    "batch_tts": (True, 2), "batch_asr": (True, 2), "batch_nmt": (True, 2),
-    "max_batch": (16, 2), "batch_wait_ms": (5.0, 2),
+    "batch_tts": (True, None), "batch_asr": (True, None), "batch_nmt": (True, None),
+    "max_batch": (16, None), "batch_wait_ms": (5.0, None),
     "tts_mtp": (2, 6), "tts_spec": (True, 6),
     "quantize": (True, 7),
     "tts_official": (object(), 8),
@@ -167,7 +170,24 @@ def test_torch_engines_honours_or_refuses_each_jax_key(key):
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item} "):
             torch_engines(**kwargs)
         return
+    if key in ("max_batch", "batch_wait_ms"):   # they shape the batchers a batch key asks for
+        kwargs["batch_nmt"] = True
     eng = torch_engines(**kwargs)
+    batched = [getattr(eng, name) for name in ("asr", "nmt", "tts")
+               if isinstance(getattr(eng, name), (BatchedAsr, BatchedNmt, BatchedTts))]
+    for stage in batched:
+        stage.shutdown()
+    if key.startswith("batch_") or key == "max_batch":
+        stage, facade, engine = {"batch_tts": ("tts", BatchedTts, TorchCosyVoiceTts),
+                                 "batch_asr": ("asr", BatchedAsr, TorchWhisperAsr)}.get(
+            key, ("nmt", BatchedNmt, TorchNllbNmt))
+        assert [type(b) for b in batched] == [facade]
+        wrapped = getattr(eng, stage)
+        assert type(wrapped.engine) is engine and wrapped.weightless is True
+        assert wrapped._mb.max_batch == (16 if key == "max_batch" else 8)
+        assert wrapped._mb.max_wait_s == (0.005 if key == "batch_wait_ms" else 0.02)
+        return
+    assert not batched
     if key == "asr_context_buckets":
         assert eng.asr.context_buckets == (10, 20, 30)
     elif key == "tokenizer":
