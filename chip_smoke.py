@@ -41,7 +41,17 @@ Phases, in order; any failure exits non-zero and prints no result:
               alone, the batches formed, peak memory; the resblock kernel must
               have launched at B > 1, and is checked and timed at the shapes
               the requests handed it;
-6. the kernels line, the card line, and last the result line.
+6. streaming — the e2e phase's engines (no second ``initialize()``),
+              ``translate_speech_streaming`` of a 10 s and a 40 s request
+              (two ASR windows), cloning on: time to the first audio event,
+              wall, events and chunk lengths, the launch counters around each
+              stream (log-mel once a window, resblock twice a streamed TTS
+              chunk); the resblock kernel checked and timed at the (B, C, T)
+              the stream handed it, in vocode's layout and the contiguous one;
+7. the kernels line, the card line, and last the result line.
+
+The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
+greedy call.
 
 The long report goes to chiprun_out/chip_smoke.json.
 """
@@ -734,15 +744,19 @@ def _recording_resblock_shapes(shapes: list):
         cosyvoice.cuda_vocoder = cuda_vocoder
 
 
-def time_request_resblock(dev, shapes, card, label: str) -> list:
+def time_request_resblock(dev, shapes, card, label: str, layouts=("bct",),
+                          graphed: bool = False) -> list:
     """The kernel at each distinct (B, C, T) requests handed it, in the main
-    path's layout, against its plain version; timed with its bound."""
+    path's layout (and any other of ``layouts``), against its plain version;
+    timed with its bound (CUDA events through the wrapper, and with
+    ``graphed`` also one call captured into a CUDA graph, replayed in turns
+    with the plain version, so the host's cost of a call stays out)."""
     rows = []
-    for b, c, t, strides in dict.fromkeys(shapes):
+    for (b, c, t, strides), layout in ((s, lay) for s in dict.fromkeys(shapes) for lay in layouts):
         if strides[1] != 1 or strides[0] != c * t:
             raise AssertionError(f"vocode handed the resblock kernel strides {strides}, "
                                  "not the transposed view of [B, C, T]")
-        x = _res_input(c, t, "bct", torch.bfloat16, dev, b)
+        x = _res_input(c, t, layout, torch.bfloat16, dev, b)
         w = _stage_weights(c, torch.bfloat16, dev, seed=c)
         kw = dict(kernels=KERNELS, dilations=DILATIONS)
         got = cuda_vocoder.fused_resblock_stage(x, w, **kw)
@@ -756,14 +770,24 @@ def time_request_resblock(dev, shapes, card, label: str) -> list:
         variant = cuda_vocoder.variant(x, KERNELS, DILATIONS)
         if variant != "wgmma":
             raise AssertionError(f"resblock request shape B={b} C={c} T={t} runs {variant}")
-        row = time_resblock({"B": b, "C": c, "T": t, "variant": variant, "max_abs_err": err,
-                             "peak": peak,
+        row = time_resblock({"B": b, "C": c, "T": t, "layout": layout, "variant": variant,
+                             "max_abs_err": err, "peak": peak,
                              "scratch_mb": b * c * t * 4 / 1e6}, x, w)
+        graph = ""
+        if graphed:
+            turns = graph_turns({"kernel": lambda: cuda_vocoder.fused_resblock_stage(x, w, **kw),
+                                 "plain": lambda: cuda_vocoder.resblock_stage_plain(x, w, **kw)},
+                                calls=10)
+            row.update(graph_ms=min(turns["kernel"]), graph_plain_ms=min(turns["plain"]),
+                       graph_turns_ms=turns)
+            graph = (f"; graph-replayed kernel {row['graph_ms']:.4f} ms  plain "
+                     f"{row['graph_plain_ms']:.4f} ms "
+                     f"({100 * row['bound_ms'] / row['graph_ms']:.2f}% of bound)")
         rows.append(row)
-        print(f"  resblock at {label}'s shape B={b} C={c} T={t} [{row['variant']}]: err "
+        print(f"  resblock at {label}'s shape B={b} C={c} T={t} {layout} [{row['variant']}]: err "
               f"{err:.2e}  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.3f} ms  bound "
-              f"{row['bound_ms']:.4f} ms ({100 * row['bound_share']:.2f}% of bound), branch-sum "
-              f"scratch {row['scratch_mb']:.1f} MB  [{card}]", flush=True)
+              f"{row['bound_ms']:.4f} ms ({100 * row['bound_share']:.2f}% of bound){graph}, "
+              f"branch-sum scratch {row['scratch_mb']:.2f} MB  [{card}]", flush=True)
     if not rows:
         raise AssertionError(f"{label} launched no resblock kernel")
     return rows
@@ -773,7 +797,9 @@ def e2e_phase(dev, report, card):
     """Reference-scale engines with full-width conditioning models,
     initialize(), one conditioning call on its own, three translate_speech
     requests at their defaults (eng → fra, voice cloning on), with the
-    kernels' launch counters read around the requests."""
+    kernels' launch counters read around the requests; one translate greedy
+    and at ``num_beams=4``. → (the phase's results, the backend, which the
+    streaming phase reuses)."""
     from expressive_speech_translation_tpu_torch.models import ecapa
     from expressive_speech_translation_tpu_torch.models import speech_tokenizer as stm
     from expressive_speech_translation_tpu_torch.pipeline.cascaded import CascadedBackend
@@ -834,9 +860,37 @@ def e2e_phase(dev, report, card):
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
            "resblock_request": time_request_resblock(
                dev, res_shapes, card, f"a {RES_REQUEST_SECONDS:.0f} s request"),
-           "detect": detect_check(engines.asr, card)}
+           "detect": detect_check(engines.asr, card),
+           "beam": beam_check(engines.nmt, card)}
     report["e2e"] = e2e
-    return e2e
+    return e2e, backend
+
+
+BEAM_TEXT = "The weather is fine today, and the station is not far from here."
+
+
+def beam_check(nmt, card) -> dict:
+    """One ``translate`` of BEAM_TEXT greedy and one at ``num_beams=4`` on the
+    reference-width NMT (NLLB-600M), each timed on the host clock with the
+    card synchronised; both must give a string."""
+    out, default = {}, nmt.num_beams
+    for beams in (1, 4):
+        nmt.num_beams = beams
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            text = nmt.translate(BEAM_TEXT, "eng", "fra")
+            torch.cuda.synchronize()
+            out[f"beams_{beams}_s"] = time.perf_counter() - t0
+        finally:
+            nmt.num_beams = default
+        if not isinstance(text, str):
+            raise AssertionError(f"translate at num_beams={beams} gave {type(text)}")
+        out[f"beams_{beams}_chars"] = len(text)
+    print(f"  translate ({len(BEAM_TEXT)} chars, NLLB-600M, {nmt.max_new_tokens}-token budget): "
+          f"greedy {out['beams_1_s']:.3f} s, num_beams=4 {out['beams_4_s']:.3f} s  [{card}]",
+          flush=True)
+    return out
 
 
 def _reset_launches() -> None:
@@ -902,6 +956,8 @@ def batched_phase(dev, report, card, e2e):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # the e2e phase's engines stay resident for the streaming phase
+    resident = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
     ecfg, scfg = ecapa.EcapaConfig(), stm.SpeechTokenizerConfig()
     engines = torch_engines(scale="reference", batch_asr=True, batch_nmt=True, batch_tts=True,
@@ -956,7 +1012,8 @@ def batched_phase(dev, report, card, e2e):
     print(f"  {BATCH_REQUESTS} concurrent {BATCH_SECONDS:.0f} s requests: wall {wall:.3f} s, "
           f"{rps:.4f} requests/s; serially (the e2e phase's {BATCH_SECONDS:.0f} s request, "
           f"{serial:.3f} s) {rps_serial:.4f} requests/s: {rps / rps_serial:.2f}x; peak memory "
-          f"{peak:.2f} GiB  [{card}]", flush=True)
+          f"{peak:.2f} GiB, {peak - resident:.2f} GiB above the {resident:.2f} GiB the e2e "
+          f"engines hold  [{card}]", flush=True)
     print(f"  batches formed (items / batches): {formed}; kernel launches {launches}; resblock "
           f"launches (B, C, T): {[shape[:3] for shape in res_shapes]}", flush=True)
     if launches["fused_resblock_stage"] <= 0 or not any(b > 1 for b, *_ in res_shapes):
@@ -973,6 +1030,7 @@ def batched_phase(dev, report, card, e2e):
                "requests_per_s": rps, "serial_request_s": serial,
                "serial_requests_per_s": rps_serial, "requests": requests, "formed": formed,
                "launches": launches, "peak_memory_gib": peak,
+               "resident_before_gib": resident,
                "resblock_shapes": [list(shape[:3]) for shape in res_shapes],
                "worst_scratch_gb": worst_scratch_gb,
                "resblock_request": time_request_resblock(
@@ -981,25 +1039,132 @@ def batched_phase(dev, report, card, e2e):
     return batched
 
 
+STREAM_SECONDS = (10.0, 40.0)   # the 40 s request spans two 30 s ASR windows
+
+
+@contextlib.contextmanager
+def _counting_stream_chunks(calls: list):
+    """Append the token count of every streamed TTS chunk made inside the
+    block (one ``flow_vocode_chunk`` call, one vocode) to ``calls``."""
+    from expressive_speech_translation_tpu_torch.models import cosyvoice
+
+    chunk = cosyvoice.flow_vocode_chunk
+
+    def counting(params, flow_cfg, voc_cfg, noise, tokens, n_valid, *args):
+        calls.append(int(n_valid))
+        return chunk(params, flow_cfg, voc_cfg, noise, tokens, n_valid, *args)
+
+    cosyvoice.flow_vocode_chunk = counting
+    try:
+        yield calls
+    finally:
+        cosyvoice.flow_vocode_chunk = chunk
+
+
+def streaming_phase(dev, report, card, backend, e2e):
+    """``translate_speech_streaming`` (eng → fra, cloning on) of a 10 s and a
+    40 s request on the e2e phase's backend, each with the launch counters
+    set to 0 before it and read after: log-mel once an ASR window (the
+    language is given: no detection), resblock twice a streamed TTS chunk;
+    the 40 s request must give two transcripts events, and each at least one
+    audio chunk. The resblock kernel is then checked and timed at the
+    (B, C, T) the streams handed it, in both layouts (at reference width two
+    narrow stages a chunk: C=128, T=2,976 and C=64, T=29,760 for the 62
+    frames a chunk vocodes)."""
+    print(f"== streaming: translate_speech_streaming of {', '.join(f'{s:.0f}' for s in STREAM_SECONDS)}"
+          " s requests on the e2e engines, cloning on", flush=True)
+    t_phase = time.perf_counter()
+    streams, res_shapes = [], []
+    launches_total = dict.fromkeys(LAUNCH_COUNTERS, 0)
+    tts = getattr(backend.engines.tts, "engine", backend.engines.tts)
+    vc = tts.cfg.vocoder
+    widths = [vc.base_channels // 2 ** (i + 1) for i in range(len(vc.upsample_rates))]
+    per_chunk = sum(1 for c in widths if c <= 128 and c % 8 == 0)  # vocode's narrow stages
+    for seconds in STREAM_SECONDS:
+        x = _speechlike(seconds, seed=200 + int(seconds))
+        shapes, chunks, events = [], [], []
+        first_audio = None
+        _reset_launches()
+        t0 = time.perf_counter()
+        with _recording_resblock_shapes(shapes), _counting_stream_chunks(chunks):
+            for ev in backend.translate_speech_streaming(x, "eng", "fra"):
+                if ev["type"] == "audio" and first_audio is None:
+                    first_audio = time.perf_counter() - t0
+                events.append((time.perf_counter() - t0, ev))
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        for k, v in launches.items():
+            launches_total[k] += v
+        res_shapes += shapes
+        windows = math.ceil(seconds / 30.0)
+        transcripts = [ev for _, ev in events if ev["type"] == "transcripts"]
+        audio = [ev["chunk"] for _, ev in events if ev["type"] == "audio"]
+        offline = next((r["wall_s"] for r in e2e["requests"] if r["audio_s"] == seconds), None)
+        row = {"audio_s": seconds, "first_audio_s": first_audio, "wall_s": wall,
+               "offline_wall_s": offline, "windows": windows,
+               "transcripts_events": len(transcripts), "audio_chunks": len(audio),
+               "chunk_samples": [len(a) for a in audio], "tts_chunks": len(chunks),
+               "tts_chunk_tokens": chunks, "launches": launches,
+               "events_at_s": [(round(t, 4), ev["type"]) for t, ev in events],
+               "resblock_shapes": [list(shape[:3]) for shape in shapes]}
+        streams.append(row)
+        print(f"  {seconds:4.1f} s stream: first audio at {first_audio or math.nan:.3f} s, "
+              f"wall {wall:.3f} s (offline request: "
+              f"{'not run' if offline is None else f'{offline:.3f} s'}), {len(transcripts)} "
+              f"transcripts events, {len(audio)} audio chunks of {row['chunk_samples']} samples "
+              f"at 16 kHz, {len(chunks)} TTS chunks of {chunks} tokens  [{card}]", flush=True)
+        print(f"    launches: log-mel {launches['log_mel_frames']}, resblock "
+              f"{launches['fused_resblock_stage']} (all: {launches}); resblock (B, C, T): "
+              f"{sorted(set(shape[:3] for shape in shapes))}", flush=True)
+        for ev in transcripts:
+            if "window" not in ev:
+                raise AssertionError(f"{seconds} s stream: a transcripts event without a window")
+        if seconds > 30 and len(transcripts) != 2:
+            raise AssertionError(f"{seconds} s stream gave {len(transcripts)} transcripts events")
+        if not audio or not all(np.isfinite(a).all() and a.dtype == np.float32 for a in audio):
+            raise AssertionError(f"{seconds} s stream: no audio, or audio not finite f32")
+        if not chunks or launches["fused_resblock_stage"] != per_chunk * len(chunks):
+            raise AssertionError(f"{seconds} s stream: {launches['fused_resblock_stage']} resblock "
+                                 f"launches for {len(chunks)} streamed TTS chunks of "
+                                 f"{per_chunk} narrow vocoder stages")
+        if launches["log_mel_frames"] != windows:
+            raise AssertionError(f"{seconds} s stream: {launches['log_mel_frames']} log-mel "
+                                 f"launches for {windows} ASR windows")
+    stream = {"requests": streams, "launches": launches_total,
+              "resblock_shapes": sorted(set(tuple(shape[:3]) for shape in res_shapes)),
+              "resblock_request": time_request_resblock(
+                  dev, res_shapes, card, "the streams", layouts=("bct", "btc"), graphed=True)}
+    pair = [r for r in stream["resblock_request"] if r["layout"] == "bct"]
+    print(f"  resblock at the stream's shapes, main-path layout, the pair: through the wrapper "
+          f"{sum(r['ms'] for r in pair):.4f} ms, graph-replayed {sum(r['graph_ms'] for r in pair):.4f}"
+          f" ms, plain {sum(r['graph_plain_ms'] for r in pair):.4f} ms (graph-replayed), bound "
+          f"{sum(r['bound_ms'] for r in pair):.4f} ms  [{card}]", flush=True)
+    stream["seconds"] = time.perf_counter() - t_phase
+    print(f"  streaming phase {stream['seconds']:.1f} s", flush=True)
+    report["streaming"] = stream
+    return stream
+
+
 def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
-def _launches(name, e2e, batched) -> dict:
+def _launches(name, e2e, batched, stream) -> dict:
     """A kernel's launch count on each path driven: the three single
-    requests, the detection of the 10 s request, the batched requests."""
+    requests, the detection of the 10 s request, the batched requests, the
+    two streamed requests."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
-            "batched": batched["launches"][name]}
+            "batched": batched["launches"][name], "streaming": stream["launches"][name]}
 
 
-def _decode_entry(name, source, replaces, rows, e2e, batched):
+def _decode_entry(name, source, replaces, rows, e2e, batched, stream):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
     timed = next(r for r in rows if "ms" in r)
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
-            "launches_by_path": _launches(name, e2e, batched),
+            "launches_by_path": _launches(name, e2e, batched, stream),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -1007,24 +1172,27 @@ def _decode_entry(name, source, replaces, rows, e2e, batched):
             "chain_calls": timed["chain_calls"]}
 
 
-def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched):
+def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched, stream):
     """One entry per kernel. ``launches`` counts the three single requests;
-    ``launches_by_path`` adds the detection and the batched requests.
+    ``launches_by_path`` adds the detection, the batched requests and the
+    streamed ones.
     Log-mel at the default 30 s window and 80 mels, its times
     graph-replayed; the resblock stage as both narrow stages of 10 s of
     speech in bf16 (C=128, T=24000 and C=64, T=240000) at B=1 in the main
     path's layout, their times and bounds summed (the B=8 pair of a batched
-    dispatch beside them, under ``b8_``; the contiguous layout, C=96 and the
+    dispatch beside them, under ``b8_``, and the pair at a streamed chunk's
+    shapes under ``stream_``; the contiguous layout, C=96 and the
     requests' shapes are timed beside, not summed); the decode kernels at
     the Whisper-medium shapes (and int4 at B=8, K=2048, N=8192) in bf16."""
     mel = next(r for r in mel_rows if r["window_s"] == 30 and r["n_mels"] == 80)
     serving, b8 = _res_pair(res_rows, 1), _res_pair(res_rows, RES_BATCH)
+    streamed = [r for r in stream["resblock_request"] if r["layout"] == "bct"]
     return [
         {"name": "log_mel_frames", "route": "cuda",
          "source": f"{PORT}/csrc/log_mel.cu",
          "replaces": f"{REFERENCE}/ops/pallas_mel.py:79",
          "launches": e2e["launches"]["log_mel_frames"],
-         "launches_by_path": _launches("log_mel_frames", e2e, batched),
+         "launches_by_path": _launches("log_mel_frames", e2e, batched, stream),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -1033,7 +1201,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched)
          "source": f"{PORT}/csrc/resblock.cu",
          "replaces": f"{REFERENCE}/ops/pallas_vocoder.py:113",
          "launches": e2e["launches"]["fused_resblock_stage"],
-         "launches_by_path": _launches("fused_resblock_stage", e2e, batched),
+         "launches_by_path": _launches("fused_resblock_stage", e2e, batched, stream),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -1041,13 +1209,17 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched)
                                sum(r["mbytes"] for r in serving) * 1e6),
          "library_ms": None,
          "b8_ms": sum(r["ms"] for r in b8), "b8_plain_ms": sum(r["plain_ms"] for r in b8),
-         "b8_bound_ms": sum(r["bound_ms"] for r in b8)},
+         "b8_bound_ms": sum(r["bound_ms"] for r in b8),
+         "stream_ms": sum(r["ms"] for r in streamed),
+         "stream_graph_ms": sum(r["graph_ms"] for r in streamed),
+         "stream_plain_ms": sum(r["graph_plain_ms"] for r in streamed),
+         "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
-                      batched),
+                      batched, stream),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
-                      batched),
+                      batched, stream),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
-                      batched),
+                      batched, stream),
     ]
 
 
@@ -1087,14 +1259,15 @@ def main() -> int:
     report["card"] = card
     build_phase(report)
     kernel_rows = kernels_phase(dev, report)
-    e2e = e2e_phase(dev, report, card)
+    e2e, backend = e2e_phase(dev, report, card)
     batched = batched_phase(dev, report, card, e2e)
+    stream = streaming_phase(dev, report, card, backend, e2e)
     report["seconds"] = time.perf_counter() - t_start
     print(f"== done in {report['seconds']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, batched)}))
+    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, batched, stream)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

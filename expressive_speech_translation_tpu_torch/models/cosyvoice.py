@@ -5,12 +5,15 @@ chain: ``build_prompt_embeddings``, RAS sampling and
 ``generate_speech_tokens`` over the Qwen2 backbone; the DiT
 ``flow_estimator`` and ``tokens_to_mel`` (Euler steps, batched CFG); the
 HiFi-GAN ``vocode`` whose narrow stages run the fused resblock kernel
-(``ops/cuda_vocoder.py``); and ``synthesize``.
+(``ops/cuda_vocoder.py``); ``synthesize``; and the chunked
+``synthesize_streaming`` (resumable LM ``lm_stream_start`` /
+``lm_stream_chunk``, then ``flow_vocode_chunk`` a chunk).
 
 Randomness enters through a :class:`NoiseSource`: Gumbel noise for the two
 categorical draws of each RAS step (``categorical(logits) ==
-argmax(logits + gumbel)``) and the flow's x_0. :class:`GeneratorNoise` draws
-both from a ``torch.Generator``; tests inject the JAX key schedule's noise.
+argmax(logits + gumbel)``) and the flow's x_0; a stream takes one source a
+chunk (``NoiseSource.chunk``). :class:`GeneratorNoise` draws everything from
+a ``torch.Generator``; tests inject the JAX key schedule's noise.
 
 Layouts: dense kernels [in, out]; vocoder conv kernels torch's
 [out, in, width] and conv-transpose kernels [in, out, width]
@@ -42,6 +45,11 @@ class NoiseSource(Protocol):
     def flow_x0(self, shape: Tuple[int, ...]) -> torch.Tensor:
         """The flow's starting point x_0 ~ N(0, I)."""
 
+    def chunk(self, index: int, count: int) -> "NoiseSource":
+        """The source of chunk ``index`` of a stream of ``count`` chunks: its
+        ``ras_gumbel`` takes the step's index inside the chunk, its
+        ``flow_x0`` gives that chunk's flow noise."""
+
 
 class GeneratorNoise:
     """Both noises from one ``torch.Generator`` on the device of the run."""
@@ -59,6 +67,9 @@ class GeneratorNoise:
 
     def flow_x0(self, shape):
         return torch.randn(shape, generator=self.gen, device=self.gen.device)
+
+    def chunk(self, index, count):
+        return self
 
 
 # ======================================================================== LM
@@ -143,11 +154,14 @@ def _mask_control_logits(logits: torch.Tensor, cfg: SpeechLMConfig, step: int,
 
 
 def _sample_next(params: Params, cfg: SpeechLMConfig, noise: NoiseSource, h: torch.Tensor,
-                 recent: torch.Tensor, done: torch.Tensor, step: int, min_new_tokens: int):
-    """One single-token decode sample. h [B, 1, H] → (nxt [B], recent, done)."""
+                 recent: torch.Tensor, done: torch.Tensor, step: int, min_new_tokens: int,
+                 draw: Optional[int] = None):
+    """One single-token decode sample, shared by the batch and streaming
+    loops. h [B, 1, H] → (nxt [B], recent, done). ``step`` counts generated
+    tokens (the EOS gate); ``draw`` indexes the noise (default ``step``)."""
     logits = _mask_control_logits(dense(params["head"], h[:, 0, :]), cfg, step, min_new_tokens)
     k_eff = min(cfg.top_k, logits.shape[-1])
-    g1, g2 = noise.ras_gumbel(step, (logits.shape[0], k_eff))
+    g1, g2 = noise.ras_gumbel(step if draw is None else draw, (logits.shape[0], k_eff))
     nxt = _ras_sample(logits, recent, cfg, g1, g2)
     nxt = torch.where(done, cfg.eos_speech, nxt)
     recent = torch.cat([recent[:, 1:], nxt[:, None]], dim=1)
@@ -472,3 +486,204 @@ def synthesize(params: Params, cfg: CosyVoiceConfig, noise: NoiseSource,
     gen_mel = mel[:, prompt_mel.shape[1]:]
     audio = vocode(params["vocoder"], cfg.vocoder, gen_mel)
     return {"audio": audio, "mel": gen_mel, "speech_tokens": tokens, "token_lengths": lengths}
+
+
+# ========================================================= streaming synthesis
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    chunk_tokens: int = 25       # speech tokens a chunk: 1 s at 25 Hz
+    flow_context: int = 16       # mel frames of left context re-fed to the flow
+    vocoder_context: int = 12    # mel frames re-vocoded to warm the left edge
+    fade_samples: int = 1024     # crossfade at chunk joins (~43 ms at 24 kHz)
+
+
+def lm_stream_start(params: Params, cfg: SpeechLMConfig, text_tokens: torch.Tensor,
+                    text_mask: torch.Tensor, prompt_speech: torch.Tensor,
+                    prompt_speech_mask: torch.Tensor, *, max_new_tokens: int = 512) -> dict:
+    """Prefill the speech LM → a resumable decode state whose cache holds the
+    prompt and ``max_new_tokens`` generated tokens."""
+    emb, mask = build_prompt_embeddings(params, cfg, text_tokens, text_mask,
+                                        prompt_speech, prompt_speech_mask)
+    b, p_len, _ = emb.shape
+    dev = emb.device
+    cache = q2.init_kv_cache(cfg.backbone, b, p_len + max_new_tokens, emb.dtype, dev)
+    hidden = q2.prefill(params["backbone"], cfg.backbone, emb, cache, length_mask=mask)
+    last_idx = mask.to(torch.int64).sum(dim=1) - 1
+    return {"h": torch.take_along_dim(hidden, last_idx[:, None, None], dim=1),
+            "cache": cache,
+            "recent": torch.full((b, cfg.win_size), -1, dtype=torch.int32, device=dev),
+            "done": torch.zeros((b,), dtype=torch.bool, device=dev),
+            "step": 0, "last_idx": last_idx}
+
+
+def lm_stream_chunk(params: Params, cfg: SpeechLMConfig, noise: NoiseSource, state: dict, *,
+                    chunk_tokens: int, min_new_tokens: int, p_len: int):
+    """Decode ``chunk_tokens`` more speech tokens from a stream state →
+    (tokens [B, chunk_tokens], the state, advanced). A fixed trip count:
+    rows at EOS keep emitting EOS, and every sample, the chunk's last
+    included, is followed by a decode step whose ``h`` the next chunk
+    resumes from. ``noise`` is the chunk's source, indexed by the step
+    inside the chunk."""
+    h, cache, recent, done = state["h"], state["cache"], state["recent"], state["done"]
+    step, last_idx = state["step"], state["last_idx"]
+    b = recent.shape[0]
+    tokens = torch.full((b, chunk_tokens), cfg.eos_speech, dtype=torch.int32, device=h.device)
+    for j in range(chunk_tokens):
+        nxt, recent, done = _sample_next(params, cfg, noise, h, recent, done, step,
+                                         min_new_tokens, draw=j)
+        tokens[:, j] = nxt
+        h = q2.decode_step(params["backbone"], cfg.backbone,
+                           params["speech_embed"][nxt.long()][:, None, :], p_len + step, cache,
+                           rope_pos=last_idx + 1 + step, prompt_len=last_idx + 1,
+                           prompt_capacity=p_len)
+        step += 1
+    return tokens, {"h": h, "cache": cache, "recent": recent, "done": done, "step": step,
+                    "last_idx": last_idx}
+
+
+def flow_vocode_chunk(params: Params, flow_cfg: FlowConfig, voc_cfg: VocoderConfig,
+                      noise: NoiseSource, tokens: torch.Tensor, n_valid: int,
+                      spk: torch.Tensor, ctx_mel: torch.Tensor, ctx_mask: torch.Tensor,
+                      ctx_tok: torch.Tensor, ctx_tok_mask: torch.Tensor,
+                      voc_hist: torch.Tensor):
+    """One streamed chunk, tokens → waveform. ``params`` holds ``"flow"`` and
+    ``"vocoder"``; tokens [1, C] (EOS-padded, ``n_valid`` before EOS); the
+    flow's left context ctx_mel [1, F, n_mels] / ctx_mask [1, F] with the
+    tokens behind it ctx_tok / ctx_tok_mask [1, F // r]; voc_hist
+    [1, V, n_mels] the vocoder's warm-up frames. → (the chunk's mel
+    [1, r C, n_mels], its frames past r·n_valid zeroed; the waveform of
+    voc_hist and that mel [1, (V + r C) hop])."""
+    c = tokens.shape[1]
+    # the host-side context buffers arrive f32: cast them to the flow's
+    # dtype, or a bf16 flow would run every chunk in f32
+    pdtype = params["flow"]["in_proj"]["kernel"].dtype
+    ctx_mel = ctx_mel.to(pdtype)
+    spk = spk.to(pdtype)
+    tok_mask = torch.arange(c, device=tokens.device)[None, :] < n_valid
+    safe = torch.where(tok_mask, tokens, 0)
+    mel, _ = tokens_to_mel(params["flow"], flow_cfg, noise, safe, tok_mask, spk, ctx_mel,
+                           ctx_mask, prompt_tokens=ctx_tok, prompt_token_mask=ctx_tok_mask)
+    gen = mel[:, ctx_mel.shape[1]:]
+    r = flow_cfg.token_mel_ratio
+    gen = gen * (torch.arange(gen.shape[1], device=gen.device)[None, :] < r * n_valid)[..., None]
+    wav = vocode(params["vocoder"], voc_cfg, torch.cat([voc_hist.to(gen.dtype), gen], dim=1))
+    return gen, wav
+
+
+def synthesize_streaming(params: Params, cfg: CosyVoiceConfig, noise: NoiseSource,
+                         text_tokens: torch.Tensor, text_mask: torch.Tensor,
+                         prompt_speech_tokens: torch.Tensor, prompt_speech_mask: torch.Tensor,
+                         spk_embedding: torch.Tensor, prompt_mel: torch.Tensor,
+                         prompt_mel_mask: torch.Tensor, *, stream: StreamConfig = StreamConfig(),
+                         max_new_tokens: int = 512, min_new_tokens: int = 2):
+    """Chunked zero-shot TTS of one stream (B == 1): yields 24 kHz waveform
+    chunks (np.float32). A chunk: the LM emits ``chunk_tokens`` tokens from
+    its resumable state; the flow makes their mel, conditioned on the last
+    ``flow_context`` frames (and their tokens) as its prompt; the vocoder
+    re-renders ``vocoder_context`` frames of history plus the new ones, and
+    consecutive chunks are crossfaded over ``fade_samples`` (the tail is held
+    back and yielded last). ``noise.chunk(ci, n_chunks)`` is chunk ci's
+    noise. The budget ``max_new_tokens`` is honoured exactly."""
+    if text_tokens.shape[0] != 1:
+        raise ValueError("streaming synthesis is single-stream (batch == 1); "
+                         "use synthesize() for batched offline TTS")
+    r = cfg.flow.token_mel_ratio
+    hop = cfg.vocoder.hop
+    c_tok = stream.chunk_tokens
+    n_chunks = -(-max_new_tokens // c_tok)
+    dev = text_tokens.device
+    lm_state = lm_stream_start(params["lm"], cfg.lm, text_tokens, text_mask,
+                               prompt_speech_tokens, prompt_speech_mask,
+                               max_new_tokens=n_chunks * c_tok)
+    p_len = 2 + text_tokens.shape[1] + prompt_speech_tokens.shape[1]
+
+    # the flow's context: the last flow_context mel frames, right-aligned,
+    # seeded from the prompt's tail
+    f_ctx = stream.flow_context
+    if f_ctx % r:
+        # the token buffer covers f_ctx // r tokens: a non-multiple would leave
+        # the newest context frames without their tokens
+        raise ValueError(f"StreamConfig.flow_context={f_ctx} must be a multiple of "
+                         f"token_mel_ratio={r}")
+    n_mels = cfg.flow.n_mels
+    ctx_mel = np.zeros((1, f_ctx, n_mels), np.float32)
+    ctx_mask = np.zeros((1, f_ctx), bool)
+    pm_valid = prompt_mel[0].float().cpu().numpy()[prompt_mel_mask[0].cpu().numpy().astype(bool)]
+    take = min(len(pm_valid), f_ctx)
+    if take:
+        ctx_mel[0, f_ctx - take:] = pm_valid[len(pm_valid) - take:]
+        ctx_mask[0, f_ctx - take:] = True
+    # the tokens behind the context frames (one token a r frames), likewise
+    w_tok = max(f_ctx // r, 1)
+    ctx_tok = np.zeros((1, w_tok), np.int32)
+    ctx_tok_mask = np.zeros((1, w_tok), bool)
+    psp_valid = prompt_speech_tokens[0].cpu().numpy()[
+        prompt_speech_mask[0].cpu().numpy().astype(bool)]
+    tk = min(len(psp_valid), w_tok)
+    if tk:
+        ctx_tok[0, w_tok - tk:] = psp_valid[len(psp_valid) - tk:]
+        ctx_tok_mask[0, w_tok - tk:] = True
+
+    # the vocoder's warm-up history and the crossfade's held tail
+    v_ctx = stream.vocoder_context
+    voc_hist = np.zeros((v_ctx, n_mels), np.float32)
+    held: Optional[np.ndarray] = None
+
+    def dev_t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    fv_params = {"flow": params["flow"], "vocoder": params["vocoder"]}
+    for ci in range(n_chunks):
+        chunk_noise = noise.chunk(ci, n_chunks)
+        tokens, lm_state = lm_stream_chunk(params["lm"], cfg.lm, chunk_noise, lm_state,
+                                           chunk_tokens=c_tok, min_new_tokens=min_new_tokens,
+                                           p_len=p_len)
+        tok_np = tokens[0].cpu().numpy()
+        is_eos = tok_np == cfg.lm.eos_speech
+        n_valid = int(np.argmax(is_eos)) if is_eos.any() else c_tok
+        # the last chunk may be short: the stream emits no more than synthesize()
+        n_valid = min(n_valid, max_new_tokens - ci * c_tok)
+        if n_valid <= 0:
+            break
+        gen, wav = flow_vocode_chunk(fv_params, cfg.flow, cfg.vocoder, chunk_noise, tokens,
+                                     n_valid, spk_embedding, dev_t(ctx_mel), dev_t(ctx_mask),
+                                     dev_t(ctx_tok), dev_t(ctx_tok_mask), dev_t(voc_hist[None]))
+        gen_valid = gen[0, : r * n_valid].float().cpu().numpy()
+        wav = wav[0].float().cpu().numpy()
+
+        # roll the flow's context and its tokens on the host
+        full = np.concatenate([ctx_mel[0][ctx_mask[0]], gen_valid], axis=0)
+        if len(full) >= f_ctx:
+            ctx_mel[0] = full[-f_ctx:]
+            ctx_mask[0] = True
+        else:
+            ctx_mel[0] = np.concatenate([np.zeros((f_ctx - len(full), n_mels), np.float32),
+                                         full])
+            ctx_mask[0] = np.arange(f_ctx) >= f_ctx - len(full)
+        tok_full = np.concatenate([ctx_tok[0][ctx_tok_mask[0]],
+                                   tok_np[:n_valid].astype(np.int32)])
+        if len(tok_full) >= w_tok:
+            ctx_tok[0] = tok_full[-w_tok:]
+            ctx_tok_mask[0] = True
+        else:
+            ctx_tok[0] = np.concatenate([np.zeros(w_tok - len(tok_full), np.int32), tok_full])
+            ctx_tok_mask[0] = np.arange(w_tok) >= w_tok - len(tok_full)
+
+        start, end = v_ctx * hop, (v_ctx + len(gen_valid)) * hop
+        fade = min(stream.fade_samples, v_ctx * hop, end - start)
+        out = wav[start:end]
+        if held is not None and fade > 0:
+            ramp = np.linspace(0.0, 1.0, len(held), dtype=np.float32)
+            out = np.concatenate([held * (1 - ramp) + wav[start - len(held):start] * ramp, out])
+        if fade > 0:
+            held = out[len(out) - fade:]
+            out = out[: len(out) - fade]
+        voc_hist = np.concatenate([voc_hist, gen_valid], axis=0)[-v_ctx:]
+        if len(out):
+            yield out
+        if n_valid < c_tok:
+            break
+    if held is not None and len(held):
+        yield held

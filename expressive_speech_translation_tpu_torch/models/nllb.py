@@ -1,11 +1,11 @@
 """NLLB-200 (M2M100 architecture) NMT.
 
 The port of the JAX package's ``models/nllb.py`` (``encode`` with its
-position guards, greedy ``generate`` with the forced BOS as a runtime
-argument): shared embeddings scaled by sqrt(d), M2M100 sinusoidal positions
-(offset-2 table, padding-aware ids), pre-LN blocks with every projection
-biased, ReLU MLPs, final encoder/decoder layer norms, tied head. Beam search
-is not ported yet; serving decodes with one beam.
+position guards, ``generate`` greedy or by beam search with the forced BOS
+as a runtime argument): shared embeddings scaled by sqrt(d), M2M100
+sinusoidal positions (offset-2 table, padding-aware ids), pre-LN blocks with
+every projection biased, ReLU MLPs, final encoder/decoder layer norms, tied
+head.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from .beam import BeamConfig, greedy_search
+from .beam import BeamConfig, beam_search, greedy_search
 from .common import (AttnConfig, Init, Params, init_decoder_kv_cache, layer_norm, mha,
                      mha_step, mlp, precompute_layer_cross_kv, tied_head_logits,
                      tree_from_numpy)
@@ -127,10 +127,11 @@ def decode_step(params: Params, cfg: NLLBConfig, token: torch.Tensor, pos: int, 
 
 
 def generate(params: Params, cfg: NLLBConfig, src_tokens: torch.Tensor, forced_bos_token: int,
-             *, max_new_tokens: int = 200, min_new_tokens: int = 0) -> torch.Tensor:
-    """Greedy translation: [B, 1 + max_new_tokens] int32 token ids
-    (``</s> <lang> ...`` — the forced-BOS language token counts as the first
-    generated token, HF layout)."""
+             *, num_beams: int = 1, max_new_tokens: int = 200, min_new_tokens: int = 0,
+             length_penalty: float = 1.0) -> torch.Tensor:
+    """Translation, greedy or by beam search (``num_beams`` > 1): [B, 1 +
+    max_new_tokens] int32 token ids (``</s> <lang> ...`` — the forced-BOS
+    language token counts as the first generated token, HF layout)."""
     b = src_tokens.shape[0]
     dev = src_tokens.device
     if max_new_tokens < 0:
@@ -155,7 +156,10 @@ def generate(params: Params, cfg: NLLBConfig, src_tokens: torch.Tensor, forced_b
         return decode_step(params, cfg, token, pos, cache, cross, pad_mask)
 
     bc = BeamConfig(eos_token=cfg.eos_token, pad_token=cfg.pad_token, max_len=max_len,
+                    num_beams=num_beams, length_penalty=length_penalty,
                     min_new_tokens=min_new_tokens)
-    cache = init_decoder_kv_cache(cfg.decoder_layers, b, max_len, cfg.heads,
+    rows = b * num_beams if num_beams > 1 else b
+    cache = init_decoder_kv_cache(cfg.decoder_layers, rows, max_len, cfg.heads,
                                   cfg.d_model // cfg.heads, enc_out.dtype, dev)
-    return greedy_search(step_fn, prompt, cache, (cross_kv, enc_pad_mask), bc)
+    search = beam_search if num_beams > 1 else greedy_search
+    return search(step_fn, prompt, cache, (cross_kv, enc_pad_mask), bc)

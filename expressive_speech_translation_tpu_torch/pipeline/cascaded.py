@@ -1,8 +1,9 @@
 """CascadedBackend — the ASR → NMT → TTS pipeline over the port's engines.
 
 Port of the JAX package's ``pipeline/cascaded.py`` ``initialize``,
-``translate_speech``, ``translate_text``, ``extract_pauses``,
-``reference_audio_for_cloning`` and the natural-flow temporal mapping:
+``translate_speech``, ``translate_speech_streaming``, ``translate_text``,
+``extract_pauses``, ``reference_audio_for_cloning`` and the natural-flow
+temporal mapping:
 ASR with word timestamps, NMT, TTS (cloning the source voice unless
 ``use_voice_cloning=False``), host resampling to 16 kHz, temporal mapping onto
 the source's timing, and loudness toward -23 LUFS. Engines stay resident;
@@ -142,6 +143,69 @@ class CascadedBackend:
                 wave = resample_np(wave, tts_sr, 16_000)
             out["audio"] = wave.reshape(1, -1).astype(np.float32)
         return out
+
+    def translate_speech_streaming(self, audio: np.ndarray, source_lang: str, target_lang: str):
+        """Streaming speech translation, pipelined by ASR window: with an ASR
+        that streams, each window goes ASR → NMT → streaming TTS as soon as
+        it is decoded, so the first audio waits for one window and one TTS
+        chunk, not the whole utterance. Yields a ``"transcripts"`` event a
+        window (the text accumulated so far and the ``"window"`` [start,
+        end]) and then that window's ``"audio"`` events (16 kHz chunks).
+        Without a streaming ASR: one ASR+NMT pass, then the TTS chunks; a TTS
+        without ``synthesize_streaming`` gives one offline chunk. Temporal
+        mapping and loudness are offline-only and skipped here."""
+        if not self.is_language_supported(target_lang):
+            raise ValidationError(f"Unsupported target language: {target_lang}")
+        x = np.asarray(audio, np.float32).reshape(-1)
+        src_nllb = NLLB_LANGUAGES.get(source_lang, source_lang)
+        tgt_nllb = NLLB_LANGUAGES.get(target_lang, target_lang)
+        tts = self.engines.tts
+        tts_sr = getattr(tts, "sample_rate", 24_000)
+        # gate on the unwrapped engines (a micro-batch facade's ``engine``),
+        # so a facade and its engine give the same events
+        tts_inner = getattr(tts, "engine", tts)
+        asr_inner = getattr(self.engines.asr, "engine", self.engines.asr)
+        tts_streams = hasattr(tts_inner, "synthesize_streaming")
+
+        def tts_events(text: str, style: str, reference):
+            kw = dict(style_prompt=style, reference_audio_16k=reference,
+                      language=COSYVOICE_LANGUAGES.get(target_lang, "en"))
+            chunks = (tts_inner.synthesize_streaming(text, **kw) if tts_streams
+                      else iter([tts.synthesize(text, **kw)]))
+            for chunk in chunks:
+                c = np.asarray(chunk, np.float32)
+                if tts_sr != 16_000:
+                    c = resample_np(c, tts_sr, 16_000)
+                yield {"type": "audio", "chunk": c, "sample_rate": 16_000}
+
+        if hasattr(asr_inner, "transcribe_streaming"):
+            reference = self.reference_audio_for_cloning(x)
+            src_parts: List[str] = []
+            tgt_parts: List[str] = []
+            asr_weightless = getattr(asr_inner, "weightless", True)
+            for seg in asr_inner.transcribe_streaming(x, language=source_lang):
+                seg_text = seg.get("text", "").strip()
+                # with real weights a silent window stays silent; random
+                # weights decode empty text, and the path still runs whole
+                if not seg_text and asr_weightless is False:
+                    continue
+                seg_target = self.engines.nmt.translate(seg_text, src_nllb, tgt_nllb)
+                src_parts.append(seg_text)
+                tgt_parts.append(seg_target)
+                yield {"type": "transcripts",
+                       "source": " ".join(p for p in src_parts if p),
+                       "target": " ".join(p for p in tgt_parts if p),
+                       "window": [seg.get("start", 0.0), seg.get("end", 0.0)]}
+                yield from tts_events(seg_target, seg_text, reference)
+            if not src_parts:   # silence in, structured empty out
+                yield {"type": "transcripts", "source": "", "target": ""}
+            return
+
+        asr = self.engines.asr.transcribe(x, language=source_lang)
+        source_text = asr.get("text", "")
+        target_text = self.engines.nmt.translate(source_text, src_nllb, tgt_nllb)
+        yield {"type": "transcripts", "source": source_text, "target": target_text}
+        yield from tts_events(target_text, source_text, self.reference_audio_for_cloning(x))
 
     def _apply_natural_temporal_mapping(self, translated: np.ndarray, source: np.ndarray,
                                         words: List[Dict[str, float]]) -> np.ndarray:

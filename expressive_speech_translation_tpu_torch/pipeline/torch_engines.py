@@ -5,12 +5,13 @@ Port of the JAX package's ``pipeline/jax_engines.py`` single-request path:
 - :class:`TorchWhisperAsr` — fused log-mel kernel → Whisper encode + KV-cached
   decode with context buckets, the temperature-fallback ladder and its gates,
   ``condition_on_previous_text``, SuppressBlank, DTW word timestamps, and
-  language detection when the caller names no language;
-- :class:`TorchNllbNmt` — NLLB greedy generate with the forced target-language
-  BOS over bucketed source lengths;
-- :class:`TorchCosyVoiceTts` — CosyVoice synthesis, cloning the voice of a
-  reference through voice-prompt conditioning (ECAPA speaker embedding,
-  Kaldi-fbank prompt mel, FSQ prompt speech tokens).
+  language detection when the caller names no language; ``transcribe`` is
+  ``transcribe_streaming`` (one result a window) aggregated;
+- :class:`TorchNllbNmt` — NLLB greedy or beam-search generate with the forced
+  target-language BOS over bucketed source lengths;
+- :class:`TorchCosyVoiceTts` — CosyVoice synthesis, offline or streamed in
+  chunks, cloning the voice of a reference through voice-prompt conditioning
+  (ECAPA speaker embedding, Kaldi-fbank prompt mel, FSQ prompt speech tokens).
 
 Each engine also serves a batch of requests in one device pass
 (``transcribe_batch``, ``translate_batch``, ``synthesize_batch``), padded to
@@ -274,20 +275,18 @@ class TorchWhisperAsr:
                 return text, words, kept, temp
         return text, words, kept, temp
 
-    def transcribe(self, audio_16k: np.ndarray, language: Optional[str] = None) -> Dict[str, Any]:
-        """→ {"text", "language", "words": [{"word", "start", "end"}]}. Without
-        a ``language`` it is detected first (:meth:`detect_language`). The
-        audio is decoded in windows of the top context bucket; each window's
-        prompt carries the previous windows' tokens (truncated to a bucket)
-        unless a rung above 0.5 reset it."""
+    def transcribe_streaming(self, audio_16k: np.ndarray, language: Optional[str] = None):
+        """Yield one {"text", "words", "start", "end", "language"} a window of
+        the top context bucket, as each decodes. Without a ``language`` it is
+        detected first (:meth:`detect_language`). Each window's prompt carries
+        the previous windows' tokens (truncated to a bucket) unless a rung
+        above 0.5 reset it."""
         x = np.asarray(audio_16k, np.float32).reshape(-1)
         if language is None:
             language = self.detect_language(x)
         base_row = self._prompt_row(language)
         chunk = 16_000 * self.context_buckets[-1]
         prev_ids: List[int] = []
-        texts: List[str] = []
-        words: List[Dict[str, Any]] = []
         for start in range(0, max(len(x), 1), chunk):
             seg = x[start:start + chunk]
             padded, bucket_s = self._pad_to_bucket(seg)
@@ -303,10 +302,21 @@ class TorchWhisperAsr:
                 text, seg_words, kept, used_t = self._decode_chunk_fallback(
                     padded, base_row, start / 16_000.0, len(seg) / 16_000.0, bucket_s)
             prev_ids = [] if used_t > 0.5 else prev_ids + kept
-            if text:
-                texts.append(text)
-            words.extend(seg_words)
-        return {"text": " ".join(texts), "language": language or "eng", "words": words}
+            yield {"text": text, "words": seg_words, "start": start / 16_000.0,
+                   "end": (start + len(seg)) / 16_000.0, "language": language or "eng"}
+
+    def transcribe(self, audio_16k: np.ndarray, language: Optional[str] = None) -> Dict[str, Any]:
+        """→ {"text", "language", "words": [{"word", "start", "end"}]}:
+        :meth:`transcribe_streaming`'s windows, aggregated."""
+        texts: List[str] = []
+        words: List[Dict[str, Any]] = []
+        language_out = language or "eng"
+        for seg in self.transcribe_streaming(audio_16k, language=language):
+            if seg["text"]:
+                texts.append(seg["text"])
+            words.extend(seg["words"])
+            language_out = seg["language"]
+        return {"text": " ".join(texts), "language": language_out, "words": words}
 
     def _gated_chunk(self, tokens, aligns, p_len, offset_s, chunk_s, bucket_s, *,
                      avg_logprob, no_speech_prob, seg, prompt_row) -> tuple:
@@ -396,7 +406,8 @@ class TorchWhisperAsr:
 
 
 class TorchNllbNmt:
-    """NMT engine: NLLB greedy generate over bucketed source lengths."""
+    """NMT engine: NLLB generate (greedy, or beam search at ``num_beams`` > 1)
+    over bucketed source lengths."""
 
     def __init__(
         self,
@@ -407,6 +418,7 @@ class TorchNllbNmt:
         device=None,
         lang_code_to_id: Optional[Dict[str, int]] = None,
         dtype=torch.bfloat16,
+        num_beams: int = 1,
         max_new_tokens: int = 200,
     ):
         self.device = resolve_device(device)
@@ -425,6 +437,7 @@ class TorchNllbNmt:
         self.lang_code_to_id = lang_code_to_id or {}
         if not self.lang_code_to_id and self.weightless:
             self.lang_code_to_id = nllb_placeholder_lang_ids(self.cfg.vocab_size)
+        self.num_beams = num_beams
         self.max_new_tokens = max_new_tokens
 
     def _lang_id(self, code: str) -> int:
@@ -448,14 +461,16 @@ class TorchNllbNmt:
             return ids + [self.cfg.eos_token]
 
     def _generate(self, srcs: List[List[int]], forced_bos: int, rows: int) -> List[str]:
-        """Greedy generate of source rows padded to their shared bucket and
-        to ``rows`` rows → each source's text, pad and EOS stripped."""
+        """Generate (``num_beams``) of source rows padded to their shared
+        bucket and to ``rows`` rows → each source's text, pad and EOS
+        stripped."""
         padded = np.full((rows, self._src_bucket(max(len(s) for s in srcs))), self.cfg.pad_token,
                          np.int32)
         for row, src in enumerate(srcs):
             padded[row, : len(src)] = _fit_vocab(src, self.cfg.vocab_size, self.weightless, "NMT")
         out = nlm.generate(self.params, self.cfg, torch.from_numpy(padded).to(self.device),
-                           forced_bos, max_new_tokens=self.max_new_tokens).cpu().numpy()
+                           forced_bos, num_beams=self.num_beams,
+                           max_new_tokens=self.max_new_tokens).cpu().numpy()
         return [self.tokenizer.decode([int(t) for t in out[row, 2:]
                                        if t not in (self.cfg.eos_token, self.cfg.pad_token)])
                 for row in range(len(srcs))]
@@ -644,6 +659,19 @@ class TorchCosyVoiceTts:
         spt = self.cfg.flow.token_mel_ratio * self.cfg.vocoder.hop
         n = max(int(out["token_lengths"][0]), 1) * spt
         return out["audio"][0, :n].float().cpu().numpy()
+
+    def synthesize_streaming(self, text: str, *, style_prompt: str = "",
+                             reference_audio_16k: Optional[np.ndarray] = None,
+                             language: str = "en"):
+        """Yield float32 waveform chunks at 24 kHz as each is made
+        (:func:`cosyvoice.synthesize_streaming`): the conditioning of
+        :meth:`synthesize`, and the call's noise source, chunk by chunk."""
+        toks, tmask, spk, pmel, pmm, psp, max_new = self._prepare_conditioning(
+            text, reference_audio_16k, style_prompt)
+        self._call_count += 1
+        yield from cvm.synthesize_streaming(
+            self.params, self.cfg, self._noise(self._call_count), toks, tmask, psp,
+            torch.ones_like(psp, dtype=torch.bool), spk, pmel, pmm, max_new_tokens=max_new)
 
     def synthesize_batch(self, requests: List[Dict[str, Any]]) -> List[np.ndarray]:
         """Batched synthesis: ``requests`` [{"text", "reference_audio_16k"
