@@ -48,7 +48,20 @@ Phases, in order; any failure exits non-zero and prints no result:
               stream (log-mel once a window, resblock twice a streamed TTS
               chunk); the resblock kernel checked and timed at the (B, C, T)
               the stream handed it, in vocode's layout and the contiguous one;
-7. the kernels line, the card line, and last the result line.
+7. mtp      — the e2e phase's TTS config on one random tree with two MTP
+              heads, bf16: ``synthesize`` of the 10 s request's text and voice
+              prompt at ``mtp=1``, ``mtp=3`` (accept-all) and ``mtp=3,
+              spec=True`` (stage seconds, speech tokens, backbone passes,
+              tokens a pass; the resblock kernel must launch in each), and a
+              batch of 8 at ``mtp=3``; in f32 the speculative stream against
+              the single-token one on the same noise (250 tokens), failing if
+              they part where decode_step and decode_span agree or where
+              the two calls' logits do not give the two tokens; then one
+              decode step of the Whisper, NLLB and Qwen2 decoders with int8
+              weights against bf16 (logits within INT8_LOGIT_RTOL, both
+              replayed as CUDA graphs in turns at B = 1 and 8) and one 10 s
+              request on ``torch_engines(quantize=True)``;
+8. the kernels line, the card line, and last the result line.
 
 The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
 greedy call.
@@ -59,6 +72,7 @@ The long report goes to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -848,7 +862,8 @@ def e2e_phase(dev, report, card):
         stages = {k: v["seconds"] for k, v in out["stage_summary"].items()}
         requests.append({"audio_s": seconds, "wall_s": wall, "rtf": wall / seconds,
                          "stages_s": stages, "out_samples": int(out["audio"].shape[1]),
-                         "target_chars": len(out["transcripts"]["target"])})
+                         "target_chars": len(out["transcripts"]["target"]),
+                         "transcripts": out["transcripts"]})
         print(f"  {seconds:4.1f} s request: wall {wall:.3f} s, RTF {wall / seconds:.4f}  "
               + "  ".join(f"{k} {v:.3f} s" for k, v in stages.items()) + f"  [{card}]", flush=True)
     launches = _read_launches()
@@ -1145,26 +1160,466 @@ def streaming_phase(dev, report, card, backend, e2e):
     return stream
 
 
+MTP_WIDTH = 3                 # tokens a backbone pass: the main head and two MTP heads
+MTP_BATCH = 8
+SPEC_F32_BUDGET = 250         # speech tokens of the f32 speculative-against-single-token check
+SPEC_F32_SEED = 7
+DECODE_BATCHES = (1, 8)
+# int8 against bf16 logits of one decode step, max |int8 - bf16| / max |bf16|:
+# per-channel codes keep each weight within 1/254 of its channel's peak;
+# through 24 random layers the logits moved 1.1-2.6 % of their peak at a
+# reduced width (d 256) on the CPU, so 10 % leaves a margin of about four
+INT8_LOGIT_RTOL = 0.1
+LM_GENERATORS = ("generate_speech_tokens", "generate_speech_tokens_mtp",
+                 "generate_speech_tokens_spec")
+
+
+@contextlib.contextmanager
+def _recording_lm(runs: list, hidden: list = None):
+    """Append one entry to ``runs`` for each speech-token generation inside
+    the block: the generator ``select_generator`` picked, its rows, its
+    tokens, and its backbone passes after the prefill (the decode_step and
+    decode_span calls it made; the speculative one's ``with_stats`` beside
+    them). With ``hidden``, also append (cache slot, hidden states) of
+    every such call. For the block's duration ``models/cosyvoice`` sees a
+    copy of the ``qwen2`` module whose two decode functions count."""
+    from expressive_speech_translation_tpu_torch.models import cosyvoice
+
+    q2, gens = cosyvoice.q2, {name: getattr(cosyvoice, name) for name in LM_GENERATORS}
+    passes = [0]
+
+    def counting(fn):
+        def call(params, cfg, x, pos, *args, **kwargs):
+            passes[0] += 1
+            out = fn(params, cfg, x, pos, *args, **kwargs)
+            if hidden is not None:
+                hidden.append((int(pos), out.detach().clone()))
+            return out
+        return call
+
+    def recording(name, fn):
+        def call(*args, **kwargs):
+            passes[0] = 0
+            stats = None
+            if name == "generate_speech_tokens_spec":
+                tokens, lengths, stats = fn(*args, with_stats=True, **kwargs)
+            else:
+                tokens, lengths = fn(*args, **kwargs)
+            runs.append({"generator": name, "rows": int(tokens.shape[0]),
+                         "lengths": lengths.tolist(), "tokens": tokens.tolist(),
+                         "passes": passes[0], "stats": stats})
+            return tokens, lengths
+        return call
+
+    cosyvoice.q2 = types.SimpleNamespace(**{**vars(q2), "decode_step": counting(q2.decode_step),
+                                           "decode_span": counting(q2.decode_span)})
+    for name, fn in gens.items():
+        setattr(cosyvoice, name, recording(name, fn))
+    try:
+        yield runs
+    finally:
+        cosyvoice.q2 = q2
+        for name, fn in gens.items():
+            setattr(cosyvoice, name, fn)
+
+
+def _first_difference(a, b):
+    """The first index where two token lists differ, or None."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of the tensors of a parameter tree, each counted once."""
+    seen, total, stack = set(), 0, [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif torch.is_tensor(node) and node.data_ptr() not in seen:
+            seen.add(node.data_ptr())
+            total += node.numel() * node.element_size()
+    return total
+
+
+def mtp_tts_runs(dev, card, base, text, style, reference) -> dict:
+    """Reference-width TTS engines in bf16 on one random tree with two MTP
+    heads (the e2e engine's seed, so the tree is the e2e tree plus the heads,
+    which ``init_cosyvoice`` draws last): ``synthesize`` of the 10 s
+    request's text and voice prompt at ``mtp=1``, at ``mtp=3`` (accept-all)
+    and at ``mtp=3, spec=True``, each engine's first call, so each takes
+    the noise of call 1; then ``synthesize_batch`` of 8 requests at
+    ``mtp=3``. The resblock kernel must launch in every run."""
+    from expressive_speech_translation_tpu_torch.pipeline.torch_engines import TorchCosyVoiceTts
+
+    cfg = dataclasses.replace(base.cfg, lm=dataclasses.replace(base.cfg.lm, mtp=1,
+                                                               spec_decode=False))
+    cond = dict(device=dev, ecapa_weights=(base._ecapa, base._ecapa_cfg),
+                speech_tokenizer_weights=(base._st, base._st_cfg))
+    heads = TorchCosyVoiceTts(cfg, None, mtp=MTP_WIDTH, **cond)
+    engines = {"mtp=1": TorchCosyVoiceTts(cfg, heads.params, mtp=1, **cond),
+               f"mtp={MTP_WIDTH}": heads,
+               f"mtp={MTP_WIDTH}, spec": TorchCosyVoiceTts(cfg, heads.params, mtp=MTP_WIDTH,
+                                                            spec=True, **cond)}
+    routes = dict(zip(engines, LM_GENERATORS))
+    out = {"runs": {}}
+    for label, tts in engines.items():
+        runs = []
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _recording_lm(runs):
+            wave = tts.synthesize(text, style_prompt=style, reference_audio_16k=reference,
+                                  language="fr")
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        if len(runs) != 1 or runs[0]["generator"] != routes[label]:
+            raise AssertionError(f"tts {label}: generators {[r['generator'] for r in runs]}, "
+                                 f"not {routes[label]}")
+        run = runs[0]
+        emitted = run["stats"]["emitted"] if run["stats"] else run["lengths"][0]
+        passes = run["stats"]["backbone_passes"] if run["stats"] else run["passes"]
+        if run["stats"] and run["stats"]["backbone_passes"] != run["passes"]:
+            raise AssertionError(f"tts {label}: with_stats counts {run['stats']} passes, "
+                                 f"the backbone ran {run['passes']}")
+        if not (wave.size and np.isfinite(wave).all()) or launches["fused_resblock_stage"] <= 0:
+            raise AssertionError(f"tts {label}: {wave.size} samples, launches {launches}")
+        row = {"tts_s": seconds, "speech_tokens": run["lengths"][0], "emitted": emitted,
+               "backbone_passes": passes, "tokens_per_pass": emitted / max(passes, 1),
+               "resblock_launches": launches["fused_resblock_stage"], "launches": launches,
+               "tokens": run["tokens"][0][:run["lengths"][0]], "samples": int(wave.size)}
+        out["runs"][label] = row
+        print(f"  tts {label:12s} [{run['generator']}]: {seconds:.3f} s, {row['speech_tokens']} "
+              f"speech tokens, {passes} backbone passes after the prefill, "
+              f"{row['tokens_per_pass']:.3f} tokens a pass, resblock launches "
+              f"{row['resblock_launches']}  [{card}]", flush=True)
+    one, spec = out["runs"]["mtp=1"]["tokens"], out["runs"][f"mtp={MTP_WIDTH}, spec"]["tokens"]
+    out["bf16_spec_parts_at"] = _first_difference(one, spec)
+    print(f"  bf16 speculative stream against mtp=1: "
+          f"{'identical' if out['bf16_spec_parts_at'] is None else 'parts at index %d' % out['bf16_spec_parts_at']}"
+          f" (bf16 span and step differ in their low bits; not required)", flush=True)
+
+    reqs = [{"text": text, "style_prompt": style, "language": "fr",
+             "reference_audio_16k": np.resize(_speechlike(RES_REQUEST_SECONDS, seed=100 + i),
+                                              16_000 * 10)} for i in range(MTP_BATCH)]
+    runs = []
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _recording_lm(runs):
+        waves = heads.synthesize_batch(reqs)
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    if ([(r["generator"], r["rows"]) for r in runs] != [("generate_speech_tokens_mtp", MTP_BATCH)]
+            or len(waves) != MTP_BATCH or launches["fused_resblock_stage"] <= 0
+            or not all(w.size and np.isfinite(w).all() for w in waves)):
+        raise AssertionError(f"tts batch of {MTP_BATCH} at mtp={MTP_WIDTH}: {runs and runs[0]['generator']}, "
+                             f"{len(waves)} waves, launches {launches}")
+    out["batch"] = {"requests": MTP_BATCH, "wall_s": wall, "speech_tokens": runs[0]["lengths"],
+                    "backbone_passes": runs[0]["passes"], "launches": launches,
+                    "resblock_launches": launches["fused_resblock_stage"]}
+    print(f"  tts batch of {MTP_BATCH} at mtp={MTP_WIDTH} [accept-all]: wall {wall:.3f} s, "
+          f"speech tokens {runs[0]['lengths']}, {runs[0]['passes']} backbone passes, resblock "
+          f"launches {launches['fused_resblock_stage']}  [{card}]", flush=True)
+    out["launches"] = {k: sum(r["launches"][k] for r in out["runs"].values())
+                       + out["batch"]["launches"][k] for k in LAUNCH_COUNTERS}
+    out["prompt"] = heads._prepare_conditioning(text, reference, style)
+    out["cfg"] = cfg
+    return out
+
+
+def spec_f32_check(dev, card, cfg, prompt) -> dict:
+    """Reference width in f32 (TF32 off): the speculative stream at mtp=3
+    against the single-token stream on the same position-keyed noise, 250
+    tokens. Tokens may part only where the two backbone calls part in their
+    low bits: where they part, the hidden states behind the first differing
+    token (the single-token decode_step at its slot, the speculative pass's
+    decode_span row at the same slot) must differ, and the single-token
+    sampler at that index must give each stream's token from that stream's
+    own logits. Printed either way: how far the two calls' hidden states
+    lie apart behind the tokens both streams share."""
+    from expressive_speech_translation_tpu_torch.models import cosyvoice as cvm
+    from expressive_speech_translation_tpu_torch.models.common import dense
+
+    lm3 = dataclasses.replace(cfg.lm, mtp=MTP_WIDTH, spec_decode=True)
+    lm1 = dataclasses.replace(cfg.lm, mtp=1, spec_decode=False)
+    params = cvm.init_cosyvoice(2, dataclasses.replace(cfg, lm=lm3), dev)["lm"]
+    toks, tmask, _, _, _, psp, _ = prompt
+    args = (toks, tmask, psp, torch.ones_like(psp, dtype=torch.bool))
+    p_len = 2 + toks.shape[1] + psp.shape[1]
+    hidden_one, hidden_spec, runs = [], [], []
+    t0 = time.perf_counter()
+    with _recording_lm(runs, hidden_one):
+        cvm.generate_speech_tokens(params, lm1, cvm.GeneratorNoise(SPEC_F32_SEED, dev), *args,
+                                   max_new_tokens=SPEC_F32_BUDGET)
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with _recording_lm(runs, hidden_spec):
+        cvm.generate_speech_tokens_spec(params, lm3, cvm.GeneratorNoise(SPEC_F32_SEED, dev), *args,
+                                        max_new_tokens=SPEC_F32_BUDGET)
+    spec_s = time.perf_counter() - t0
+    d = _first_difference(runs[0]["tokens"][0], runs[1]["tokens"][0])
+    steps = dict(hidden_one)
+
+    def span_at(slot):
+        """The speculative pass that covers cache slot ``slot`` (the last span
+        that started at or before it: the pass that emitted the token this
+        slot's state samples) → (its hidden states, the slot's row)."""
+        start, span = [(pos, h) for pos, h in hidden_spec if pos <= slot][-1]
+        if slot - start >= span.shape[1]:
+            raise AssertionError(f"spec f32: no speculative pass covers slot {slot}")
+        return span, slot - start
+
+    def span_row(slot):
+        span, r = span_at(slot)
+        return span[:, r]
+
+    # token i is sampled from the state at slot p_len + i - 1 in both loops
+    emitted = runs[1]["stats"]["emitted"]
+    common = range(1, emitted if d is None else d + 1)
+    diffs = [float((steps[p_len + i - 1][:, 0] - span_row(p_len + i - 1)).abs().max())
+             for i in common if p_len + i - 1 in steps]
+    out = {"budget": SPEC_F32_BUDGET, "parts_at": d, "single_s": one_s, "spec_s": spec_s,
+           "single_passes": runs[0]["passes"], "spec_stats": runs[1]["stats"],
+           "speech_tokens": [runs[0]["lengths"][0], runs[1]["lengths"][0]],
+           "hidden_max_abs_diff": max(diffs, default=0.0)}
+    if d is not None:
+        slot = p_len + d - 1
+        span, r = span_at(slot)
+        step = steps[slot][:, 0]
+        logits = (dense(params["head"], step), dense(params["head"], span)[:, r])
+        out["parting_hidden_max_abs_diff"] = float((step - span[:, r]).abs().max())
+        out["parting_logits_max_abs_diff"] = float((logits[0] - logits[1]).abs().max())
+        if not out["parting_hidden_max_abs_diff"] > 0:
+            raise AssertionError(f"spec f32: the streams part at token {d} where decode_step and "
+                                 "decode_span give the same hidden state: a logic fault")
+        # each stream's token must come back from its own logits through the
+        # single-token sampler at index d (same noise, window and gate)
+        tokens = [runs[0]["tokens"][0], runs[1]["tokens"][0]]
+        window = ([-1] * lm1.win_size + tokens[0][:d])[-lm1.win_size:]
+        resampled = [int(cvm._sample_from_logits(
+            lm1, cvm.GeneratorNoise(SPEC_F32_SEED, dev), lg,
+            torch.tensor([window], dtype=torch.int32, device=dev),
+            torch.zeros((1,), dtype=torch.bool, device=dev), d, 2)[0][0]) for lg in logits]
+        if resampled != [tokens[0][d], tokens[1][d]]:
+            raise AssertionError(f"spec f32: at token {d} the sampler gives {resampled} from the "
+                                 f"two backbone calls' logits, the streams "
+                                 f"{[tokens[0][d], tokens[1][d]]}: a logic fault")
+    print(f"  f32 speculative (mtp={MTP_WIDTH}) against single-token over {SPEC_F32_BUDGET} tokens: "
+          + ("identical" if d is None else
+             f"part at index {d}; the hidden states behind it differ by "
+             f"{out['parting_hidden_max_abs_diff']:.3e} (max abs), the logits by "
+             f"{out['parting_logits_max_abs_diff']:.3e}")
+          + f"; decode_step and decode_span states behind the {len(diffs)} shared tokens differ "
+          f"by up to {out['hidden_max_abs_diff']:.3e}; speculative "
+          f"{out['spec_stats']['backbone_passes']} passes for {emitted} tokens in {spec_s:.3f} s, "
+          f"single-token {out['single_passes']} steps in {one_s:.3f} s  [{card}]", flush=True)
+    return out
+
+
+def _filled_cache(cache, g):
+    for layer in cache:
+        for t in layer.values():
+            t.copy_(torch.randn(t.shape, generator=g, device=t.device, dtype=torch.float32))
+    return cache
+
+
+def _decode_step_fns(name, engine, quantize, b, dev):
+    """A decode step of ``engine``'s model with its bf16 tree and with
+    ``quantize`` of it, on the same inputs and equal caches: {label: fn →
+    logits}, and the weights each tree holds (bytes)."""
+    from expressive_speech_translation_tpu_torch.models import nllb as nlm
+    from expressive_speech_translation_tpu_torch.models import qwen2 as q2
+    from expressive_speech_translation_tpu_torch.models import whisper as wm
+    from expressive_speech_translation_tpu_torch.models.common import (dense,
+                                                                       precompute_layer_cross_kv)
+
+    bf16 = torch.bfloat16
+    trees = {"bf16": engine.params if name != "qwen2" else engine.params["lm"]}
+    trees["int8"] = quantize(trees["bf16"])
+    g = torch.Generator(device=dev).manual_seed(b)
+    cfg, fns = engine.cfg, {}
+    for label, p in trees.items():
+        if name == "whisper":     # a 30 s window, step 100 of a 228-slot cache
+            enc = torch.randn((b, cfg.max_source_positions, cfg.d_model),
+                              generator=g.manual_seed(1), device=dev).to(bf16)
+            cross = wm.precompute_cross_kv(p, cfg, enc)
+            slots = min(228, cfg.max_target_positions)
+            cache = _filled_cache(wm.init_kv_cache(cfg, b, bf16, dev, slots), g.manual_seed(2))
+            token = torch.randint(0, cfg.vocab_size, (b,), generator=g.manual_seed(3), device=dev)
+            fns[label] = functools.partial(lambda p, c, x, t: wm.decode_step_with_attn(
+                p, cfg, t, slots // 2, c, x)[0], p, cache, cross, token)
+        elif name == "nllb":      # a 64-token source, step 100 of a 202-slot cache
+            enc = torch.randn((b, 64, cfg.d_model), generator=g.manual_seed(1), device=dev).to(bf16)
+            cross = precompute_layer_cross_kv(p["decoder"]["layers"], cfg.attn, enc)
+            cache = _filled_cache(
+                [{"k": torch.empty((b, 202, cfg.heads, cfg.d_model // cfg.heads), dtype=bf16,
+                                   device=dev),
+                  "v": torch.empty((b, 202, cfg.heads, cfg.d_model // cfg.heads), dtype=bf16,
+                                   device=dev)} for _ in range(cfg.decoder_layers)],
+                g.manual_seed(2))
+            mask = torch.ones((b, 1, 1, 64), dtype=torch.bool, device=dev)
+            token = torch.randint(0, cfg.vocab_size, (b,), generator=g.manual_seed(3), device=dev)
+            fns[label] = functools.partial(lambda p, c, x, t: nlm.decode_step(
+                p, cfg, t, 100, c, x, mask), p, cache, cross, token)
+        else:                     # step 180 of a 256-slot cache
+            bcfg = cfg.lm.backbone
+            cache = _filled_cache(q2.init_kv_cache(bcfg, b, 256, bf16, dev), g.manual_seed(2))
+            x = p["speech_embed"][torch.randint(0, cfg.lm.speech_token_size, (b,),
+                                                generator=g.manual_seed(3), device=dev)][:, None, :]
+            fns[label] = functools.partial(lambda p, c, x: dense(p["head"], q2.decode_step(
+                p["backbone"], bcfg, x, 180, c)[:, 0]), p, cache, x)
+    return fns, {k: _tree_bytes(t) for k, t in trees.items()}
+
+
+def int8_decode_check(dev, card, backend) -> dict:
+    """One decode step of the e2e engines' Whisper-medium decoder, NLLB-600M
+    decoder and Qwen2-0.5B speech LM (+ head) with their bf16 trees and with
+    the int8 trees ``quantize`` makes of them, at B = 1 and 8: the int8
+    logits against the bf16 ones (INT8_LOGIT_RTOL), and the two steps each
+    captured 10 times into a CUDA graph and replayed in turns; the weights
+    each tree holds and the peak memory of the timing."""
+    from expressive_speech_translation_tpu_torch.models import cosyvoice as cvm
+    from expressive_speech_translation_tpu_torch.models import nllb as nlm
+    from expressive_speech_translation_tpu_torch.models import whisper as wm
+
+    engines = {name: getattr(e, "engine", e) for name, e in
+               (("whisper", backend.engines.asr), ("nllb", backend.engines.nmt),
+                ("qwen2", backend.engines.tts))}
+    quantizers = {"whisper": wm.quantize_whisper_decoder, "nllb": nlm.quantize_nllb_decoder,
+                  "qwen2": cvm.quantize_speech_lm}
+    rows = []
+    for name, engine in engines.items():
+        for b in DECODE_BATCHES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            fns, nbytes = _decode_step_fns(name, engine, quantizers[name], b, dev)
+            want, got = fns["bf16"]().float(), fns["int8"]().float()
+            rel = float((got - want).abs().max() / want.abs().max())
+            if not (math.isfinite(rel) and rel <= INT8_LOGIT_RTOL):
+                raise AssertionError(f"int8 {name} B={b}: logits {rel:.3e} of the bf16 peak > "
+                                     f"{INT8_LOGIT_RTOL}")
+            turns = graph_turns(fns, calls=10)
+            peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+            row = {"model": name, "B": b, "bf16_ms": min(turns["bf16"]),
+                   "int8_ms": min(turns["int8"]), "turns_ms": turns, "logits_rel_err": rel,
+                   "bf16_tree_gib": nbytes["bf16"] / 2**30, "int8_tree_gib": nbytes["int8"] / 2**30,
+                   "timing_peak_above_gib": peak}
+            rows.append(row)
+            print(f"  decode step {name} B={b}: bf16 {row['bf16_ms']:.4f} ms, int8 "
+                  f"{row['int8_ms']:.4f} ms ({row['int8_ms'] / row['bf16_ms']:.2f}x; graph-replayed "
+                  f"in turns), int8 logits {rel:.2e} of the bf16 peak (bound {INT8_LOGIT_RTOL}); "
+                  f"trees bf16 {row['bf16_tree_gib']:.3f} GiB, int8 {row['int8_tree_gib']:.3f} GiB "
+                  f"(float embeddings kept), peak {peak:.2f} GiB above the resident engines  "
+                  f"[{card}]", flush=True)
+            del fns
+    return {"decode_steps": rows}
+
+
+def int8_request(dev, card, e2e) -> dict:
+    """``torch_engines(scale="reference", quantize=True)`` with the e2e
+    phase's conditioning models, ``initialize()``, and one 10 s
+    ``translate_speech`` (cloning on): its stage seconds beside the e2e
+    phase's 10 s request, the memory the engines hold and the peak."""
+    from expressive_speech_translation_tpu_torch.models import ecapa
+    from expressive_speech_translation_tpu_torch.models import speech_tokenizer as stm
+    from expressive_speech_translation_tpu_torch.pipeline.cascaded import CascadedBackend
+    from expressive_speech_translation_tpu_torch.pipeline.torch_engines import torch_engines
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ecfg, scfg = ecapa.EcapaConfig(), stm.SpeechTokenizerConfig()
+    engines = torch_engines(scale="reference", quantize=True,
+                            tts_ecapa=(ecapa.init_ecapa(3, ecfg, dev), ecfg),
+                            tts_speech_tokenizer=(stm.init_speech_tokenizer(4, scfg, dev), scfg))
+    torch.cuda.synchronize()
+    held = (torch.cuda.memory_allocated() - before) / 2**30
+    backend = CascadedBackend(engines)
+    backend.initialize()
+    torch.cuda.reset_peak_memory_stats()
+    x = _speechlike(RES_REQUEST_SECONDS, seed=int(RES_REQUEST_SECONDS))
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = backend.translate_speech(x, "eng", "fra")
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    _check_request(out, RES_REQUEST_SECONDS, "int8 request")
+    if min(launches[k] for k in MAIN_PATH_KERNELS) <= 0:
+        raise AssertionError(f"int8 request: a kernel of the main path never launched: {launches}")
+    stages = {k: v["seconds"] for k, v in out["stage_summary"].items()}
+    base = next(r for r in e2e["requests"] if r["audio_s"] == RES_REQUEST_SECONDS)
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    print(f"  {RES_REQUEST_SECONDS:.0f} s request, quantize=True: wall {wall:.3f} s  "
+          + "  ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + f" (bf16 in the e2e phase: wall {base['wall_s']:.3f} s  "
+          + "  ".join(f"{k} {v:.3f} s" for k, v in base["stages_s"].items())
+          + f"); the int8 engines hold {held:.2f} GiB, peak {peak:.2f} GiB above what was "
+          f"resident before them  [{card}]", flush=True)
+    return {"wall_s": wall, "stages_s": stages, "launches": launches, "held_gib": held,
+            "peak_above_gib": peak, "bf16_wall_s": base["wall_s"],
+            "bf16_stages_s": base["stages_s"]}
+
+
+def mtp_phase(dev, report, card, backend, e2e):
+    """Multi-token and speculative speech-token decoding at reference width
+    (``mtp_tts_runs``, bf16; ``spec_f32_check``, f32), then int8 decode
+    (``int8_decode_check``: one step of each model, int8 against bf16;
+    ``int8_request``: one 10 s request on ``quantize=True`` engines). The
+    launch counters of the TTS runs are the phase's."""
+    print(f"== mtp: CosyVoice2-0.5B at mtp=1, {MTP_WIDTH}, {MTP_WIDTH} + spec (random heads), "
+          "then int8 decode", flush=True)
+    t_phase = time.perf_counter()
+    base = getattr(backend.engines.tts, "engine", backend.engines.tts)
+    req = next(r for r in e2e["requests"] if r["audio_s"] == RES_REQUEST_SECONDS)
+    text, style = req["transcripts"]["target"], req["transcripts"]["source"]
+    reference = backend.reference_audio_for_cloning(
+        _speechlike(RES_REQUEST_SECONDS, seed=int(RES_REQUEST_SECONDS)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tts = mtp_tts_runs(dev, card, base, text, style, reference)
+    prompt, cfg = tts.pop("prompt"), tts.pop("cfg")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mtp = {"tts": tts, "launches": tts["launches"],
+           "spec_f32": spec_f32_check(dev, card, cfg, prompt)}
+    del prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    mtp["int8"] = int8_decode_check(dev, card, backend)
+    mtp["int8"]["request"] = int8_request(dev, card, e2e)
+    mtp["seconds"] = time.perf_counter() - t_phase
+    print(f"  mtp phase {mtp['seconds']:.1f} s", flush=True)
+    report["mtp"] = mtp
+    return mtp
+
+
 def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
-def _launches(name, e2e, batched, stream) -> dict:
+def _launches(name, e2e, batched, stream, mtp) -> dict:
     """A kernel's launch count on each path driven: the three single
     requests, the detection of the 10 s request, the batched requests, the
-    two streamed requests."""
+    two streamed requests, the mtp phase's TTS runs."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
-            "batched": batched["launches"][name], "streaming": stream["launches"][name]}
+            "batched": batched["launches"][name], "streaming": stream["launches"][name],
+            "mtp": mtp["launches"][name]}
 
 
-def _decode_entry(name, source, replaces, rows, e2e, batched, stream):
+def _decode_entry(name, source, replaces, rows, e2e, batched, stream, mtp):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
     timed = next(r for r in rows if "ms" in r)
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
-            "launches_by_path": _launches(name, e2e, batched, stream),
+            "launches_by_path": _launches(name, e2e, batched, stream, mtp),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -1172,7 +1627,7 @@ def _decode_entry(name, source, replaces, rows, e2e, batched, stream):
             "chain_calls": timed["chain_calls"]}
 
 
-def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched, stream):
+def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched, stream, mtp):
     """One entry per kernel. ``launches`` counts the three single requests;
     ``launches_by_path`` adds the detection, the batched requests and the
     streamed ones.
@@ -1192,7 +1647,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched,
          "source": f"{PORT}/csrc/log_mel.cu",
          "replaces": f"{REFERENCE}/ops/pallas_mel.py:79",
          "launches": e2e["launches"]["log_mel_frames"],
-         "launches_by_path": _launches("log_mel_frames", e2e, batched, stream),
+         "launches_by_path": _launches("log_mel_frames", e2e, batched, stream, mtp),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -1201,7 +1656,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched,
          "source": f"{PORT}/csrc/resblock.cu",
          "replaces": f"{REFERENCE}/ops/pallas_vocoder.py:113",
          "launches": e2e["launches"]["fused_resblock_stage"],
-         "launches_by_path": _launches("fused_resblock_stage", e2e, batched, stream),
+         "launches_by_path": _launches("fused_resblock_stage", e2e, batched, stream, mtp),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -1215,11 +1670,11 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched,
          "stream_plain_ms": sum(r["graph_plain_ms"] for r in streamed),
          "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
-                      batched, stream),
+                      batched, stream, mtp),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
-                      batched, stream),
+                      batched, stream, mtp),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
-                      batched, stream),
+                      batched, stream, mtp),
     ]
 
 
@@ -1262,12 +1717,13 @@ def main() -> int:
     e2e, backend = e2e_phase(dev, report, card)
     batched = batched_phase(dev, report, card, e2e)
     stream = streaming_phase(dev, report, card, backend, e2e)
+    mtp = mtp_phase(dev, report, card, backend, e2e)
     report["seconds"] = time.perf_counter() - t_start
     print(f"== done in {report['seconds']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, batched, stream)}))
+    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, batched, stream, mtp)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,10 @@ parameter trees carry over unchanged (:func:`tree_from_numpy`):
 - dense kernels [in, out] (``x @ kernel``);
 - KV caches preallocated [B, max_T, H, Dh]. Unlike the JAX package's pure
   functions, the decode steps write the new K/V into the cache in place,
-  which saves a cache copy per step.
+  which saves a cache copy per step;
+- weight-only int8 decode (``quantize_*``): int8 codes with per-channel f32
+  scales, multiplied in the activations' dtype by ``torch.matmul``, as the
+  JAX package leaves the convert to XLA (no kernel of its own).
 """
 
 from __future__ import annotations
@@ -109,14 +112,58 @@ class Init:
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["kernel"]
+    """``x @ kernel + bias``; a weight-only int8 layer (``kernel_q``, see
+    :func:`quantize_dense`) multiplies by its codes in x's dtype and applies
+    the per-output-channel scale after the product."""
+    if "kernel_q" in p:
+        y = (x @ p["kernel_q"].to(x.dtype)) * p["scale"].to(x.dtype)
+    else:
+        y = x @ p["kernel"]
     if "bias" in p:
         y = y + p["bias"]
     return y
 
 
-def tied_head_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
-    """``x @ embed.T`` (x: [..., d] → logits [..., vocab])."""
+def quantize_dense(p: Params) -> Params:
+    """Symmetric per-output-channel int8 weights of a dense layer ({"kernel"
+    [in, out], "bias"?} → {"kernel_q" int8, "scale" f32 [1, out], "bias"?}).
+    The scale is reckoned in the kernel's dtype and stored in f32."""
+    k = p["kernel"]
+    scale = torch.clamp(k.abs().amax(dim=0, keepdim=True), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(k / scale), -127, 127).to(torch.int8)
+    out: Params = {"kernel_q": q, "scale": scale.float()}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def quantize_transformer_blocks(blocks) -> list:
+    """int8 weights for the attention (``self_attn``, ``cross_attn``) and
+    ``mlp`` dense layers of pre-LN blocks; the norms stay float."""
+    out = []
+    for blk in blocks:
+        q = dict(blk)
+        for key in ("self_attn", "cross_attn", "mlp"):
+            if key in blk:
+                q[key] = {n: quantize_dense(p) for n, p in blk[key].items()}
+        out.append(q)
+    return out
+
+
+def quantize_embed_head(embed: torch.Tensor) -> Params:
+    """A per-vocabulary-row int8 copy of a tied embedding [vocab, d] for the
+    output product; the float table stays for the gathers."""
+    scale = torch.clamp(embed.abs().amax(dim=1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(embed / scale[:, None]), -127, 127).to(torch.int8)
+    return {"q": q, "scale": scale.float()}
+
+
+def tied_head_logits(container: Params, x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """``x @ embed.T`` (x: [..., d] → logits [..., vocab]), through the int8
+    copy when ``container`` holds ``embed_q`` (:func:`quantize_embed_head`)."""
+    if "embed_q" in container:
+        eq = container["embed_q"]
+        return (x @ eq["q"].T.to(x.dtype)) * eq["scale"].to(x.dtype)
     return x @ embed.T
 
 

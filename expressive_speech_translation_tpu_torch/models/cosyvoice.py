@@ -1,19 +1,24 @@
 """CosyVoice2-style TTS: speech-token LM → flow matching → HiFi-GAN vocoder.
 
-The port of the JAX package's ``models/cosyvoice.py`` single-token native
-chain: ``build_prompt_embeddings``, RAS sampling and
-``generate_speech_tokens`` over the Qwen2 backbone; the DiT
+The port of the JAX package's ``models/cosyvoice.py`` native chain:
+``build_prompt_embeddings``, RAS sampling and the three speech-token
+generators over the Qwen2 backbone (single-token
+``generate_speech_tokens``; multi-token prediction, accept-all
+``generate_speech_tokens_mtp`` and lossless speculative
+``generate_speech_tokens_spec``; ``select_generator`` picks one); the DiT
 ``flow_estimator`` and ``tokens_to_mel`` (Euler steps, batched CFG); the
 HiFi-GAN ``vocode`` whose narrow stages run the fused resblock kernel
-(``ops/cuda_vocoder.py``); ``synthesize``; and the chunked
+(``ops/cuda_vocoder.py``); ``synthesize``; the chunked
 ``synthesize_streaming`` (resumable LM ``lm_stream_start`` /
-``lm_stream_chunk``, then ``flow_vocode_chunk`` a chunk).
+``lm_stream_chunk``, then ``flow_vocode_chunk`` a chunk; single-token, as
+in the JAX package); and ``quantize_speech_lm`` (int8 weights).
 
 Randomness enters through a :class:`NoiseSource`: Gumbel noise for the two
 categorical draws of each RAS step (``categorical(logits) ==
-argmax(logits + gumbel)``) and the flow's x_0; a stream takes one source a
-chunk (``NoiseSource.chunk``). :class:`GeneratorNoise` draws everything from
-a ``torch.Generator``; tests inject the JAX key schedule's noise.
+argmax(logits + gumbel)``) and each MTP (pass, head), and the flow's x_0; a
+stream takes one source a chunk (``NoiseSource.chunk``).
+:class:`GeneratorNoise` makes each draw a function of its index; tests
+inject the JAX key schedule's noise.
 
 Layouts: dense kernels [in, out]; vocoder conv kernels torch's
 [out, in, width] and conv-transpose kernels [in, out, width]
@@ -32,7 +37,7 @@ import torch.nn.functional as F
 from ..ops import cuda_vocoder
 from . import qwen2 as q2
 from .common import (AttnConfig, Init, Params, dense, layer_norm, merge_heads, mlp,
-                     split_heads, tree_from_numpy)
+                     quantize_dense, split_heads, tree_from_numpy)
 
 
 # ===================================================================== noise
@@ -40,7 +45,14 @@ from .common import (AttnConfig, Init, Params, dense, layer_norm, merge_heads, m
 
 class NoiseSource(Protocol):
     def ras_gumbel(self, step: int, shape: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Gumbel noise for RAS step ``step``: (nucleus draw, resample draw)."""
+        """Gumbel noise for RAS step ``step``: (nucleus draw, resample draw).
+        Equal steps must give equal noise: the speculative decoder draws each
+        position twice, for its draft and for its verifier."""
+
+    def mtp_gumbel(self, pass_index: int, head: int,
+                   shape: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Gumbel noise of head ``head`` (0 the main head, j the j-th MTP head)
+        in multi-token pass ``pass_index``: (nucleus draw, resample draw)."""
 
     def flow_x0(self, shape: Tuple[int, ...]) -> torch.Tensor:
         """The flow's starting point x_0 ~ N(0, I)."""
@@ -51,25 +63,50 @@ class NoiseSource(Protocol):
         ``flow_x0`` gives that chunk's flow noise."""
 
 
+_RAS, _MTP, _FLOW, _CHUNK = range(4)   # the kinds of draw, mixed into each draw's seed
+
+
+def _mix(*index: int) -> int:
+    """One 64-bit seed from a tuple of non-negative integers."""
+    return int(np.random.SeedSequence(list(index)).generate_state(1, np.uint64)[0])
+
+
 class GeneratorNoise:
-    """Both noises from one ``torch.Generator`` on the device of the run."""
+    """Every draw a function of its index: the draw of a RAS step, of an MTP
+    (pass, head) or of the flow's x_0 comes from a ``torch.Generator`` on
+    ``device`` seeded with the source's seed mixed with that index. Asking
+    twice for a step gives the same noise, and the order of the asks changes
+    nothing, so the speculative decoder's drafts and verifier take the draws
+    the single-token loop takes. A stream's chunk is a source of its own,
+    its seed mixed from the chunk's index (its steps count from 0 again)."""
 
-    def __init__(self, generator: torch.Generator):
-        self.gen = generator
+    def __init__(self, seed: int, device):
+        self.seed = int(seed)
+        self.device = torch.device(device)
 
-    def _gumbel(self, shape) -> torch.Tensor:
+    def _generator(self, *index: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(_mix(self.seed, *index))
+
+    def _gumbel_pair(self, gen: torch.Generator, shape) -> Tuple[torch.Tensor, torch.Tensor]:
         tiny = torch.finfo(torch.float32).tiny
-        u = torch.rand(shape, generator=self.gen, device=self.gen.device)
-        return -torch.log(-torch.log(u * (1.0 - tiny) + tiny))
+
+        def gumbel():
+            u = torch.rand(shape, generator=gen, device=self.device)
+            return -torch.log(-torch.log(u * (1.0 - tiny) + tiny))
+
+        return gumbel(), gumbel()
 
     def ras_gumbel(self, step, shape):
-        return self._gumbel(shape), self._gumbel(shape)
+        return self._gumbel_pair(self._generator(_RAS, step), shape)
+
+    def mtp_gumbel(self, pass_index, head, shape):
+        return self._gumbel_pair(self._generator(_MTP, pass_index, head), shape)
 
     def flow_x0(self, shape):
-        return torch.randn(shape, generator=self.gen, device=self.gen.device)
+        return torch.randn(shape, generator=self._generator(_FLOW), device=self.device)
 
     def chunk(self, index, count):
-        return self
+        return GeneratorNoise(_mix(self.seed, _CHUNK, index, count), self.device)
 
 
 # ======================================================================== LM
@@ -85,6 +122,12 @@ class SpeechLMConfig:
     win_size: int = 10
     tau_r: float = 0.1
     max_tokens: int = 2048
+    # multi-token prediction: K tokens a backbone pass, the main head and
+    # K - 1 extra heads read off the newest hidden state (1 = single-token)
+    mtp: int = 1
+    # lossless speculative decoding over the MTP heads (B = 1): the drafts are
+    # verified by the single-token sampler, whose stream comes out unchanged
+    spec_decode: bool = False
 
     @property
     def eos_speech(self) -> int:
@@ -153,13 +196,15 @@ def _mask_control_logits(logits: torch.Tensor, cfg: SpeechLMConfig, step: int,
     return logits
 
 
-def _sample_next(params: Params, cfg: SpeechLMConfig, noise: NoiseSource, h: torch.Tensor,
-                 recent: torch.Tensor, done: torch.Tensor, step: int, min_new_tokens: int,
-                 draw: Optional[int] = None):
-    """One single-token decode sample, shared by the batch and streaming
-    loops. h [B, 1, H] → (nxt [B], recent, done). ``step`` counts generated
-    tokens (the EOS gate); ``draw`` indexes the noise (default ``step``)."""
-    logits = _mask_control_logits(dense(params["head"], h[:, 0, :]), cfg, step, min_new_tokens)
+def _sample_from_logits(cfg: SpeechLMConfig, noise: NoiseSource, logits: torch.Tensor,
+                        recent: torch.Tensor, done: torch.Tensor, step: int,
+                        min_new_tokens: int, draw: Optional[int] = None):
+    """The single-token sample from head logits [B, V]: control masking, the
+    EOS gate, RAS with the noise of ``draw`` (default ``step``), EOS held for
+    finished rows, the window rolled → (nxt [B], recent, done). ``step``
+    counts generated tokens. Split from :func:`_sample_next` so the
+    speculative verifier can run one head product over its K positions."""
+    logits = _mask_control_logits(logits, cfg, step, min_new_tokens)
     k_eff = min(cfg.top_k, logits.shape[-1])
     g1, g2 = noise.ras_gumbel(step if draw is None else draw, (logits.shape[0], k_eff))
     nxt = _ras_sample(logits, recent, cfg, g1, g2)
@@ -168,20 +213,38 @@ def _sample_next(params: Params, cfg: SpeechLMConfig, noise: NoiseSource, h: tor
     return nxt, recent, done | (nxt == cfg.eos_speech)
 
 
+def _sample_next(params: Params, cfg: SpeechLMConfig, noise: NoiseSource, h: torch.Tensor,
+                 recent: torch.Tensor, done: torch.Tensor, step: int, min_new_tokens: int,
+                 draw: Optional[int] = None):
+    """One single-token decode sample, shared by the batch and streaming
+    loops. h [B, 1, H] → (nxt [B], recent, done)."""
+    return _sample_from_logits(cfg, noise, dense(params["head"], h[:, 0, :]), recent, done,
+                               step, min_new_tokens, draw)
+
+
+def _prefill_prompt(params: Params, cfg: SpeechLMConfig, text_tokens, text_mask, prompt_speech,
+                    prompt_speech_mask, generated: int):
+    """The prompt through the backbone into a cache with room for
+    ``generated`` more slots → (cache, p_len, last_idx [B], the hidden state
+    at each row's last valid prompt position [B, 1, H])."""
+    emb, mask = build_prompt_embeddings(params, cfg, text_tokens, text_mask,
+                                        prompt_speech, prompt_speech_mask)
+    b, p_len, _ = emb.shape
+    cache = q2.init_kv_cache(cfg.backbone, b, p_len + generated, emb.dtype, emb.device)
+    hidden = q2.prefill(params["backbone"], cfg.backbone, emb, cache, length_mask=mask)
+    last_idx = mask.to(torch.int64).sum(dim=1) - 1
+    return cache, p_len, last_idx, torch.take_along_dim(hidden, last_idx[:, None, None], dim=1)
+
+
 def generate_speech_tokens(params: Params, cfg: SpeechLMConfig, noise: NoiseSource,
                            text_tokens: torch.Tensor, text_mask: torch.Tensor,
                            prompt_speech: torch.Tensor, prompt_speech_mask: torch.Tensor, *,
                            max_new_tokens: int = 512, min_new_tokens: int = 2):
     """Autoregressive speech tokens with RAS sampling → (tokens
     [B, max_new_tokens] int32 padded with EOS, lengths [B])."""
-    emb, mask = build_prompt_embeddings(params, cfg, text_tokens, text_mask,
-                                        prompt_speech, prompt_speech_mask)
-    b, p_len, _ = emb.shape
-    dev = emb.device
-    cache = q2.init_kv_cache(cfg.backbone, b, p_len + max_new_tokens, emb.dtype, dev)
-    hidden = q2.prefill(params["backbone"], cfg.backbone, emb, cache, length_mask=mask)
-    last_idx = mask.to(torch.int64).sum(dim=1) - 1
-    h = torch.take_along_dim(hidden, last_idx[:, None, None], dim=1)
+    cache, p_len, last_idx, h = _prefill_prompt(params, cfg, text_tokens, text_mask,
+                                                prompt_speech, prompt_speech_mask, max_new_tokens)
+    b, dev = h.shape[0], h.device
     tokens = torch.full((b, max_new_tokens), cfg.eos_speech, dtype=torch.int32, device=dev)
     recent = torch.full((b, cfg.win_size), -1, dtype=torch.int32, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
@@ -198,6 +261,149 @@ def generate_speech_tokens(params: Params, cfg: SpeechLMConfig, noise: NoiseSour
                            prompt_capacity=p_len)
     lengths = (tokens != cfg.eos_speech).to(torch.int32).sum(dim=1)
     return tokens, lengths
+
+
+def generate_speech_tokens_mtp(params: Params, cfg: SpeechLMConfig, noise: NoiseSource,
+                               text_tokens: torch.Tensor, text_mask: torch.Tensor,
+                               prompt_speech: torch.Tensor, prompt_speech_mask: torch.Tensor, *,
+                               max_new_tokens: int = 512, min_new_tokens: int = 2):
+    """Multi-token prediction, accept-all: each backbone pass emits K =
+    ``cfg.mtp`` tokens from the newest hidden state (the main head, then the
+    K − 1 MTP heads, each a RAS draw against a window rolled locally over
+    the draws before it), puts everything after a block's first EOS to EOS,
+    and ingests the K tokens in one :func:`qwen2.decode_span`. The noise of
+    head j in pass i is ``noise.mtp_gumbel(i, j, ...)``. → (tokens
+    [B, max_new_tokens] int32 padded with EOS, lengths [B])."""
+    k_mtp = cfg.mtp
+    if k_mtp <= 1:
+        raise ValueError("generate_speech_tokens_mtp needs cfg.mtp > 1; "
+                         "use generate_speech_tokens")
+    n_iters = -(-max_new_tokens // k_mtp)
+    cache, p_len, last_idx, h = _prefill_prompt(params, cfg, text_tokens, text_mask,
+                                                prompt_speech, prompt_speech_mask,
+                                                n_iters * k_mtp)
+    h = h[:, 0, :]
+    b, dev = h.shape[0], h.device
+    heads = [params["head"]] + list(params["mtp_heads"][: k_mtp - 1])
+    tokens = torch.full((b, n_iters * k_mtp), cfg.eos_speech, dtype=torch.int32, device=dev)
+    recent = torch.full((b, cfg.win_size), -1, dtype=torch.int32, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    for i in range(n_iters):
+        local, drawn = recent, []
+        for j, head in enumerate(heads):
+            # the heads' logits in f32, as the JAX package casts them
+            logits = _mask_control_logits(dense(head, h).float(), cfg, i * k_mtp + j,
+                                          min_new_tokens)
+            g1, g2 = noise.mtp_gumbel(i, j, (b, min(cfg.top_k, logits.shape[-1])))
+            nxt = _ras_sample(logits, local, cfg, g1, g2)
+            local = torch.cat([local[:, 1:], nxt[:, None]], dim=1)
+            drawn.append(nxt)
+        new = torch.stack(drawn, dim=1)                                    # [B, K]
+        is_eos = (new == cfg.eos_speech).to(torch.int32)
+        after_eos = (torch.cumsum(is_eos, dim=1) - is_eos) > 0
+        new = torch.where(after_eos | done[:, None], cfg.eos_speech, new)
+        tokens[:, i * k_mtp:(i + 1) * k_mtp] = new
+        done = done | (new == cfg.eos_speech).any(dim=1)
+        # the persistent window holds the tokens emitted, not the local draws
+        recent = torch.cat([recent, new], dim=1)[:, -cfg.win_size:]
+        if i == n_iters - 1 or bool(done.all()):
+            break
+        h = q2.decode_span(params["backbone"], cfg.backbone, params["speech_embed"][new.long()],
+                           p_len + i * k_mtp, cache, rope_pos=last_idx + 1 + i * k_mtp,
+                           prompt_len=last_idx + 1, prompt_capacity=p_len)[:, -1, :]
+    tokens = tokens[:, :max_new_tokens]
+    lengths = (tokens != cfg.eos_speech).to(torch.int32).sum(dim=1)
+    return tokens, lengths
+
+
+def generate_speech_tokens_spec(params: Params, cfg: SpeechLMConfig, noise: NoiseSource,
+                                text_tokens: torch.Tensor, text_mask: torch.Tensor,
+                                prompt_speech: torch.Tensor, prompt_speech_mask: torch.Tensor, *,
+                                max_new_tokens: int = 512, min_new_tokens: int = 2,
+                                with_stats: bool = False):
+    """Lossless speculative decoding over the MTP heads (B = 1): the stream
+    of :func:`generate_speech_tokens` on the same noise, in fewer backbone
+    passes.
+
+    x_0 is the single-token loop's step 0. A pass drafts positions
+    n .. n + K − 2 with ``mtp_heads[j − 1]`` on the last accepted hidden
+    state, each through the same sampler and the same noise
+    (``noise.ras_gumbel(position)``) as the single-token loop; one
+    :func:`qwen2.decode_span` ingests [pending, drafts] at cache slot
+    p_len + n − 1; one head product over its K hidden states gives the
+    verifier's logits, and the verifier samples each position as the
+    single-token loop would on the true prefix. The pass emits up to the
+    first draft the verifier disagrees with (that position gets the
+    verifier's token), or all K when every draft matched. Accepted tokens
+    fill consecutive slots, so the next pass overwrites exactly the slots of
+    rejected drafts. → (tokens [1, max_new_tokens], lengths [1]), and with
+    ``with_stats`` {"backbone_passes", "emitted"}."""
+    k_mtp = cfg.mtp
+    if k_mtp <= 1:
+        raise ValueError("speculative decoding needs MTP heads (cfg.mtp > 1)")
+    if text_tokens.shape[0] != 1:
+        raise ValueError("generate_speech_tokens_spec is the B=1 latency path; use "
+                         "generate_speech_tokens(_mtp) for batched synthesis")
+    cache, p_len, last_idx, h = _prefill_prompt(params, cfg, text_tokens, text_mask,
+                                                prompt_speech, prompt_speech_mask,
+                                                max_new_tokens + k_mtp)
+    dev, eos = h.device, cfg.eos_speech
+    tokens = torch.full((1, max_new_tokens + k_mtp), eos, dtype=torch.int32, device=dev)
+    recent = torch.full((1, cfg.win_size), -1, dtype=torch.int32, device=dev)
+    pending, recent, done = _sample_next(params, cfg, noise, h, recent,
+                                         torch.zeros((1,), dtype=torch.bool, device=dev), 0,
+                                         min_new_tokens)
+    tokens[:, 0] = pending
+    n, passes = 1, 0
+    while n < max_new_tokens and not bool(done.all()):
+        local, drafts = recent, []
+        for j in range(1, k_mtp):
+            pos = n - 1 + j
+            logits = _mask_control_logits(dense(params["mtp_heads"][j - 1], h[:, 0, :]), cfg,
+                                          pos, min_new_tokens)
+            g1, g2 = noise.ras_gumbel(pos, (1, min(cfg.top_k, logits.shape[-1])))
+            d = _ras_sample(logits, local, cfg, g1, g2)
+            local = torch.cat([local[:, 1:], d[:, None]], dim=1)
+            drafts.append(d)
+        span = torch.stack([pending] + drafts, dim=1)                      # [1, K]
+        h_span = q2.decode_span(params["backbone"], cfg.backbone,
+                                params["speech_embed"][span.long()], p_len + n - 1, cache,
+                                rope_pos=last_idx + n, prompt_len=last_idx + 1,
+                                prompt_capacity=p_len)
+        verifier = dense(params["head"], h_span)                          # [1, K, V]
+        acc, rec, dn = ~done, recent, done
+        samples, flags = [], []
+        for j in range(1, k_mtp + 1):
+            s, rec, dn = _sample_from_logits(cfg, noise, verifier[:, j - 1, :], rec, dn,
+                                             n - 1 + j, min_new_tokens)
+            samples.append(s)
+            flags.append(acc)
+            if j < k_mtp:
+                acc = acc & (s == drafts[j - 1]) & (s != eos)
+        s_vec, flag_vec = torch.stack(samples, dim=1), torch.stack(flags, dim=1)
+        e = int(flag_vec.sum())                                           # ≥ 1
+        emitted = torch.where(flag_vec, s_vec, eos)
+        tokens[:, n:n + k_mtp] = emitted
+        done = done | (flag_vec & (s_vec == eos)).any(dim=1)
+        recent = torch.cat([recent, emitted], dim=1)[:, e:e + cfg.win_size]
+        pending, h = emitted[:, e - 1], h_span[:, e - 1:e]
+        n, passes = n + e, passes + 1
+    tokens = tokens[:, :max_new_tokens]
+    lengths = (tokens != eos).to(torch.int32).sum(dim=1)
+    if with_stats:
+        return tokens, lengths, {"backbone_passes": passes, "emitted": min(n, max_new_tokens)}
+    return tokens, lengths
+
+
+def select_generator(lm_cfg: SpeechLMConfig, batch_size: int):
+    """The decode function for a config and batch size: lossless speculative
+    for B = 1 when asked for, accept-all MTP when the config has heads,
+    single-token otherwise."""
+    if lm_cfg.mtp > 1 and lm_cfg.spec_decode and batch_size == 1:
+        return generate_speech_tokens_spec
+    if lm_cfg.mtp > 1:
+        return generate_speech_tokens_mtp
+    return generate_speech_tokens
 
 
 # ============================================================ flow matching
@@ -396,7 +602,9 @@ class CosyVoiceConfig:
 
 def init_cosyvoice(seed: int, cfg: CosyVoiceConfig, device) -> Params:
     """Seeded random parameters (f32) on ``device``, the JAX init's shapes and
-    scales; adaLN modulation zero-initialised (adaLN-Zero)."""
+    scales; adaLN modulation zero-initialised (adaLN-Zero); with
+    ``cfg.lm.mtp`` > 1 the LM's ``mtp_heads``, K − 1 dense heads
+    [hidden, speech_token_size + 3]."""
     r = Init(seed, device)
     lm, fl, vc = cfg.lm, cfg.flow, cfg.vocoder
     h = lm.backbone.hidden
@@ -415,7 +623,7 @@ def init_cosyvoice(seed: int, cfg: CosyVoiceConfig, device) -> Params:
                      for _ in dils]
                     for k, dils in zip(vc.resblock_kernels, vc.resblock_dilations)])
     attn = AttnConfig(fl.dim, fl.heads, k_bias=True)
-    return {
+    params = {
         "lm": {
             "backbone": q2.init_qwen2(r, lm.backbone),
             "text_embed": r.normal((lm.text_vocab, h), 0.02),
@@ -442,6 +650,11 @@ def init_cosyvoice(seed: int, cfg: CosyVoiceConfig, device) -> Params:
             "conv_post": conv(7, ch // (2 ** len(vc.upsample_rates)), 1),
         },
     }
+    if lm.mtp > 1:
+        # drawn last, so every other tensor is the same at any MTP width
+        params["lm"]["mtp_heads"] = [r.dense(h, lm.speech_token_size + 3)
+                                     for _ in range(lm.mtp - 1)]
+    return params
 
 
 def from_jax_params(tree, device, dtype=torch.float32) -> Params:
@@ -466,6 +679,19 @@ def from_jax_params(tree, device, dtype=torch.float32) -> Params:
     return p
 
 
+def quantize_speech_lm(params: Params) -> Params:
+    """int8 weights for the speech LM's decode: every backbone dense layer,
+    the head and the MTP heads; the embedding tables and norms stay float."""
+    backbone = dict(params["backbone"])
+    backbone["layers"] = [{**layer, **{n: quantize_dense(layer[n]) for n in
+                                       ("q", "k", "v", "o", "gate", "up", "down")}}
+                          for layer in backbone["layers"]]
+    out = {**params, "backbone": backbone, "head": quantize_dense(params["head"])}
+    if "mtp_heads" in params:
+        out["mtp_heads"] = [quantize_dense(h) for h in params["mtp_heads"]]
+    return out
+
+
 def synthesize(params: Params, cfg: CosyVoiceConfig, noise: NoiseSource,
                text_tokens: torch.Tensor, text_mask: torch.Tensor,
                prompt_speech_tokens: torch.Tensor, prompt_speech_mask: torch.Tensor,
@@ -474,7 +700,8 @@ def synthesize(params: Params, cfg: CosyVoiceConfig, noise: NoiseSource,
                min_new_tokens: int = 2) -> Dict[str, torch.Tensor]:
     """Text + voice prompt → 24 kHz waveform of the new speech only
     ({"audio", "mel", "speech_tokens", "token_lengths"})."""
-    tokens, lengths = generate_speech_tokens(
+    gen = select_generator(cfg.lm, text_tokens.shape[0])
+    tokens, lengths = gen(
         params["lm"], cfg.lm, noise, text_tokens, text_mask, prompt_speech_tokens,
         prompt_speech_mask, max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens)
     token_mask = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < lengths[:, None]
@@ -504,15 +731,10 @@ def lm_stream_start(params: Params, cfg: SpeechLMConfig, text_tokens: torch.Tens
                     prompt_speech_mask: torch.Tensor, *, max_new_tokens: int = 512) -> dict:
     """Prefill the speech LM → a resumable decode state whose cache holds the
     prompt and ``max_new_tokens`` generated tokens."""
-    emb, mask = build_prompt_embeddings(params, cfg, text_tokens, text_mask,
-                                        prompt_speech, prompt_speech_mask)
-    b, p_len, _ = emb.shape
-    dev = emb.device
-    cache = q2.init_kv_cache(cfg.backbone, b, p_len + max_new_tokens, emb.dtype, dev)
-    hidden = q2.prefill(params["backbone"], cfg.backbone, emb, cache, length_mask=mask)
-    last_idx = mask.to(torch.int64).sum(dim=1) - 1
-    return {"h": torch.take_along_dim(hidden, last_idx[:, None, None], dim=1),
-            "cache": cache,
+    cache, _, last_idx, h = _prefill_prompt(params, cfg, text_tokens, text_mask, prompt_speech,
+                                            prompt_speech_mask, max_new_tokens)
+    b, dev = h.shape[0], h.device
+    return {"h": h, "cache": cache,
             "recent": torch.full((b, cfg.win_size), -1, dtype=torch.int32, device=dev),
             "done": torch.zeros((b,), dtype=torch.bool, device=dev),
             "step": 0, "last_idx": last_idx}

@@ -2,10 +2,10 @@
 
 The port of the JAX package's ``models/nllb.py`` (``encode`` with its
 position guards, ``generate`` greedy or by beam search with the forced BOS
-as a runtime argument): shared embeddings scaled by sqrt(d), M2M100
-sinusoidal positions (offset-2 table, padding-aware ids), pre-LN blocks with
-every projection biased, ReLU MLPs, final encoder/decoder layer norms, tied
-head.
+as a runtime argument, and ``quantize_nllb_decoder``): shared embeddings
+scaled by sqrt(d), M2M100 sinusoidal positions (offset-2 table,
+padding-aware ids), pre-LN blocks with every projection biased, ReLU MLPs,
+final encoder/decoder layer norms, tied head.
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ import torch
 
 from .beam import BeamConfig, beam_search, greedy_search
 from .common import (AttnConfig, Init, Params, init_decoder_kv_cache, layer_norm, mha,
-                     mha_step, mlp, precompute_layer_cross_kv, tied_head_logits,
-                     tree_from_numpy)
+                     mha_step, mlp, precompute_layer_cross_kv, quantize_embed_head,
+                     quantize_transformer_blocks, tied_head_logits, tree_from_numpy)
 
 _mlp = functools.partial(mlp, activation=torch.relu)
 
@@ -123,7 +123,7 @@ def decode_step(params: Params, cfg: NLLBConfig, token: torch.Tensor, pos: int, 
         h = layer_norm(block["mlp_ln"], x)
         x = x + _mlp(block["mlp"], h)
     x = layer_norm(params["decoder"]["ln"], x)
-    return tied_head_logits(x[:, 0, :], params["embed"])
+    return tied_head_logits(params, x[:, 0, :], params["embed"])
 
 
 def generate(params: Params, cfg: NLLBConfig, src_tokens: torch.Tensor, forced_bos_token: int,
@@ -163,3 +163,12 @@ def generate(params: Params, cfg: NLLBConfig, src_tokens: torch.Tensor, forced_b
                                   cfg.d_model // cfg.heads, enc_out.dtype, dev)
     search = beam_search if num_beams > 1 else greedy_search
     return search(step_fn, prompt, cache, (cross_kv, enc_pad_mask), bc)
+
+
+def quantize_nllb_decoder(params: Params) -> Params:
+    """int8 weights for the decode path: the decoder blocks' dense layers and
+    a per-row int8 copy of the shared embedding for the logits (``embed_q``);
+    the encoder and the float embedding (for the gathers) stay as they are."""
+    dec = dict(params["decoder"])
+    dec["layers"] = quantize_transformer_blocks(dec["layers"])
+    return {**params, "decoder": dec, "embed_q": quantize_embed_head(params["embed"])}

@@ -2,8 +2,9 @@
 inside CosyVoice2's speech-token generator.
 
 The port of the JAX package's ``models/qwen2.py`` ``rope_table``,
-``prefill`` and ``decode_step``. KV caches are preallocated; both functions
-write into them in place. GQA K/V heads are repeated at compute time.
+``prefill``, ``decode_step`` and ``decode_span``. KV caches are
+preallocated; the functions write into them in place. GQA K/V heads are
+repeated at compute time.
 """
 
 from __future__ import annotations
@@ -152,30 +153,47 @@ def decode_step(params: Params, cfg: Qwen2Config, x: torch.Tensor, pos: int, kv_
                 prompt_len: Optional[torch.Tensor] = None,
                 prompt_capacity: int = 0) -> torch.Tensor:
     """One cached decode step x [B, 1, hidden] → hidden [B, 1, hidden],
-    writing cache slot ``pos``.
+    writing cache slot ``pos``: :func:`decode_span` at S = 1.
 
     Right-padded batched prompts: ``prompt_len``/``prompt_capacity`` mask the
     pad slots [prompt_len_b, prompt_capacity) out of attention, and
     ``rope_pos`` [B] gives each row its true continuation position."""
-    b = x.shape[0]
+    return decode_span(params, cfg, x, pos, kv_cache, rope_pos=rope_pos,
+                       prompt_len=prompt_len, prompt_capacity=prompt_capacity)
+
+
+def decode_span(params: Params, cfg: Qwen2Config, x: torch.Tensor, pos: int, kv_cache, *,
+                rope_pos: Optional[torch.Tensor] = None,
+                prompt_len: Optional[torch.Tensor] = None,
+                prompt_capacity: int = 0) -> torch.Tensor:
+    """S new positions x [B, S, hidden] in one pass → hidden [B, S, hidden],
+    writing cache slots [pos, pos + S): the weights are read once for all S
+    (multi-token prediction ingests its K tokens this way). Query s attends
+    to the cache slots ≤ pos + s (causal over absolute positions), rotates
+    at ``rope_pos + s`` (per row; ``pos + s`` without ``rope_pos``), and the
+    pad slots are masked as in :func:`decode_step`."""
+    b, s_len, _ = x.shape
     cos_t, sin_t = _rope_tensors(cfg, x.device)
     if rope_pos is None:
-        cos, sin = cos_t[pos:pos + 1], sin_t[pos:pos + 1]
+        cos, sin = cos_t[pos:pos + s_len], sin_t[pos:pos + s_len]
     else:
-        cos, sin = cos_t[rope_pos][:, None, :], sin_t[rope_pos][:, None, :]
+        idx = rope_pos[:, None] + torch.arange(s_len, device=x.device)[None, :]
+        cos, sin = cos_t[idx], sin_t[idx]
     max_len = kv_cache[0]["k"].shape[1]
     positions = torch.arange(max_len, device=x.device)[None, None, None, :]
-    mask = positions <= pos
+    query_abs = pos + torch.arange(s_len, device=x.device)[None, None, :, None]
+    mask = positions <= query_abs
     if prompt_len is not None:
         keep = (positions < prompt_len[:, None, None, None]) | (positions >= prompt_capacity)
         mask = mask & keep
     for layer, cache in zip(params["layers"], kv_cache):
         h = _rms(layer["input_ln"], x, cfg.norm_eps)
-        q = apply_rope(dense(layer["q"], h).reshape(b, 1, cfg.heads, cfg.head_dim), cos, sin)
-        k = apply_rope(dense(layer["k"], h).reshape(b, 1, cfg.kv_heads, cfg.head_dim), cos, sin)
-        v = dense(layer["v"], h).reshape(b, 1, cfg.kv_heads, cfg.head_dim)
-        cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+        q = apply_rope(dense(layer["q"], h).reshape(b, s_len, cfg.heads, cfg.head_dim), cos, sin)
+        k = apply_rope(dense(layer["k"], h).reshape(b, s_len, cfg.kv_heads, cfg.head_dim),
+                       cos, sin)
+        v = dense(layer["v"], h).reshape(b, s_len, cfg.kv_heads, cfg.head_dim)
+        cache["k"][:, pos:pos + s_len] = k.to(cache["k"].dtype)
+        cache["v"][:, pos:pos + s_len] = v.to(cache["v"].dtype)
         x = x + dense(layer["o"], _attend(cfg, q, cache["k"], cache["v"], mask, x.dtype))
         x = x + _mlp(layer, _rms(layer["post_ln"], x, cfg.norm_eps))
     return _rms(params["ln_f"], x, cfg.norm_eps)

@@ -1,7 +1,8 @@
 """Whisper-family ASR: encoder + KV-cached autoregressive decoder.
 
 The port of the JAX package's ``models/whisper.py`` (``encode``,
-``decode_with_alignment``, ``detect_language``, ``dtw_token_times``):
+``decode_with_alignment``, ``detect_language``, ``dtw_token_times``,
+``quantize_whisper_decoder``):
 conv1d×2 frontend (stride 2), fixed sinusoidal encoder positions, pre-LN
 blocks, learned decoder positions, cross-attention over precomputed encoder
 K/V, tied output head, no bias on k. Decoding is a Python loop over one decoder step with early exit
@@ -22,7 +23,8 @@ import torch.nn.functional as F
 
 from .common import (AttnConfig, Init, Params, dense, gelu, init_decoder_kv_cache,
                      layer_norm, merge_heads, mha, mha_step, mlp,
-                     precompute_layer_cross_kv, sinusoid_position_embedding,
+                     precompute_layer_cross_kv, quantize_embed_head,
+                     quantize_transformer_blocks, sinusoid_position_embedding,
                      split_heads, tied_head_logits, tree_from_numpy)
 
 GumbelFn = Callable[[int, Tuple[int, ...]], torch.Tensor]
@@ -150,7 +152,7 @@ def decode_step_with_attn(params: Params, cfg: WhisperConfig, token: torch.Tenso
         h = layer_norm(block["mlp_ln"], x)
         x = x + mlp(block["mlp"], h)
     x = layer_norm(dec["ln"], x)
-    logits = tied_head_logits(x[:, 0, :], dec["embed"])
+    logits = tied_head_logits(dec, x[:, 0, :], dec["embed"])
     half = len(attn_maps) // 2
     return logits, torch.stack(attn_maps[half:]).mean(dim=0)
 
@@ -279,6 +281,16 @@ def detect_language(params: Params, cfg: WhisperConfig,
     lang_logits = logits[:, start:start + width]
     probs = torch.softmax(lang_logits.float(), dim=-1)
     return start + torch.argmax(lang_logits, dim=-1), probs
+
+
+def quantize_whisper_decoder(params: Params) -> Params:
+    """int8 weights for the decode path: the decoder blocks' dense layers and
+    a per-row int8 copy of the tied output head (``decoder/embed_q``); the
+    encoder and the float embedding (for the gathers) stay as they are."""
+    dec = dict(params["decoder"])
+    dec["layers"] = quantize_transformer_blocks(dec["layers"])
+    dec["embed_q"] = quantize_embed_head(dec["embed"])
+    return {**params, "decoder": dec}
 
 
 def dtw_token_times(alignment: np.ndarray, n_tokens: int, audio_seconds: float) -> np.ndarray:

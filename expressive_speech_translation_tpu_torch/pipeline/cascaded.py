@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -71,11 +71,18 @@ class CascadedBackend:
         return np.asarray(audio_16k, np.float32).reshape(-1)[:n]
 
     def translate_speech(self, audio: np.ndarray, source_lang: str, target_lang: str, *,
-                         use_voice_cloning: bool = True) -> Dict[str, Any]:
+                         original_video_frames: Optional[list] = None, video_fps: float = 25.0,
+                         use_voice_cloning: bool = True, **kwargs: Any) -> Dict[str, Any]:
         """16 kHz speech → {"audio": [1, T] f32 at 16 kHz, "transcripts":
         {"source", "target"}, "process_id", "stage_summary"}.
         ``use_voice_cloning=False`` synthesizes without the source-audio
-        reference."""
+        reference. The signature is the JAX backend's: without video frames,
+        ``video_fps`` and any other keyword change nothing; the visual
+        temporal mapping that frames select is not ported and raises."""
+        if original_video_frames:
+            raise NotImplementedError(
+                "translate_speech(original_video_frames=...) is not ported yet: ROADMAP.md "
+                "Queue 1 item 10 (the visual temporal mapper)")
         process_id = f"{time.time_ns():x}"[-8:]
         if not self.is_language_supported(target_lang):
             raise ValidationError(f"Unsupported target language: {target_lang}")

@@ -11,7 +11,12 @@ Port of the JAX package's ``pipeline/jax_engines.py`` single-request path:
   target-language BOS over bucketed source lengths;
 - :class:`TorchCosyVoiceTts` — CosyVoice synthesis, offline or streamed in
   chunks, cloning the voice of a reference through voice-prompt conditioning
-  (ECAPA speaker embedding, Kaldi-fbank prompt mel, FSQ prompt speech tokens).
+  (ECAPA speaker embedding, Kaldi-fbank prompt mel, FSQ prompt speech tokens);
+  ``mtp``/``spec`` select multi-token or lossless speculative speech-token
+  decoding, reconciled with the heads the tree carries as JAX does.
+
+Every engine takes ``quantize=True`` for int8 decode weights (after the
+dtype cast, as in JAX).
 
 Each engine also serves a batch of requests in one device pass
 (``transcribe_batch``, ``translate_batch``, ``synthesize_batch``), padded to
@@ -24,6 +29,7 @@ as the JAX engines do.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import zlib
@@ -89,6 +95,7 @@ class TorchWhisperAsr:
         device=None,
         dtype=torch.bfloat16,
         max_new_tokens: int = 224,
+        quantize: bool = False,
         context_buckets: tuple = (30,),
         temperatures: Optional[tuple] = None,
         compression_ratio_threshold: float = 2.4,
@@ -101,7 +108,9 @@ class TorchWhisperAsr:
         """``context_buckets``: encoder windows in seconds (even, ascending,
         at most 30); an utterance chunk is padded to the smallest that holds
         it. ``temperatures``: the fallback ladder; random weights always fail
-        the logprob gate, so weightless mode defaults to greedy only."""
+        the logprob gate, so weightless mode defaults to greedy only.
+        ``quantize``: int8 decoder weights and tied head
+        (``whisper.quantize_whisper_decoder``, after the dtype cast)."""
         self.device = resolve_device(device)
         self.cfg = cfg or wm.WhisperConfig(d_model=512, encoder_layers=6, decoder_layers=6,
                                            heads=8, ffn_dim=2048)
@@ -110,6 +119,9 @@ class TorchWhisperAsr:
             log.warning("TorchWhisperAsr: random weights (no checkpoint supplied)")
             params = wm.init_whisper(0, self.cfg, self.device)
         self.params = cast_floats(params, dtype)
+        self.quantized = quantize
+        if quantize:
+            self.params = wm.quantize_whisper_decoder(self.params)
         self.dtype = dtype
         self.tokenizer = tokenizer or ByteTokenizer()
         self.max_new_tokens = max_new_tokens
@@ -420,7 +432,10 @@ class TorchNllbNmt:
         dtype=torch.bfloat16,
         num_beams: int = 1,
         max_new_tokens: int = 200,
+        quantize: bool = False,
     ):
+        """``quantize``: int8 decoder weights and tied head
+        (``nllb.quantize_nllb_decoder``, after the dtype cast)."""
         self.device = resolve_device(device)
         self.cfg = cfg or nlm.NLLBConfig(d_model=512, encoder_layers=6, decoder_layers=6,
                                          heads=8, ffn_dim=2048, vocab_size=384)
@@ -429,6 +444,9 @@ class TorchNllbNmt:
             log.warning("TorchNllbNmt: random weights (no checkpoint supplied)")
             params = nlm.init_nllb(1, self.cfg, self.device)
         self.params = cast_floats(params, dtype)
+        self.quantized = quantize
+        if quantize:
+            self.params = nlm.quantize_nllb_decoder(self.params)
         self.tokenizer = tokenizer or ByteTokenizer()
         if lang_code_to_id is None and hasattr(self.tokenizer, "token_to_id"):
             # language tokens resolve through the tokenizer's vocab, as the
@@ -506,6 +524,41 @@ class TorchNllbNmt:
 # ========================================================================= TTS
 
 
+def _reconcile_mtp(cfg_mtp: int, forced: int, params) -> int:
+    """The MTP width the parameters can serve: the forced width when set
+    (≥ 1; 1 pins single-token decode), else the config's, up to the heads
+    the tree carries. ``params=None`` (random weights to be drawn at the
+    width) honours the request as it is; a tree without heads decodes
+    single-token, and a width other than the tree's takes the tree's, each
+    with a warning."""
+    wanted = forced if forced >= 1 else cfg_mtp
+    if wanted <= 1:
+        return 1
+    if params is None:
+        return wanted
+    heads = params.get("lm", {}).get("mtp_heads")
+    have = (len(heads) + 1) if heads else 1
+    if have == 1:
+        log.warning("mtp=%d requested but the params carry no mtp_heads — "
+                    "falling back to single-token decode", wanted)
+    elif have != wanted:
+        log.warning("mtp=%d requested but the checkpoint carries %d MTP head(s) — "
+                    "using mtp=%d", wanted, have - 1, have)
+    return have
+
+
+def _reconcile_spec(forced: bool, cfg_spec: bool, width: int) -> bool:
+    """Lossless speculative decoding when the caller or the config asks for
+    it, and only at an MTP width > 1; asked for at width 1 it is off, with a
+    warning."""
+    wanted = forced or cfg_spec
+    if wanted and width <= 1:
+        log.warning("tts_spec requested but the effective MTP width is 1 (no trained "
+                    "heads / no tts_mtp) — serving standard single-token decode")
+        return False
+    return wanted
+
+
 class TorchCosyVoiceTts:
     """TTS engine: CosyVoice synthesis (speech-token LM → flow → vocoder)
     with speaker conditioning from the reference audio."""
@@ -522,11 +575,21 @@ class TorchCosyVoiceTts:
         dtype=torch.bfloat16,
         seconds_per_char: float = 0.08,
         noise: Optional[Callable[[int], cvm.NoiseSource]] = None,
+        quantize: bool = False,
+        mtp: int = 0,
+        spec: bool = False,
         ecapa_weights=None,
         speech_tokenizer_weights=None,
     ):
         """``noise(call_index)`` gives each synthesis its noise source
-        (default: a ``torch.Generator`` seeded with the call index).
+        (default: :class:`cosyvoice.GeneratorNoise` seeded with the call
+        index). ``quantize``: int8 weights for the speech LM's decode
+        (``cosyvoice.quantize_speech_lm``, after the dtype cast). ``mtp``:
+        the multi-token width (0 defers to the config; 1 pins single-token;
+        K > 1 is honoured when the tree has K − 1 heads, or when random
+        weights are drawn at that width); ``spec``: lossless speculative
+        decoding of B = 1 requests (False defers to the config), off with a
+        warning at width 1. Batched requests take accept-all MTP.
         ``ecapa_weights`` / ``speech_tokenizer_weights``: optional
         ``(params, cfg)`` of the conditioning models (the port's f32 trees);
         without them both run on seeded random weights, which carry no
@@ -539,16 +602,23 @@ class TorchCosyVoiceTts:
                 text_vocab=384, speech_token_size=512),
             flow=cvm.FlowConfig(token_vocab=515, dim=256, layers=4, heads=8),
             vocoder=cvm.VocoderConfig(base_channels=256))
+        want = _reconcile_mtp(self.cfg.lm.mtp, mtp, params)
+        want_spec = _reconcile_spec(spec, self.cfg.lm.spec_decode, want)
+        if want != self.cfg.lm.mtp or want_spec != self.cfg.lm.spec_decode:
+            self.cfg = dataclasses.replace(self.cfg, lm=dataclasses.replace(
+                self.cfg.lm, mtp=want, spec_decode=want_spec))
         self.weightless = params is None
         if params is None:
             log.warning("TorchCosyVoiceTts: random weights (no checkpoint supplied)")
             params = cvm.init_cosyvoice(2, self.cfg, self.device)
         self.params = cast_floats(params, dtype)
+        self.quantized = quantize
+        if quantize:
+            self.params = {**self.params, "lm": cvm.quantize_speech_lm(self.params["lm"])}
         self.dtype = dtype
         self.tokenizer = tokenizer or ByteTokenizer()
         self.seconds_per_char = seconds_per_char
-        self._noise = noise or (lambda n: cvm.GeneratorNoise(
-            torch.Generator(device=self.device).manual_seed(n)))
+        self._noise = noise or (lambda n: cvm.GeneratorNoise(n, self.device))
         # the conditioning models stay f32 in a bf16 engine (as in the JAX
         # package); only their outputs are cast to the serving dtype
         if ecapa_weights is not None:
@@ -742,19 +812,16 @@ def reference_scale_configs() -> Dict[str, Any]:
 # JAX default, which asks for nothing, and the ROADMAP Queue 1 item that
 # brings the feature). Any other value raises NotImplementedError.
 _QUEUED_KEYS = {
-    "tts_mtp": (0, 6), "tts_spec": (False, 6),
-    "quantize": (False, 7),
     "tts_official": (None, 8),
     "mesh": (None, 12), "stage_parallel": (False, 12), "stage_tp": (1, 12),
     "stage_meshes": (None, 12),
 }
-_QUEUE_ITEMS = {6: "MTP and speculative speech-token generators",
-                7: "int8", 8: "the official CosyVoice chain and the checkpoint loaders",
+_QUEUE_ITEMS = {8: "the official CosyVoice chain and the checkpoint loaders",
                 12: "meshes and stage-parallel serving"}
 _PASSED_KEYS = frozenset((
     "asr_cfg", "asr_params", "asr_context_buckets", "asr_tokenizer", "nmt_cfg", "nmt_params",
     "nmt_tokenizer", "lang_code_to_id", "tts_cfg", "tts_params", "tts_tokenizer", "tts_noise",
-    "tts_ecapa", "tts_speech_tokenizer", "tokenizer", "dtype"))
+    "tts_mtp", "tts_spec", "tts_ecapa", "tts_speech_tokenizer", "tokenizer", "dtype"))
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -780,7 +847,7 @@ def _check_keys(kwargs: Dict[str, Any]) -> None:
 
 def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
                   batch_asr: bool = False, batch_nmt: bool = False, max_batch: int = 8,
-                  batch_wait_ms: float = 20.0, **kwargs) -> Engines:
+                  batch_wait_ms: float = 20.0, quantize: bool = False, **kwargs) -> Engines:
     """Engines wired to the port's models (random weights unless supplied),
     on the card unless ``device="cpu"``.
 
@@ -789,15 +856,17 @@ def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
     put a micro-batcher (``serve/batching.py``, up to ``max_batch`` requests
     gathered for up to ``batch_wait_ms``) in front of the stage, so
     concurrent requests share its batched dispatches, as in the JAX factory.
+    ``quantize=True`` gives every engine int8 decode weights.
     ``asr_cfg``/``asr_params``/``asr_context_buckets`` (default ``(30,)``),
     ``nmt_cfg``/``nmt_params``/``lang_code_to_id``, ``tts_cfg``/
     ``tts_params``/``tts_noise``/``tts_ecapa``/``tts_speech_tokenizer``
-    (each ``(params, cfg)``) and ``dtype`` pass through to the engines;
+    (each ``(params, cfg)``), ``tts_mtp``/``tts_spec`` (the TTS engine's
+    ``mtp``/``spec``) and ``dtype`` pass through to the engines;
     ``asr_tokenizer``/``nmt_tokenizer``/``tts_tokenizer`` override the
-    shared ``tokenizer``. The JAX factory's other keys (MTP and speculative
-    decoding, int8, the official CosyVoice chain, meshes) are accepted at
-    their defaults and raise ``NotImplementedError`` naming the ROADMAP item
-    that brings them otherwise, as does a set ``EST_MODELS_DIR``."""
+    shared ``tokenizer``. The JAX factory's other keys (the official
+    CosyVoice chain, meshes) are accepted at their defaults and raise
+    ``NotImplementedError`` naming the ROADMAP item that brings them
+    otherwise, as does a set ``EST_MODELS_DIR``."""
     _check_keys(kwargs)
     dev = resolve_device(device)
     if scale == "reference":
@@ -809,13 +878,17 @@ def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
     tok = kwargs.get("tokenizer")
     asr: Any = TorchWhisperAsr(kwargs.get("asr_cfg"), kwargs.get("asr_params"),
                                kwargs.get("asr_tokenizer", tok), device=dev, dtype=dtype,
+                               quantize=quantize,
                                context_buckets=kwargs.get("asr_context_buckets", (30,)))
     nmt: Any = TorchNllbNmt(kwargs.get("nmt_cfg"), kwargs.get("nmt_params"),
                             kwargs.get("nmt_tokenizer", tok), device=dev,
-                            lang_code_to_id=kwargs.get("lang_code_to_id"), dtype=dtype)
+                            lang_code_to_id=kwargs.get("lang_code_to_id"), dtype=dtype,
+                            quantize=quantize)
     tts: Any = TorchCosyVoiceTts(kwargs.get("tts_cfg"), kwargs.get("tts_params"),
                                  kwargs.get("tts_tokenizer", tok), device=dev,
-                                 dtype=dtype, noise=kwargs.get("tts_noise"),
+                                 dtype=dtype, noise=kwargs.get("tts_noise"), quantize=quantize,
+                                 mtp=kwargs.get("tts_mtp", 0),
+                                 spec=kwargs.get("tts_spec", False),
                                  ecapa_weights=kwargs.get("tts_ecapa"),
                                  speech_tokenizer_weights=kwargs.get("tts_speech_tokenizer"))
     batching = dict(max_batch=max_batch, max_wait_ms=batch_wait_ms)

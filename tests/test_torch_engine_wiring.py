@@ -5,7 +5,8 @@
   does: the same forced BOS and the same tokens, with weights and weightless.
 - ``torch_engines`` takes every key of the JAX factory ``jax_engines``: it
   honours the ones the port can serve (ASR context buckets, per-stage
-  tokenizers, the micro-batchers) and raises ``NotImplementedError`` naming
+  tokenizers, the micro-batchers, int8 decode, the TTS engine's MTP width
+  and speculative decoding) and raises ``NotImplementedError`` naming
   the ROADMAP item for the rest, unless their value is the JAX default, which
   asks for nothing.
 """
@@ -149,8 +150,8 @@ JAX_KEYS = {
     "tts_ecapa": (None, None), "tts_speech_tokenizer": (None, None),
     "batch_tts": (True, None), "batch_asr": (True, None), "batch_nmt": (True, None),
     "max_batch": (16, None), "batch_wait_ms": (5.0, None),
-    "tts_mtp": (2, 6), "tts_spec": (True, 6),
-    "quantize": (True, 7),
+    "tts_mtp": (2, None), "tts_spec": (True, None),
+    "quantize": (True, None),
     "tts_official": (object(), 8),
     "mesh": (object(), 12), "stage_parallel": (True, 12), "stage_tp": (2, 12),
     "stage_meshes": ({"asr": object()}, 12),
@@ -198,8 +199,33 @@ def test_torch_engines_honours_or_refuses_each_jax_key(key):
             assert (getattr(eng, name).tokenizer is value) == (name == stage)
     elif key == "lang_code_to_id":
         assert eng.nmt._lang_id("fra") == 371
+    elif key == "tts_mtp":
+        assert (eng.tts.cfg.lm.mtp, eng.tts.cfg.lm.spec_decode) == (2, False)
+        assert len(eng.tts.params["lm"]["mtp_heads"]) == 1
+    elif key == "tts_spec":
+        # alone it has no MTP width to verify over: off, single-token
+        assert (eng.tts.cfg.lm.mtp, eng.tts.cfg.lm.spec_decode) == (1, False)
+        assert "mtp_heads" not in eng.tts.params["lm"]
+        eng = torch_engines(**kwargs, tts_mtp=2)
+        assert (eng.tts.cfg.lm.mtp, eng.tts.cfg.lm.spec_decode) == (2, True)
+        assert len(eng.tts.params["lm"]["mtp_heads"]) == 1
+    elif key == "quantize":
+        assert eng.asr.quantized and eng.nmt.quantized and eng.tts.quantized
+        dec = eng.asr.params["decoder"]
+        assert dec["layers"][0]["self_attn"]["q"]["kernel_q"].dtype == torch.int8
+        assert dec["embed_q"]["q"].dtype == torch.int8 and "kernel" in eng.asr.params[
+            "encoder"]["layers"][0]["mlp"]["fc1"]
+        assert eng.nmt.params["embed_q"]["q"].dtype == torch.int8
+        assert eng.nmt.params["decoder"]["layers"][0]["mlp"]["fc2"]["kernel_q"].dtype == torch.int8
+        lm = eng.tts.params["lm"]
+        assert lm["head"]["kernel_q"].dtype == lm["backbone"]["layers"][0]["down"][
+            "kernel_q"].dtype == torch.int8
     else:
         assert eng.asr.context_buckets == (30,)
+    if key != "quantize":
+        assert not (eng.asr.quantized or eng.nmt.quantized or eng.tts.quantized)
+    if key not in ("tts_mtp", "tts_spec"):
+        assert (eng.tts.cfg.lm.mtp, eng.tts.cfg.lm.spec_decode) == (1, False)
 
 
 def test_torch_engines_stages_follow_the_jax_factory():

@@ -163,6 +163,25 @@ def test_translate_speech_at_its_defaults_clones_the_voice_like_jax(cascades):
     np.testing.assert_allclose(got["audio"], want["audio"], atol=AUDIO_ATOL, rtol=0)
 
 
+def test_translate_speech_takes_the_jax_keywords(cascades):
+    """The JAX backend's signature: without frames, ``video_fps`` and an
+    unknown keyword change nothing; frames ask for the visual temporal
+    mapping, which is not ported, and raise before any engine runs."""
+    jax_backend, backend = cascades
+    x = _speechlike(2.5, seed=9)
+    kw = dict(use_voice_cloning=False, video_fps=30.0, request_id="r1")
+    want = jax_backend.translate_speech(x, "eng", "fra", **kw)
+    got = backend.translate_speech(x, "eng", "fra", original_video_frames=[], **kw)
+    assert got["transcripts"] == want["transcripts"]
+    assert got["audio"].shape == want["audio"].shape
+    np.testing.assert_allclose(got["audio"], want["audio"], atol=AUDIO_ATOL, rtol=0)
+    calls = backend.engines.tts._call_count
+    frames = [np.zeros((8, 8, 3), np.uint8)] * 4
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10 "):
+        backend.translate_speech(x, "eng", "fra", original_video_frames=frames, video_fps=25.0)
+    assert backend.engines.tts._call_count == calls
+
+
 def test_synthesize_with_a_reference_matches_jax(cascades):
     """The cloning branch on its own: the conditioning (speaker embedding,
     prompt mel, prompt speech tokens) and the synthesized audio."""

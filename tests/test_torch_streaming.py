@@ -272,6 +272,57 @@ def test_synthesize_streaming_matches_jax(tts_weights, weights_name, max_new_tok
     assert sum(len(c) for c in got) == n_tokens * CCFG.flow.token_mel_ratio * CCFG.vocoder.hop
 
 
+def test_synthesize_streaming_is_single_token_on_an_mtp_tree(tts_weights):
+    """A stream decodes one token a step whatever the tree carries: on the
+    tree with two MTP heads (and ``mtp=3, spec_decode`` set) it equals the
+    stream on the same tree without them."""
+    params = tts_weights["eos"]
+    g = np.random.default_rng(41)
+    heads = [{"kernel": (0.1 * g.standard_normal((64, 67))).astype(np.float32),
+              "bias": np.zeros(67, np.float32)} for _ in range(2)]
+    with_heads = {**params, "lm": {**params["lm"], "mtp_heads": heads}}
+    cfg3 = TCCFG.__class__(**{**_fields(TCCFG), "lm": TCCFG.lm.__class__(
+        **{**_fields(TCCFG.lm), "mtp": 3, "spec_decode": True})})
+    text, tmask, sp, smask, spk, pm, pmm = (_t(a) for a in _prompt())
+    kw = dict(stream=tcv.StreamConfig(**STREAM), max_new_tokens=24, min_new_tokens=11)
+    streams = [list(tcv.synthesize_streaming(tcv.from_jax_params(p, "cpu"), cfg,
+                                             JaxStreamNoise(jax.random.PRNGKey(5)), text, tmask,
+                                             sp, smask, spk, pm, pmm, **kw))
+               for p, cfg in ((with_heads, cfg3), (params, TCCFG))]
+    assert len(streams[0]) == len(streams[1]) >= 2
+    for a, b in zip(*streams):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_generator_noise_draws_are_a_function_of_their_index():
+    """The default noise source: equal indices give equal draws whatever
+    the order of the asks (the speculative decoder draws a position twice),
+    other indices and other chunks other draws, and a chunk's steps count
+    from 0 again."""
+    noise = tcv.GeneratorNoise(7, "cpu")
+    shape = (2, 5)
+    first = noise.ras_gumbel(3, shape)
+    noise.ras_gumbel(4, shape)
+    noise.mtp_gumbel(0, 1, shape)
+    again = tcv.GeneratorNoise(7, "cpu").ras_gumbel(3, shape)
+    for a, b, c in zip(first, noise.ras_gumbel(3, shape), again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert not torch.equal(first[0], first[1])
+    assert not torch.equal(first[0], noise.ras_gumbel(2, shape)[0])
+    assert torch.equal(noise.mtp_gumbel(1, 2, shape)[0], noise.mtp_gumbel(1, 2, shape)[0])
+    assert not torch.equal(noise.mtp_gumbel(1, 2, shape)[0], noise.mtp_gumbel(1, 1, shape)[0])
+    assert torch.equal(noise.flow_x0((1, 4, 3)), noise.flow_x0((1, 4, 3)))
+    chunks = [noise.chunk(ci, 3) for ci in range(3)]
+    draws = [c.ras_gumbel(0, shape)[0] for c in chunks]
+    assert torch.equal(draws[1], noise.chunk(1, 3).ras_gumbel(0, shape)[0])
+    assert not any(torch.equal(draws[i], draws[j]) for i in range(3) for j in range(i))
+    assert not any(torch.equal(d, first[0]) or torch.equal(d, noise.ras_gumbel(0, shape)[0])
+                   for d in draws)
+    assert not torch.equal(chunks[0].flow_x0((1, 4, 3)), chunks[1].flow_x0((1, 4, 3)))
+    u = torch.cat([noise.ras_gumbel(i, (64,))[0] for i in range(64)])
+    assert torch.isfinite(u).all() and abs(float(u.mean()) - 0.5772) < 0.1   # Gumbel's mean
+
+
 def test_synthesize_streaming_rejects_a_batch_and_a_misaligned_flow_context(tts_weights):
     params = tcv.from_jax_params(tts_weights["plain"], "cpu")
     text, tmask, sp, smask, spk, pm, pmm = (_t(a) for a in _prompt(b=2))
