@@ -61,7 +61,27 @@ Phases, in order; any failure exits non-zero and prints no result:
               weights against bf16 (logits within INT8_LOGIT_RTOL, both
               replayed as CUDA graphs in turns at B = 1 and 8) and one 10 s
               request on ``torch_engines(quantize=True)``;
-8. the kernels line, the card line, and last the result line.
+8. official — the official CosyVoice2 chain at its full width
+              (``OfficialTtsConfig()``: Qwen2-0.5B LM with 6,561 speech tokens,
+              the 512-wide 6 + 4 block conformer, the 256-channel estimator of
+              14 units × 4 transformer blocks, 10 Euler steps with CFG, HiFT
+              at 512 channels), seeded random weights (the head's EOS logit
+              lowered, so the LM runs its budget), bf16:
+              ``torch_engines(scale="reference", tts_official=...)``,
+              ``initialize()``, one 10 s ``translate_speech`` with cloning on
+              (stage seconds and RTF beside the e2e phase's native 10 s
+              request; log-mel launched for the request, the resblock kernel
+              never during the official synthesis), one ``synthesize_batch``
+              of a row with a reference and one without (each row's length
+              its tokens × token_mel_ratio × HiFT's hop), one 10 s
+              ``translate_speech_streaming`` (first audio, wall, chunks; the
+              streamed samples add up to the streamed tokens × samples a
+              token), the full-width ``flow.pt`` / ``hift.pt`` written by the
+              port's emitters and read back by the loaders (the flow's config
+              inferred), and the HiFT source of one 10 s bf16-representable
+              f0 track with the engine's bf16 HiFT parameters against their
+              f32 copies (the port integrates the phase in f32);
+9. the kernels line, the card line, and last the result line.
 
 The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
 greedy call.
@@ -1599,27 +1619,305 @@ def mtp_phase(dev, report, card, backend, e2e):
     return mtp
 
 
+OFFICIAL_SECONDS = 10.0
+OFFICIAL_EOS_OFFSET = 30.0    # subtracted from the random head's EOS logit
+OFFICIAL_SOURCE_ATOL = 1e-2   # bf16 HiFT source against its f32 copy: the output's bf16 rounding
+
+
+@contextlib.contextmanager
+def _recording_calls(module, name: str, calls: list, record):
+    """For the block's duration ``module.name`` calls through, appending
+    ``record(args, kwargs, result)`` of each call to ``calls``."""
+    fn = getattr(module, name)
+
+    def recording(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append(record(args, kwargs, out))
+        return out
+
+    setattr(module, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def _launches_around(engine, method: str, seen: list):
+    """Each call of ``engine.method`` inside the block appends the kernels'
+    launches made during that call (counters read before and after)."""
+    fn = getattr(engine, method)
+
+    def counted(*args, **kwargs):
+        before = _read_launches()
+        out = fn(*args, **kwargs)
+        after = _read_launches()
+        seen.append({k: after[k] - before[k] for k in after})
+        return out
+
+    setattr(engine, method, counted)
+    try:
+        yield seen
+    finally:
+        delattr(engine, method)
+
+
+def official_request(backend, card, e2e) -> dict:
+    """One 10 s translate_speech with cloning on through the official chain,
+    the launch counters set to 0 before it and read after, and read around
+    the TTS stage: log-mel launched for the request, resblock never in it."""
+    x = _speechlike(OFFICIAL_SECONDS, seed=int(OFFICIAL_SECONDS))
+    tts = backend.engines.tts
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _launches_around(tts, "synthesize", []) as tts_launches:
+        out = backend.translate_speech(x, "eng", "fra")
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    _check_request(out, OFFICIAL_SECONDS, "official 10 s request")
+    stages = {k: v["seconds"] for k, v in out["stage_summary"].items()}
+    native = next(r for r in e2e["requests"] if r["audio_s"] == OFFICIAL_SECONDS)
+    print(f"  {OFFICIAL_SECONDS:.0f} s request (official chain): wall {wall:.3f} s, RTF "
+          f"{wall / OFFICIAL_SECONDS:.4f}  " + "  ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + f"  (native chain, e2e phase: wall {native['wall_s']:.3f} s, RTF {native['rtf']:.4f}  "
+          + "  ".join(f"{k} {v:.3f} s" for k, v in native["stages_s"].items()) + f")  [{card}]",
+          flush=True)
+    print(f"    launches over the request {launches}; in the TTS stage {tts_launches}", flush=True)
+    if launches["log_mel_frames"] < 1:
+        raise AssertionError(f"official request: no log-mel launch ({launches})")
+    if len(tts_launches) != 1 or any(tts_launches[0].values()):
+        raise AssertionError(f"official synthesis launched kernels: {tts_launches}")
+    if launches["fused_resblock_stage"]:
+        raise AssertionError(f"official request launched the resblock kernel: {launches}")
+    return {"wall_s": wall, "rtf": wall / OFFICIAL_SECONDS, "stages_s": stages,
+            "launches": launches, "tts_launches": tts_launches[0],
+            "native_wall_s": native["wall_s"], "native_stages_s": native["stages_s"],
+            "out_samples": int(out["audio"].shape[1])}
+
+
+def official_batch(tts, card) -> dict:
+    """One synthesize_batch of a row with a reference and a row without
+    (per-row prompt compaction at full width): finite audio, each row's
+    length its tokens × token_mel_ratio × HiFT's hop."""
+    from expressive_speech_translation_tpu_torch.models import cosyvoice_official as com
+
+    spt = tts.official_cfg.flow.token_mel_ratio * tts.official_cfg.hift.hop
+    reqs = [{"text": "Bonjour, je vous parle depuis la gare.", "style_prompt": "Hello from here.",
+             "reference_audio_16k": _speechlike(OFFICIAL_SECONDS, seed=301), "language": "fr"},
+            {"text": "Une phrase sans voix de référence.", "reference_audio_16k": None,
+             "language": "fr"}]
+    t0 = time.perf_counter()
+    with _recording_calls(com, "synthesize_official", [],
+                          lambda a, kw, out: (out["token_lengths"].tolist(),
+                                              int(out["audio"].shape[1]))) as calls:
+        audio = tts.synthesize_batch(reqs)
+    seconds = time.perf_counter() - t0
+    (lengths, width), = calls
+    print(f"  synthesize_batch of 2 rows (one cloning): {seconds:.3f} s, tokens {lengths[:2]}, "
+          f"samples {[len(a) for a in audio]} (padded batch width {width})  [{card}]", flush=True)
+    for a, n in zip(audio, lengths):
+        if not (np.isfinite(a).all() and len(a) == max(n, 1) * spt):
+            raise AssertionError(f"official batch row: {len(a)} samples for {n} tokens × {spt}")
+    return {"seconds": seconds, "tokens": lengths[:2], "samples": [len(a) for a in audio]}
+
+
+def official_stream(backend, card) -> dict:
+    """One 10 s translate_speech_streaming (cloning on) through the official
+    chain: first audio, wall, chunks; the streamed TTS samples add up to the
+    streamed tokens × samples a token; no resblock launch."""
+    from expressive_speech_translation_tpu_torch.models import cosyvoice
+
+    tts = backend.engines.tts
+    spt = tts.official_cfg.flow.token_mel_ratio * tts.official_cfg.hift.hop
+    eos = tts.official_cfg.lm.eos_speech
+    x = _speechlike(OFFICIAL_SECONDS, seed=302)
+    tts_chunks, lm_chunks, events = [], [], []
+    synth = tts.synthesize_streaming
+
+    def counted(*args, **kwargs):
+        for chunk in synth(*args, **kwargs):
+            tts_chunks.append(len(chunk))
+            yield chunk
+
+    def tokens_until_eos(args, kw, out):
+        tok = out[0][0].cpu().numpy()
+        return int(np.argmax(tok == eos)) if (tok == eos).any() else len(tok)
+
+    _reset_launches()
+    first_audio = None
+    tts.synthesize_streaming = counted
+    try:
+        with _recording_calls(cosyvoice, "lm_stream_chunk", lm_chunks, tokens_until_eos):
+            t0 = time.perf_counter()
+            for ev in backend.translate_speech_streaming(x, "eng", "fra"):
+                if ev["type"] == "audio" and first_audio is None:
+                    first_audio = time.perf_counter() - t0
+                events.append(ev["type"])
+            wall = time.perf_counter() - t0
+    finally:
+        del tts.synthesize_streaming
+    launches = _read_launches()
+    tokens = sum(lm_chunks)      # a stream stops after the first chunk that ends early
+    print(f"  {OFFICIAL_SECONDS:.0f} s stream (official chain): first audio at "
+          f"{first_audio or math.nan:.3f} s, wall {wall:.3f} s, events {events}, TTS chunks "
+          f"{tts_chunks} samples for {lm_chunks} tokens a chunk, launches {launches}  [{card}]",
+          flush=True)
+    if first_audio is None or not tts_chunks:
+        raise AssertionError("official stream gave no audio")
+    if sum(tts_chunks) != tokens * spt:
+        raise AssertionError(f"official stream: {sum(tts_chunks)} samples for {tokens} tokens "
+                             f"× {spt}")
+    if launches["fused_resblock_stage"] or launches["log_mel_frames"] < 1:
+        raise AssertionError(f"official stream launches {launches}")
+    return {"first_audio_s": first_audio, "wall_s": wall, "events": events,
+            "tts_chunk_samples": tts_chunks, "lm_chunk_tokens": lm_chunks, "tokens": tokens,
+            "launches": launches}
+
+
+def _tensors_equal(got, want, path="") -> None:
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"loader round trip: keys differ at {path}")
+        for k in want:
+            _tensors_equal(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"loader round trip: lengths differ at {path}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _tensors_equal(g, w, f"{path}[{i}]")
+    elif not (got.dtype == want.dtype and got.shape == want.shape
+              and torch.equal(got, want.to(got.device))):
+        raise AssertionError(f"loader round trip: tensor differs at {path}")
+
+
+def official_loaders(params, cfg, dev, card) -> dict:
+    """The full-width flow.pt and hift.pt written by the port's emitters into
+    a temporary directory and read back by the loaders onto the card: the
+    flow's config inferred from the tensors equals ``OfficialFlowConfig()``,
+    and every tensor is equal."""
+    import tempfile
+
+    from expressive_speech_translation_tpu_torch.models import flow_matcha, hift, loaders
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(flow_matcha.to_flow_state_dict(params["flow"]),
+                   os.path.join(tmp, "flow.pt"))
+        torch.save(hift.to_hift_state_dict(params["hift"], cfg.hift), os.path.join(tmp, "hift.pt"))
+        sizes = {n: os.path.getsize(os.path.join(tmp, n)) / 2**20 for n in ("flow.pt", "hift.pt")}
+        flow, flow_cfg = loaders.load_cosyvoice_flow(os.path.join(tmp, "flow.pt"), device=dev)
+        hift_params, hift_cfg = loaders.load_cosyvoice_hift(os.path.join(tmp, "hift.pt"),
+                                                             device=dev)
+    seconds = time.perf_counter() - t0
+    if flow_cfg != flow_matcha.OfficialFlowConfig() or hift_cfg != cfg.hift:
+        raise AssertionError(f"loaders inferred {flow_cfg}, {hift_cfg}")
+    _tensors_equal(flow, params["flow"], "flow")
+    _tensors_equal(hift_params, params["hift"], "hift")
+    print(f"  loaders: flow.pt {sizes['flow.pt']:.1f} MiB and hift.pt {sizes['hift.pt']:.1f} MiB "
+          f"written and read back in {seconds:.2f} s, the flow's config inferred, every tensor "
+          f"equal  [{card}]", flush=True)
+    return {"seconds": seconds, "mib": sizes}
+
+
+def official_source(tts, params, card) -> dict:
+    """The HiFT source of one 10 s f0 track of bf16-representable values
+    (200 Hz rising to 250 Hz) with the engine's bf16 HiFT parameters and
+    with their f32 copies, and again through a merge reading the fundamental
+    alone at a gain of 10 (a source swinging ±0.76): the port integrates the
+    phase in f32 in both, so the largest difference is the bf16 output's
+    rounding."""
+    from expressive_speech_translation_tpu_torch.models import hift
+
+    cfg = tts.official_cfg.hift
+    frames = int(OFFICIAL_SECONDS * cfg.sampling_rate) // cfg.hop
+    f0 = torch.linspace(200.0, 250.0, frames, device=tts.device).to(torch.bfloat16)[None]
+    merge = torch.zeros((cfg.nb_harmonics + 1, 1), device=tts.device)
+    merge[0, 0] = 10.0
+    gain = {"kernel": merge, "bias": torch.zeros(1, device=tts.device)}
+    out = {}
+    for label, bf16, f32 in (("engine", tts.params["hift"], params["hift"]),
+                             ("gain 10", {**tts.params["hift"], "m_source": {
+                                 "l_linear": {k: v.to(torch.bfloat16) for k, v in gain.items()}}},
+                              {**params["hift"], "m_source": {"l_linear": gain}})):
+        src_bf16 = hift.harmonic_source(bf16, cfg, None, f0, deterministic=True)
+        src_f32 = hift.harmonic_source(f32, cfg, None, f0.float(), deterministic=True)
+        diff = float((src_bf16.float() - src_f32).abs().max())
+        peak = float(src_f32.abs().max())
+        out[label] = {"max_abs_diff": diff, "peak": peak, "dtype": str(src_bf16.dtype)}
+        print(f"  HiFT source of {OFFICIAL_SECONDS:.0f} s of f0, {label} merge: bf16 against f32 "
+              f"{diff:.3e} (peak {peak:.3f}, {src_bf16.dtype})  [{card}]", flush=True)
+        if not (src_bf16.dtype == torch.bfloat16 and diff <= OFFICIAL_SOURCE_ATOL):
+            raise AssertionError(f"bf16 HiFT source departs from f32 by {diff}")
+    return out
+
+
+def official_phase(dev, report, card, e2e):
+    """The official CosyVoice2 chain at full width on seeded random weights
+    (bf16): engines, initialize(), one 10 s request, a batched dispatch, a
+    10 s stream, the loaders' round trip, the bf16 source. The launch
+    counters of the 10 s request are the phase's."""
+    from expressive_speech_translation_tpu_torch.models import cosyvoice_official as com
+    from expressive_speech_translation_tpu_torch.models import ecapa
+    from expressive_speech_translation_tpu_torch.models import speech_tokenizer as stm
+    from expressive_speech_translation_tpu_torch.pipeline.cascaded import CascadedBackend
+    from expressive_speech_translation_tpu_torch.pipeline.torch_engines import torch_engines
+
+    print("== official: CosyVoice2-0.5B official chain (Qwen2-0.5B LM, matcha flow, HiFT), "
+          "bf16, random weights, voice cloning on", flush=True)
+    t_phase = time.perf_counter()
+    cfg = com.OfficialTtsConfig()
+    params = com.init_official_tts(7, cfg, dev)
+    # the random head's EOS logit lowered, so the LM runs its budget (the
+    # native tree's random LM does) and the flow, HiFT and the stream see
+    # full-length work; with this seed it otherwise stops after 5-19 tokens
+    params["lm"]["head"]["bias"][cfg.lm.eos_speech] -= OFFICIAL_EOS_OFFSET
+    ecfg, scfg = ecapa.EcapaConfig(), stm.SpeechTokenizerConfig()
+    engines = torch_engines(scale="reference", tts_official=(params, cfg),
+                            tts_ecapa=(ecapa.init_ecapa(3, ecfg, dev), ecfg),
+                            tts_speech_tokenizer=(stm.init_speech_tokenizer(4, scfg, dev), scfg))
+    backend = CascadedBackend(engines)
+    backend.initialize()
+    torch.cuda.synchronize()
+    print(f"  engines and initialize {time.perf_counter() - t_phase:.1f} s, official TTS "
+          f"{_tree_bytes(engines.tts.params) / 2**30:.2f} GiB in bf16", flush=True)
+    official = {"request": official_request(backend, card, e2e)}
+    official["launches"] = official["request"]["launches"]
+    official["batch"] = official_batch(engines.tts, card)
+    official["stream"] = official_stream(backend, card)
+    official["loaders"] = official_loaders(params, cfg, dev, card)
+    official["source"] = official_source(engines.tts, params, card)
+    del engines, backend, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    official["seconds"] = time.perf_counter() - t_phase
+    print(f"  official phase {official['seconds']:.1f} s", flush=True)
+    report["official"] = official
+    return official
+
+
 def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
-def _launches(name, e2e, batched, stream, mtp) -> dict:
+def _launches(name, e2e, batched, stream, mtp, official) -> dict:
     """A kernel's launch count on each path driven: the three single
     requests, the detection of the 10 s request, the batched requests, the
-    two streamed requests, the mtp phase's TTS runs."""
+    two streamed requests, the mtp phase's TTS runs, the official chain's
+    10 s request."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
             "batched": batched["launches"][name], "streaming": stream["launches"][name],
-            "mtp": mtp["launches"][name]}
+            "mtp": mtp["launches"][name], "official": official["launches"][name]}
 
 
-def _decode_entry(name, source, replaces, rows, e2e, batched, stream, mtp):
+def _decode_entry(name, source, replaces, rows, e2e, batched, stream, mtp, official):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
     timed = next(r for r in rows if "ms" in r)
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
-            "launches_by_path": _launches(name, e2e, batched, stream, mtp),
+            "launches_by_path": _launches(name, e2e, batched, stream, mtp, official),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -1627,7 +1925,8 @@ def _decode_entry(name, source, replaces, rows, e2e, batched, stream, mtp):
             "chain_calls": timed["chain_calls"]}
 
 
-def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched, stream, mtp):
+def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched, stream, mtp,
+                 official):
     """One entry per kernel. ``launches`` counts the three single requests;
     ``launches_by_path`` adds the detection, the batched requests and the
     streamed ones.
@@ -1647,7 +1946,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched,
          "source": f"{PORT}/csrc/log_mel.cu",
          "replaces": f"{REFERENCE}/ops/pallas_mel.py:79",
          "launches": e2e["launches"]["log_mel_frames"],
-         "launches_by_path": _launches("log_mel_frames", e2e, batched, stream, mtp),
+         "launches_by_path": _launches("log_mel_frames", e2e, batched, stream, mtp, official),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -1656,7 +1955,8 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched,
          "source": f"{PORT}/csrc/resblock.cu",
          "replaces": f"{REFERENCE}/ops/pallas_vocoder.py:113",
          "launches": e2e["launches"]["fused_resblock_stage"],
-         "launches_by_path": _launches("fused_resblock_stage", e2e, batched, stream, mtp),
+         "launches_by_path": _launches("fused_resblock_stage", e2e, batched, stream, mtp,
+                                       official),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -1670,11 +1970,11 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched,
          "stream_plain_ms": sum(r["graph_plain_ms"] for r in streamed),
          "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
-                      batched, stream, mtp),
+                      batched, stream, mtp, official),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
-                      batched, stream, mtp),
+                      batched, stream, mtp, official),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
-                      batched, stream, mtp),
+                      batched, stream, mtp, official),
     ]
 
 
@@ -1718,12 +2018,14 @@ def main() -> int:
     batched = batched_phase(dev, report, card, e2e)
     stream = streaming_phase(dev, report, card, backend, e2e)
     mtp = mtp_phase(dev, report, card, backend, e2e)
+    official = official_phase(dev, report, card, e2e)
     report["seconds"] = time.perf_counter() - t_start
     print(f"== done in {report['seconds']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, batched, stream, mtp)}))
+    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, batched, stream, mtp,
+                                              official)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

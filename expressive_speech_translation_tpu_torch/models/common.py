@@ -43,6 +43,47 @@ def tree_from_numpy(tree, device, dtype=None):
     return t
 
 
+def state_tensor(value, device) -> torch.Tensor:
+    """A checkpoint state-dict value (a torch tensor or a numpy array) as a
+    contiguous tensor on ``device``, its dtype kept."""
+    t = value.detach() if torch.is_tensor(value) else torch.from_numpy(np.array(value))
+    return t.to(device).contiguous()
+
+
+def linear_from_state(weight, bias, device) -> Params:
+    """A torch Linear's weight [out, in] (and bias, or None) → a dense layer
+    {"kernel" [in, out], "bias"}."""
+    p = {"kernel": state_tensor(weight, device).T.contiguous()}
+    if bias is not None:
+        p["bias"] = state_tensor(bias, device)
+    return p
+
+
+def permute_conv_kernels(tree, order):
+    """Every 3-D ``kernel`` leaf of a nested tree permuted by ``order``, in
+    place (the JAX package's conv kernels [width, in, out] → torch's);
+    2-D dense kernels are left as they are."""
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            if key == "kernel" and torch.is_tensor(value) and value.ndim == 3:
+                tree[key] = value.permute(*order).contiguous()
+            else:
+                permute_conv_kernels(value, order)
+    elif isinstance(tree, list):
+        for value in tree:
+            permute_conv_kernels(value, order)
+    return tree
+
+
+def promoted(*xs: torch.Tensor) -> List[torch.Tensor]:
+    """The tensors in their common promoted dtype: JAX promotes the mixed
+    operands of a product or a concatenation, torch asks for one dtype."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return [x.to(dt) for x in xs]
+
+
 def cast_floats(tree, dtype):
     """Cast floating leaves of a parameter tree (the bf16 serving policy)."""
     if isinstance(tree, dict):

@@ -15,8 +15,10 @@ in the JAX package); and ``quantize_speech_lm`` (int8 weights).
 
 Randomness enters through a :class:`NoiseSource`: Gumbel noise for the two
 categorical draws of each RAS step (``categorical(logits) ==
-argmax(logits + gumbel)``) and each MTP (pass, head), and the flow's x_0; a
-stream takes one source a chunk (``NoiseSource.chunk``).
+argmax(logits + gumbel)``) and each MTP (pass, head), the flow's x_0, and
+the official chain's HiFT source and prefix-bucket flow x_0
+(``models/cosyvoice_official.py``); a stream takes one source a chunk
+(``NoiseSource.chunk``).
 :class:`GeneratorNoise` makes each draw a function of its index; tests
 inject the JAX key schedule's noise.
 
@@ -34,10 +36,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.device import resolve_device
 from ..ops import cuda_vocoder
 from . import qwen2 as q2
-from .common import (AttnConfig, Init, Params, dense, layer_norm, merge_heads, mlp,
-                     quantize_dense, split_heads, tree_from_numpy)
+from .common import (AttnConfig, Init, Params, dense, layer_norm, linear_from_state, merge_heads,
+                     mlp, quantize_dense, split_heads, state_tensor, tree_from_numpy)
 
 
 # ===================================================================== noise
@@ -62,8 +65,18 @@ class NoiseSource(Protocol):
         ``ras_gumbel`` takes the step's index inside the chunk, its
         ``flow_x0`` gives that chunk's flow noise."""
 
+    def hift_source(self, phase_shape: Tuple[int, ...],
+                    noise_shape: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The HiFT source's draws (``hift.harmonic_source``): harmonic phases
+        uniform in [−π, π) and the additive noise ~ N(0, 1)."""
 
-_RAS, _MTP, _FLOW, _CHUNK = range(4)   # the kinds of draw, mixed into each draw's seed
+    def flow_x0_prefix(self, bucket: int, shape: Tuple[int, ...]) -> torch.Tensor:
+        """The official stream's flow x_0 for a token prefix padded to
+        ``bucket``: chunks whose prefixes share a bucket share it."""
+
+
+# the kinds of draw, mixed into each draw's seed
+_RAS, _MTP, _FLOW, _CHUNK, _HIFT, _FLOW_PREFIX = range(6)
 
 
 def _mix(*index: int) -> int:
@@ -107,6 +120,15 @@ class GeneratorNoise:
 
     def chunk(self, index, count):
         return GeneratorNoise(_mix(self.seed, _CHUNK, index, count), self.device)
+
+    def hift_source(self, phase_shape, noise_shape):
+        gen = self._generator(_HIFT)
+        phase = torch.rand(phase_shape, generator=gen, device=self.device) * (2 * np.pi) - np.pi
+        return phase, torch.randn(noise_shape, generator=gen, device=self.device)
+
+    def flow_x0_prefix(self, bucket, shape):
+        return torch.randn(shape, generator=self._generator(_FLOW_PREFIX, bucket),
+                           device=self.device)
 
 
 # ======================================================================== LM
@@ -600,6 +622,23 @@ class CosyVoiceConfig:
     sample_rate: int = 24_000
 
 
+def init_speech_lm(r: Init, cfg: SpeechLMConfig) -> Params:
+    """Seeded random speech-LM parameters (no MTP heads: see
+    :func:`init_mtp_heads`)."""
+    h = cfg.backbone.hidden
+    return {"backbone": q2.init_qwen2(r, cfg.backbone),
+            "text_embed": r.normal((cfg.text_vocab, h), 0.02),
+            "speech_embed": r.normal((cfg.speech_token_size + 3, h), 0.02),
+            "head": r.dense(h, cfg.speech_token_size + 3)}
+
+
+def init_mtp_heads(r: Init, cfg: SpeechLMConfig) -> list:
+    """The K − 1 MTP heads of ``cfg.mtp`` = K, dense [hidden,
+    speech_token_size + 3]. A model's init draws them last, so every other
+    tensor is the same at any MTP width."""
+    return [r.dense(cfg.backbone.hidden, cfg.speech_token_size + 3) for _ in range(cfg.mtp - 1)]
+
+
 def init_cosyvoice(seed: int, cfg: CosyVoiceConfig, device) -> Params:
     """Seeded random parameters (f32) on ``device``, the JAX init's shapes and
     scales; adaLN modulation zero-initialised (adaLN-Zero); with
@@ -607,7 +646,6 @@ def init_cosyvoice(seed: int, cfg: CosyVoiceConfig, device) -> Params:
     [hidden, speech_token_size + 3]."""
     r = Init(seed, device)
     lm, fl, vc = cfg.lm, cfg.flow, cfg.vocoder
-    h = lm.backbone.hidden
 
     def conv(width, in_ch, out_ch):
         return {"kernel": r.uniform((out_ch, in_ch, width), 1.0 / np.sqrt(in_ch * width)),
@@ -624,12 +662,7 @@ def init_cosyvoice(seed: int, cfg: CosyVoiceConfig, device) -> Params:
                     for k, dils in zip(vc.resblock_kernels, vc.resblock_dilations)])
     attn = AttnConfig(fl.dim, fl.heads, k_bias=True)
     params = {
-        "lm": {
-            "backbone": q2.init_qwen2(r, lm.backbone),
-            "text_embed": r.normal((lm.text_vocab, h), 0.02),
-            "speech_embed": r.normal((lm.speech_token_size + 3, h), 0.02),
-            "head": r.dense(h, lm.speech_token_size + 3),
-        },
+        "lm": init_speech_lm(r, lm),
         "flow": {
             "token_embed": r.normal((fl.token_vocab, fl.dim), 0.02),
             "spk_proj": r.dense(fl.spk_embed_dim, fl.dim),
@@ -651,9 +684,7 @@ def init_cosyvoice(seed: int, cfg: CosyVoiceConfig, device) -> Params:
         },
     }
     if lm.mtp > 1:
-        # drawn last, so every other tensor is the same at any MTP width
-        params["lm"]["mtp_heads"] = [r.dense(h, lm.speech_token_size + 3)
-                                     for _ in range(lm.mtp - 1)]
+        params["lm"]["mtp_heads"] = init_mtp_heads(r, lm)
     return params
 
 
@@ -677,6 +708,39 @@ def from_jax_params(tree, device, dtype=torch.float32) -> Params:
                 conv(unit["c1"])
                 conv(unit["c2"])
     return p
+
+
+def from_cosyvoice_llm_state_dict(state, cfg: SpeechLMConfig, device=None) -> Params:
+    """An official CosyVoice2 ``llm.pt`` (``cosyvoice.llm.llm.Qwen2LM``) state
+    dict → the port's speech-LM tree on ``device``, its dtype kept.
+
+    ``llm.model.*`` is the HF Qwen2 backbone, whose ``embed_tokens`` becomes
+    ``text_embed``; ``speech_embedding`` is the speech table, whose sos and
+    task slots take the two ``llm_embedding`` rows; ``llm_decoder`` is the
+    head (EOS at index speech_token_size on both sides). The checkpoint has
+    no MTP heads, so a config with ``mtp`` > 1 is refused."""
+    if cfg.mtp > 1:
+        raise ValueError("official llm.pt has no MTP heads; use SpeechLMConfig(mtp=1) "
+                         f"(got mtp={cfg.mtp})")
+    dev = resolve_device(device)
+    backbone_state = {k[len("llm.model."):]: v for k, v in state.items()
+                      if k.startswith("llm.model.")}
+    text_key = next((k for k in ("model.embed_tokens.weight", "embed_tokens.weight")
+                     if k in backbone_state), None)
+    if text_key is None:
+        raise KeyError("embed_tokens.weight")
+    speech_embed = state_tensor(state["speech_embedding.weight"], dev).clone()
+    if speech_embed.shape[0] != cfg.speech_token_size + 3:
+        raise ValueError(f"speech_embedding rows {speech_embed.shape[0]} != "
+                         f"speech_token_size+3 ({cfg.speech_token_size + 3}) — config mismatch")
+    llm_embedding = state_tensor(state["llm_embedding.weight"], dev)
+    speech_embed[cfg.sos_index] = llm_embedding[0]
+    speech_embed[cfg.task_index] = llm_embedding[1]
+    return {"backbone": q2.from_hf_state_dict(backbone_state, cfg.backbone, dev),
+            "text_embed": state_tensor(backbone_state[text_key], dev),
+            "speech_embed": speech_embed,
+            "head": linear_from_state(state["llm_decoder.weight"], state.get("llm_decoder.bias"),
+                                      dev)}
 
 
 def quantize_speech_lm(params: Params) -> Params:

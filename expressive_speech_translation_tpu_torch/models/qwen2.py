@@ -16,7 +16,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .common import Init, Params, dense, tree_from_numpy
+from ..core.device import resolve_device
+from .common import Init, Params, dense, linear_from_state, state_tensor, tree_from_numpy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +90,37 @@ def init_qwen2(r: Init, cfg: Qwen2Config) -> Params:
 def from_jax_params(tree, device, dtype=torch.float32) -> Params:
     """The JAX package's qwen2 parameter tree → the port's (same layout)."""
     return tree_from_numpy(tree, device, dtype)
+
+
+def from_hf_state_dict(state, cfg: Qwen2Config, device=None) -> Params:
+    """An HF Qwen2Model / Qwen2ForCausalLM state dict (``model.``-prefixed or
+    not; torch tensors or numpy arrays) → the port's backbone tree on
+    ``device``, its dtype kept: dense weights [out, in] turn into kernels
+    [in, out]. The backbone only; the wrapping speech LM takes the
+    embeddings and the head."""
+    dev = resolve_device(device)
+
+    def g(name):
+        for prefix in ("model.", ""):
+            if prefix + name in state:
+                return state[prefix + name]
+        raise KeyError(name)
+
+    def lin(name, bias=False):
+        return linear_from_state(g(f"{name}.weight"), g(f"{name}.bias") if bias else None, dev)
+
+    layers = []
+    for i in range(cfg.layers):
+        a, m = f"layers.{i}.self_attn", f"layers.{i}.mlp"
+        layers.append({
+            "input_ln": {"scale": state_tensor(g(f"layers.{i}.input_layernorm.weight"), dev)},
+            "q": lin(f"{a}.q_proj", bias=True), "k": lin(f"{a}.k_proj", bias=True),
+            "v": lin(f"{a}.v_proj", bias=True), "o": lin(f"{a}.o_proj"),
+            "post_ln": {"scale": state_tensor(g(f"layers.{i}.post_attention_layernorm.weight"),
+                                              dev)},
+            "gate": lin(f"{m}.gate_proj"), "up": lin(f"{m}.up_proj"), "down": lin(f"{m}.down_proj"),
+        })
+    return {"layers": layers, "ln_f": {"scale": state_tensor(g("norm.weight"), dev)}}
 
 
 def _rms(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:

@@ -12,6 +12,8 @@ Port of the JAX package's ``pipeline/jax_engines.py`` single-request path:
 - :class:`TorchCosyVoiceTts` — CosyVoice synthesis, offline or streamed in
   chunks, cloning the voice of a reference through voice-prompt conditioning
   (ECAPA speaker embedding, Kaldi-fbank prompt mel, FSQ prompt speech tokens);
+  the native DiT-flow / HiFi-GAN chain, or with ``official=`` the official
+  CosyVoice2 chain (matcha flow, HiFT) that serves converted checkpoints;
   ``mtp``/``spec`` select multi-token or lossless speculative speech-token
   decoding, reconciled with the heads the tree carries as JAX does.
 
@@ -41,6 +43,7 @@ import torch
 from ..core.buckets import bucket_batch, bucket_size, row_slices
 from ..core.device import resolve_device
 from ..models import cosyvoice as cvm
+from ..models import cosyvoice_official as com
 from ..models import ecapa as ecm
 from ..models import nllb as nlm
 from ..models import qwen2 as q2
@@ -559,9 +562,22 @@ def _reconcile_spec(forced: bool, cfg_spec: bool, width: int) -> bool:
     return wanted
 
 
+def _reconciled(cfg, mtp: int, spec: bool, params):
+    """``cfg`` (a CosyVoice or official TTS config) with its LM's MTP width and
+    speculative decoding reconciled with the request and the tree's heads;
+    ``cfg`` itself when nothing changes."""
+    want = _reconcile_mtp(cfg.lm.mtp, mtp, params)
+    want_spec = _reconcile_spec(spec, cfg.lm.spec_decode, want)
+    if (want, want_spec) == (cfg.lm.mtp, cfg.lm.spec_decode):
+        return cfg
+    return dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm, mtp=want,
+                                                           spec_decode=want_spec))
+
+
 class TorchCosyVoiceTts:
     """TTS engine: CosyVoice synthesis (speech-token LM → flow → vocoder)
-    with speaker conditioning from the reference audio."""
+    with speaker conditioning from the reference audio; the native chain, or
+    the official one (``official=``)."""
 
     sample_rate = 24_000
 
@@ -576,6 +592,7 @@ class TorchCosyVoiceTts:
         seconds_per_char: float = 0.08,
         noise: Optional[Callable[[int], cvm.NoiseSource]] = None,
         quantize: bool = False,
+        official=None,
         mtp: int = 0,
         spec: bool = False,
         ecapa_weights=None,
@@ -584,7 +601,11 @@ class TorchCosyVoiceTts:
         """``noise(call_index)`` gives each synthesis its noise source
         (default: :class:`cosyvoice.GeneratorNoise` seeded with the call
         index). ``quantize``: int8 weights for the speech LM's decode
-        (``cosyvoice.quantize_speech_lm``, after the dtype cast). ``mtp``:
+        (``cosyvoice.quantize_speech_lm``, after the dtype cast).
+        ``official``: ``(params, OfficialTtsConfig)``, a converted
+        llm.pt/flow.pt/hift.pt triple (the port's tree); synthesis then runs
+        the official chain (``cosyvoice_official``) instead of the native
+        flow and vocoder, and ``cfg``/``params`` are not used. ``mtp``:
         the multi-token width (0 defers to the config; 1 pins single-token;
         K > 1 is honoured when the tree has K − 1 heads, or when random
         weights are drawn at that width); ``spec``: lossless speculative
@@ -595,22 +616,29 @@ class TorchCosyVoiceTts:
         without them both run on seeded random weights, which carry no
         speaker identity (``conditioning_weightless``)."""
         self.device = resolve_device(device)
-        self.cfg = cfg or cvm.CosyVoiceConfig(
-            lm=cvm.SpeechLMConfig(
-                backbone=q2.Qwen2Config(hidden=256, layers=4, heads=8, kv_heads=2,
-                                        ffn_dim=1024, max_positions=2048),
-                text_vocab=384, speech_token_size=512),
-            flow=cvm.FlowConfig(token_vocab=515, dim=256, layers=4, heads=8),
-            vocoder=cvm.VocoderConfig(base_channels=256))
-        want = _reconcile_mtp(self.cfg.lm.mtp, mtp, params)
-        want_spec = _reconcile_spec(spec, self.cfg.lm.spec_decode, want)
-        if want != self.cfg.lm.mtp or want_spec != self.cfg.lm.spec_decode:
-            self.cfg = dataclasses.replace(self.cfg, lm=dataclasses.replace(
-                self.cfg.lm, mtp=want, spec_decode=want_spec))
-        self.weightless = params is None
-        if params is None:
-            log.warning("TorchCosyVoiceTts: random weights (no checkpoint supplied)")
-            params = cvm.init_cosyvoice(2, self.cfg, self.device)
+        self.official = official
+        if official is not None:
+            params, ocfg = official
+            ocfg = self.official_cfg = _reconciled(ocfg, mtp, spec, params)
+            # a config view for the shared conditioning and bucketing code
+            self.cfg = cvm.CosyVoiceConfig(
+                lm=ocfg.lm, flow=cvm.FlowConfig(
+                    token_vocab=ocfg.flow.vocab_size + 3, n_mels=ocfg.flow.output_size,
+                    spk_embed_dim=ocfg.flow.spk_embed_dim,
+                    token_mel_ratio=ocfg.flow.token_mel_ratio))
+            self.weightless = False
+        else:
+            self.cfg = _reconciled(cfg or cvm.CosyVoiceConfig(
+                lm=cvm.SpeechLMConfig(
+                    backbone=q2.Qwen2Config(hidden=256, layers=4, heads=8, kv_heads=2,
+                                            ffn_dim=1024, max_positions=2048),
+                    text_vocab=384, speech_token_size=512),
+                flow=cvm.FlowConfig(token_vocab=515, dim=256, layers=4, heads=8),
+                vocoder=cvm.VocoderConfig(base_channels=256)), mtp, spec, params)
+            self.weightless = params is None
+            if params is None:
+                log.warning("TorchCosyVoiceTts: random weights (no checkpoint supplied)")
+                params = cvm.init_cosyvoice(2, self.cfg, self.device)
         self.params = cast_floats(params, dtype)
         self.quantized = quantize
         if quantize:
@@ -658,6 +686,24 @@ class TorchCosyVoiceTts:
             room = 256 - len(ids)
             ids = self.tokenizer.encode(style_prompt)[: min(room, 128)] + ids
         return ids
+
+    def _samples_per_token(self) -> int:
+        """Samples a speech token from the vocoder that runs: HiFT's hop in
+        the official chain (the config view keeps the native vocoder's
+        default, whose hop need not match), the native vocoder's otherwise."""
+        hop = self.official_cfg.hift.hop if self.official is not None else self.cfg.vocoder.hop
+        return self.cfg.flow.token_mel_ratio * hop
+
+    def _synthesize(self, noise, toks, tmask, psp, psm, spk, pmel, pmm, max_new: int):
+        """One synthesis through the chain the engine serves → (audio
+        [B, T], token lengths [B])."""
+        if self.official is not None:
+            out = com.synthesize_official(self.params, self.official_cfg, noise, toks, tmask,
+                                          psp, psm, spk, pmel, max_new_tokens=max_new)
+        else:
+            out = cvm.synthesize(self.params, self.cfg, noise, toks, tmask, psp, psm, spk, pmel,
+                                 pmm, max_new_tokens=max_new)
+        return out["audio"], out["token_lengths"]
 
     def _cond_b(self, ref16: np.ndarray, has_ref: np.ndarray):
         """Voice-prompt conditioning of N 10 s 16 kHz references [N, 160000]
@@ -723,12 +769,11 @@ class TorchCosyVoiceTts:
         toks, tmask, spk, pmel, pmm, psp, max_new = self._prepare_conditioning(
             text, reference_audio_16k, style_prompt)
         self._call_count += 1
-        out = cvm.synthesize(self.params, self.cfg, self._noise(self._call_count), toks, tmask,
-                             psp, torch.ones_like(psp, dtype=torch.bool), spk, pmel, pmm,
-                             max_new_tokens=max_new)
-        spt = self.cfg.flow.token_mel_ratio * self.cfg.vocoder.hop
-        n = max(int(out["token_lengths"][0]), 1) * spt
-        return out["audio"][0, :n].float().cpu().numpy()
+        audio, lengths = self._synthesize(self._noise(self._call_count), toks, tmask, psp,
+                                          torch.ones_like(psp, dtype=torch.bool), spk, pmel, pmm,
+                                          max_new)
+        n = max(int(lengths[0]), 1) * self._samples_per_token()
+        return audio[0, :n].float().cpu().numpy()
 
     def synthesize_streaming(self, text: str, *, style_prompt: str = "",
                              reference_audio_16k: Optional[np.ndarray] = None,
@@ -739,9 +784,14 @@ class TorchCosyVoiceTts:
         toks, tmask, spk, pmel, pmm, psp, max_new = self._prepare_conditioning(
             text, reference_audio_16k, style_prompt)
         self._call_count += 1
-        yield from cvm.synthesize_streaming(
-            self.params, self.cfg, self._noise(self._call_count), toks, tmask, psp,
-            torch.ones_like(psp, dtype=torch.bool), spk, pmel, pmm, max_new_tokens=max_new)
+        noise, psm = self._noise(self._call_count), torch.ones_like(psp, dtype=torch.bool)
+        if self.official is not None:
+            yield from com.synthesize_streaming_official(
+                self.params, self.official_cfg, noise, toks, tmask, psp, psm, spk, pmel,
+                max_new_tokens=max_new)
+            return
+        yield from cvm.synthesize_streaming(self.params, self.cfg, noise, toks, tmask, psp, psm,
+                                            spk, pmel, pmm, max_new_tokens=max_new)
 
     def synthesize_batch(self, requests: List[Dict[str, Any]]) -> List[np.ndarray]:
         """Batched synthesis: ``requests`` [{"text", "reference_audio_16k"
@@ -753,8 +803,9 @@ class TorchCosyVoiceTts:
         One conditioning pass for the batch (:meth:`_cond_b`): rows with a
         reference attend over the whole prompt mel, rows without over
         ``_noref_frames`` frames, as :meth:`synthesize` conditions them. One
-        noise source a dispatch (``noise(call_index)``). The vocoder's narrow
-        stages run the resblock kernel on the whole batch."""
+        noise source a dispatch (``noise(call_index)``). The native vocoder's
+        narrow stages run the resblock kernel on the whole batch; the official
+        chain compacts each row's prompt and masks HiFT to each row's frames."""
         if not requests:
             return []
         n = len(requests)
@@ -788,12 +839,11 @@ class TorchCosyVoiceTts:
                       for r in requests)
         max_new = _bucket_capped(int(seconds * 25), TTS_BUDGET_BUCKETS)
         self._call_count += 1
-        out = cvm.synthesize(self.params, self.cfg, self._noise(self._call_count),
-                             torch.from_numpy(toks).to(dev), torch.from_numpy(tmask).to(dev),
-                             psp, psm, spk, pmel, pmm, max_new_tokens=max_new)
-        audio = out["audio"].float().cpu().numpy()
-        lengths = out["token_lengths"].cpu().numpy()
-        spt = self.cfg.flow.token_mel_ratio * self.cfg.vocoder.hop
+        audio, lengths = self._synthesize(
+            self._noise(self._call_count), torch.from_numpy(toks).to(dev),
+            torch.from_numpy(tmask).to(dev), psp, psm, spk, pmel, pmm, max_new)
+        audio, lengths = audio.float().cpu().numpy(), lengths.cpu().numpy()
+        spt = self._samples_per_token()
         return [audio[i, : max(int(lengths[i]), 1) * spt] for i in range(n)]
 
 
@@ -812,16 +862,17 @@ def reference_scale_configs() -> Dict[str, Any]:
 # JAX default, which asks for nothing, and the ROADMAP Queue 1 item that
 # brings the feature). Any other value raises NotImplementedError.
 _QUEUED_KEYS = {
-    "tts_official": (None, 8),
     "mesh": (None, 12), "stage_parallel": (False, 12), "stage_tp": (1, 12),
     "stage_meshes": (None, 12),
 }
-_QUEUE_ITEMS = {8: "the official CosyVoice chain and the checkpoint loaders",
+_QUEUE_ITEMS = {8: "the Whisper / NLLB / ECAPA checkpoint converters and loaders, the "
+                   "tokenizers, and the baked-model loaders of EST_MODELS_DIR",
                 12: "meshes and stage-parallel serving"}
 _PASSED_KEYS = frozenset((
     "asr_cfg", "asr_params", "asr_context_buckets", "asr_tokenizer", "nmt_cfg", "nmt_params",
     "nmt_tokenizer", "lang_code_to_id", "tts_cfg", "tts_params", "tts_tokenizer", "tts_noise",
-    "tts_mtp", "tts_spec", "tts_ecapa", "tts_speech_tokenizer", "tokenizer", "dtype"))
+    "tts_mtp", "tts_spec", "tts_ecapa", "tts_speech_tokenizer", "tts_official", "tokenizer",
+    "dtype"))
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -860,12 +911,13 @@ def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
     ``asr_cfg``/``asr_params``/``asr_context_buckets`` (default ``(30,)``),
     ``nmt_cfg``/``nmt_params``/``lang_code_to_id``, ``tts_cfg``/
     ``tts_params``/``tts_noise``/``tts_ecapa``/``tts_speech_tokenizer``
-    (each ``(params, cfg)``), ``tts_mtp``/``tts_spec`` (the TTS engine's
-    ``mtp``/``spec``) and ``dtype`` pass through to the engines;
-    ``asr_tokenizer``/``nmt_tokenizer``/``tts_tokenizer`` override the
-    shared ``tokenizer``. The JAX factory's other keys (the official
-    CosyVoice chain, meshes) are accepted at their defaults and raise
-    ``NotImplementedError`` naming the ROADMAP item that brings them
+    (each ``(params, cfg)``), ``tts_official`` (``(params,
+    OfficialTtsConfig)``: the TTS engine serves the official CosyVoice2
+    chain), ``tts_mtp``/``tts_spec`` (the TTS engine's ``mtp``/``spec``) and
+    ``dtype`` pass through to the engines; ``asr_tokenizer``/
+    ``nmt_tokenizer``/``tts_tokenizer`` override the shared ``tokenizer``.
+    The JAX factory's other keys (meshes) are accepted at their defaults and
+    raise ``NotImplementedError`` naming the ROADMAP item that brings them
     otherwise, as does a set ``EST_MODELS_DIR``."""
     _check_keys(kwargs)
     dev = resolve_device(device)
@@ -887,6 +939,7 @@ def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
     tts: Any = TorchCosyVoiceTts(kwargs.get("tts_cfg"), kwargs.get("tts_params"),
                                  kwargs.get("tts_tokenizer", tok), device=dev,
                                  dtype=dtype, noise=kwargs.get("tts_noise"), quantize=quantize,
+                                 official=kwargs.get("tts_official"),
                                  mtp=kwargs.get("tts_mtp", 0),
                                  spec=kwargs.get("tts_spec", False),
                                  ecapa_weights=kwargs.get("tts_ecapa"),

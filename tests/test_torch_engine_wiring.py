@@ -6,11 +6,16 @@
 - ``torch_engines`` takes every key of the JAX factory ``jax_engines``: it
   honours the ones the port can serve (ASR context buckets, per-stage
   tokenizers, the micro-batchers, int8 decode, the TTS engine's MTP width
-  and speculative decoding) and raises ``NotImplementedError`` naming
-  the ROADMAP item for the rest, unless their value is the JAX default, which
-  asks for nothing.
+  and speculative decoding, the official CosyVoice2 chain) and raises
+  ``NotImplementedError`` naming the ROADMAP item for the rest, unless their
+  value is the JAX default, which asks for nothing.
+- The official chain's engine (``official=``) serves ``synthesize``,
+  ``synthesize_batch`` and ``synthesize_streaming`` as
+  ``JaxCosyVoiceTts(official=...)`` does on the same tiny triple, with the
+  JAX engine's key schedule injected, and cuts its audio by HiFT's hop.
 """
 
+import dataclasses
 import inspect
 import re
 
@@ -25,9 +30,14 @@ from expressive_speech_translation_tpu.models import cosyvoice as jcv
 from expressive_speech_translation_tpu.models import nllb as jnl
 from expressive_speech_translation_tpu.models import qwen2 as jq2
 from expressive_speech_translation_tpu.models import whisper as jwh
-from expressive_speech_translation_tpu.pipeline.jax_engines import JaxNllbNmt, jax_engines
+from expressive_speech_translation_tpu.models import cosyvoice_official as jco
+from expressive_speech_translation_tpu.pipeline.jax_engines import (JaxCosyVoiceTts, JaxNllbNmt,
+                                                                    jax_engines)
 from expressive_speech_translation_tpu.pipeline.tokenizer import nllb_lang_ids as jax_nllb_lang_ids
 from expressive_speech_translation_tpu_torch.models import cosyvoice as tcv
+from expressive_speech_translation_tpu_torch.models import cosyvoice_official as tco
+from expressive_speech_translation_tpu_torch.models import ecapa as tec
+from expressive_speech_translation_tpu_torch.models import speech_tokenizer as tst
 from expressive_speech_translation_tpu_torch.models import nllb as tnl
 from expressive_speech_translation_tpu_torch.models import qwen2 as tq2
 from expressive_speech_translation_tpu_torch.models import whisper as twh
@@ -39,6 +49,8 @@ from expressive_speech_translation_tpu_torch.pipeline.torch_engines import (
     TorchCosyVoiceTts, TorchNllbNmt, TorchWhisperAsr, torch_engines)
 from expressive_speech_translation_tpu_torch.serve.batching import (BatchedAsr, BatchedNmt,
                                                                     BatchedTts)
+
+from test_torch_official import JCLONE, TINY as OTINY, EngineNoise, port_cfg
 
 NCFG = jnl.NLLBConfig(d_model=64, encoder_layers=2, decoder_layers=2, heads=4, ffn_dim=128,
                       vocab_size=384, max_positions=128)
@@ -152,7 +164,7 @@ JAX_KEYS = {
     "max_batch": (16, None), "batch_wait_ms": (5.0, None),
     "tts_mtp": (2, None), "tts_spec": (True, None),
     "quantize": (True, None),
-    "tts_official": (object(), 8),
+    "tts_official": ((tco.init_official_tts(0, OTINY, "cpu"), OTINY), None),
     "mesh": (object(), 12), "stage_parallel": (True, 12), "stage_tp": (2, 12),
     "stage_meshes": ({"asr": object()}, 12),
 }
@@ -209,6 +221,10 @@ def test_torch_engines_honours_or_refuses_each_jax_key(key):
         eng = torch_engines(**kwargs, tts_mtp=2)
         assert (eng.tts.cfg.lm.mtp, eng.tts.cfg.lm.spec_decode) == (2, True)
         assert len(eng.tts.params["lm"]["mtp_heads"]) == 1
+    elif key == "tts_official":
+        assert eng.tts.official is value and eng.tts.official_cfg is OTINY
+        assert eng.tts.params["hift"]["conv_post"]["kernel"].dtype == eng.tts.dtype
+        assert eng.tts._samples_per_token() == 2 * 480 and not eng.tts.weightless
     elif key == "quantize":
         assert eng.asr.quantized and eng.nmt.quantized and eng.tts.quantized
         dec = eng.asr.params["decoder"]
@@ -260,3 +276,97 @@ def test_torch_engines_accepts_the_jax_defaults_and_refuses_the_unknown(monkeypa
     monkeypatch.setenv("EST_MODELS_DIR", "/nonexistent")
     with pytest.raises(NotImplementedError, match="EST_MODELS_DIR.*Queue 1 item 8 "):
         torch_engines(**TINY)
+
+
+# ------------------------------------------------------- the official chain
+
+
+def _np(tree):
+    return jax.tree.map(np.array, tree)
+
+
+def _official_pair(jcfg, eos_bias=0.0):
+    """(JAX engine, port engine) of the official chain on one seeded JAX
+    triple, f32, the port with the JAX engine's conditioning models and its
+    key schedule."""
+    tree = _np(jco.init_official_tts(jax.random.PRNGKey(0), jcfg))
+    tree["lm"]["head"]["bias"][jcfg.lm.eos_speech] += eos_bias
+    jtts = JaxCosyVoiceTts(dtype=jnp.float32, official=(tree, jcfg))
+    tts = TorchCosyVoiceTts(
+        device="cpu", dtype=torch.float32, noise=EngineNoise,
+        official=(tco.from_jax_params(tree, "cpu"), port_cfg(jcfg)),
+        ecapa_weights=(tec.from_jax_params(_np(jtts._ecapa), "cpu"),
+                       tec.EcapaConfig(**_fields(jtts._ecapa_cfg))),
+        speech_tokenizer_weights=(tst.from_jax_params(_np(jtts._st), "cpu"),
+                                  tst.SpeechTokenizerConfig(**_fields(jtts._st_cfg))))
+    return jtts, tts
+
+
+@pytest.fixture(scope="module")
+def official_pair():
+    # an EOS-favoured head keeps the 64-token budget from running to its end
+    return _official_pair(JCLONE, eos_bias=1.0)
+
+
+def _speech(seconds, seed):
+    t = np.arange(int(16_000 * seconds)) / 16_000
+    g = np.random.default_rng(seed)
+    return (0.4 * np.sin(2 * np.pi * 180 * t) + 0.02 * g.standard_normal(t.shape)).astype(
+        np.float32)
+
+
+OFFICIAL_ATOL = 1e-4   # f32 waveform through conditioning, flow and HiFT
+
+
+def test_official_engine_synthesize_matches_jax(official_pair):
+    """With a cloning reference (ECAPA x-vector, prompt mel and FSQ prompt
+    tokens into the official flow) and without one."""
+    jtts, tts = official_pair
+    assert tts.official_cfg.lm.mtp == jtts.official_cfg.lm.mtp == 1
+    ref = _speech(2.5, seed=3)
+    for kw in (dict(style_prompt="hello there", reference_audio_16k=ref), {}):
+        want = jtts.synthesize("bonjour a tous", **kw)
+        got = tts.synthesize("bonjour a tous", **kw)
+        assert got.shape == want.shape and got.size % (2 * 480) == 0
+        np.testing.assert_allclose(got, want, atol=OFFICIAL_ATOL, rtol=0)
+
+
+def test_official_engine_synthesize_batch_matches_jax(official_pair):
+    """Two rows, one cloning a reference and one without: per-row prompt
+    compaction in the flow and HiFT masked to each row's frames."""
+    jtts, tts = official_pair
+    reqs = [{"text": "une phrase un peu plus longue", "reference_audio_16k": _speech(3.0, 4),
+             "style_prompt": "a longer sentence", "language": "fr"},
+            {"text": "court", "reference_audio_16k": None, "style_prompt": "", "language": "fr"}]
+    want = jtts.synthesize_batch(reqs)
+    got = tts.synthesize_batch(reqs)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=OFFICIAL_ATOL, rtol=0)
+
+
+def test_official_engine_stream_matches_jax(official_pair):
+    jtts, tts = official_pair
+    ref = _speech(2.0, seed=5)
+    want = list(jtts.synthesize_streaming("bonjour", reference_audio_16k=ref))
+    got = list(tts.synthesize_streaming("bonjour", reference_audio_16k=ref))
+    assert [len(c) for c in got] == [len(c) for c in want] and got
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=OFFICIAL_ATOL, rtol=0)
+
+
+def test_official_samples_per_token_follow_hift_not_the_native_vocoder():
+    """A HiFT of upsample rates (8, 5) has a hop of 4·8·5 = 160, while the
+    engine's config view keeps the native vocoder's 480: the audio is cut at
+    the token lengths × 2 × 160, as the JAX engine cuts it."""
+    jcfg = dataclasses.replace(JCLONE, hift=dataclasses.replace(
+        JCLONE.hift, upsample_rates=(8, 5), upsample_kernels=(16, 11)))
+    jtts, tts = _official_pair(jcfg, eos_bias=1.0)
+    assert tts._samples_per_token() == jtts._samples_per_token() == 2 * 160
+    assert tts.cfg.vocoder.hop == 480
+    want = jtts.synthesize("salut")
+    got = tts.synthesize("salut")
+    assert got.shape == want.shape and got.size % 320 == 0
+    np.testing.assert_allclose(got, want, atol=OFFICIAL_ATOL, rtol=0)
+    batch = tts.synthesize_batch([{"text": "salut"}, {"text": "salut encore"}])
+    assert all(b.size % 320 == 0 for b in batch)

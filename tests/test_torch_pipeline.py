@@ -8,7 +8,8 @@ noise (``fold_in(PRNGKey(42), call)`` → split into the LM and flow keys).
 ``translate_speech`` must then give token-exact transcripts and the same
 16 kHz audio within 1e-4: everything after the vocoder is the same host
 numpy on both sides, and the vocoder output differs only by f32 summation
-order.
+order. The same holds with the official CosyVoice2 chain (matcha flow,
+HiFT) serving the TTS stage, offline and streamed.
 """
 
 import os
@@ -24,6 +25,7 @@ import jax
 import jax.numpy as jnp
 
 from expressive_speech_translation_tpu.models import cosyvoice as jcv
+from expressive_speech_translation_tpu.models import cosyvoice_official as jco
 from expressive_speech_translation_tpu.models import nllb as jnl
 from expressive_speech_translation_tpu.models import qwen2 as jq2
 from expressive_speech_translation_tpu.models import whisper as jwh
@@ -32,6 +34,7 @@ from expressive_speech_translation_tpu.pipeline.engines import Engines as JaxEng
 from expressive_speech_translation_tpu.pipeline.jax_engines import (
     JaxCosyVoiceTts, JaxNllbNmt, JaxWhisperAsr)
 from expressive_speech_translation_tpu_torch.models import cosyvoice as tcv
+from expressive_speech_translation_tpu_torch.models import cosyvoice_official as tco
 from expressive_speech_translation_tpu_torch.models import ecapa as tec
 from expressive_speech_translation_tpu_torch.models import nllb as tnl
 from expressive_speech_translation_tpu_torch.models import qwen2 as tq2
@@ -42,6 +45,8 @@ from expressive_speech_translation_tpu_torch.pipeline.engines import Engines
 from expressive_speech_translation_tpu_torch.pipeline.languages import nllb_placeholder_lang_ids
 from expressive_speech_translation_tpu_torch.pipeline.torch_engines import (
     TorchCosyVoiceTts, TorchNllbNmt, TorchWhisperAsr, torch_engines)
+
+from test_torch_official import CLONE, JCLONE, EngineNoise
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AUDIO_ATOL = 1e-4
@@ -204,6 +209,57 @@ def test_synthesize_with_a_reference_matches_jax(cascades):
     np.testing.assert_allclose(got, want, atol=AUDIO_ATOL, rtol=0)
 
 
+@pytest.fixture(scope="module")
+def official_cascades(cascades):
+    """The two cascades with their TTS stage served by the official chain
+    (one seeded tiny triple, its EOS logit raised by 1 so that speech ends
+    before the 64-token budget), the ASR and NMT engines shared."""
+    jax_backend, backend = cascades
+    tree = jax.tree.map(np.array, jco.init_official_tts(jax.random.PRNGKey(0), JCLONE))
+    tree["lm"]["head"]["bias"][JCLONE.lm.eos_speech] += 1.0
+    jtts = JaxCosyVoiceTts(dtype=jnp.float32, official=(tree, JCLONE))
+    tts = TorchCosyVoiceTts(
+        device="cpu", dtype=torch.float32, noise=EngineNoise,
+        official=(tco.from_jax_params(tree, "cpu"), CLONE),
+        ecapa_weights=(tec.from_jax_params(_np(jtts._ecapa), "cpu"),
+                       tec.EcapaConfig(**_fields(jtts._ecapa_cfg))),
+        speech_tokenizer_weights=(tst.from_jax_params(_np(jtts._st), "cpu"),
+                                  tst.SpeechTokenizerConfig(**_fields(jtts._st_cfg))))
+    jeng, eng = jax_backend.engines, backend.engines
+    return (JaxBackend(JaxEngines(asr=jeng.asr, nmt=jeng.nmt, tts=jtts)),
+            CascadedBackend(Engines(asr=eng.asr, nmt=eng.nmt, tts=tts)))
+
+
+def test_translate_speech_through_the_official_chain_matches_jax(official_cascades):
+    """At its defaults (voice cloning on): the x-vector, the prompt mel and
+    the FSQ prompt tokens of the source condition the official flow."""
+    jax_backend, backend = official_cascades
+    x = _speechlike(2.5, seed=21)
+    want = jax_backend.translate_speech(x, "eng", "fra")
+    got = backend.translate_speech(x, "eng", "fra")
+    assert got["transcripts"] == want["transcripts"]
+    assert got["audio"].shape == want["audio"].shape
+    assert np.isfinite(got["audio"]).all()
+    np.testing.assert_allclose(got["audio"], want["audio"], atol=AUDIO_ATOL, rtol=0)
+
+
+def test_translate_speech_streaming_through_the_official_chain_matches_jax(official_cascades):
+    """3 s through 2 s ASR windows, cloning on: a transcripts event a window,
+    then that window's 16 kHz audio from the official chain's stream."""
+    jax_backend, backend = official_cascades
+    x = _speechlike(3.0, seed=22)
+    want = list(jax_backend.translate_speech_streaming(x, "eng", "fra"))
+    got = list(backend.translate_speech_streaming(x, "eng", "fra"))
+    assert [e["type"] for e in got] == [e["type"] for e in want]
+    assert [e["type"] for e in got].count("audio") >= 1
+    for g, w in zip(got, want):
+        if g["type"] == "audio":
+            assert g["chunk"].shape == w["chunk"].shape
+            np.testing.assert_allclose(g["chunk"], w["chunk"], atol=AUDIO_ATOL, rtol=0)
+        else:
+            assert g == w
+
+
 def test_translate_text_matches_jax_cascade(cascades):
     jax_backend, backend = cascades
     want = jax_backend.translate_text("hello there, friend", "eng", "deu", synthesize=True)
@@ -281,7 +337,13 @@ def test_port_runs_without_jax_or_the_jax_package():
             out = backend.translate_speech(x, "eng", "fra", use_voice_cloning=cloning)
             assert out["audio"].ndim == 2 and np.isfinite(out["audio"]).all()
         from expressive_speech_translation_tpu_torch.core import buckets
-        from expressive_speech_translation_tpu_torch.models import ecapa, speech_tokenizer
+        from expressive_speech_translation_tpu_torch.models import (
+            cosyvoice_official, ecapa, flow_matcha, hift, loaders, speech_tokenizer)
+        cfg = cosyvoice_official.OfficialTtsConfig.tiny()
+        official = torch_engines(device="cpu", dtype=torch.float32, tts_official=(
+            cosyvoice_official.init_official_tts(0, cfg, "cpu"), cfg))
+        wave = official.tts.synthesize("hello")
+        assert wave.size > 0 and wave.size % (2 * cfg.hift.hop) == 0 and np.isfinite(wave).all()
         from expressive_speech_translation_tpu_torch.ops import (
             cuda_decode, cuda_int4, mel, resample)
         from expressive_speech_translation_tpu_torch.serve import batching
