@@ -81,7 +81,24 @@ Phases, in order; any failure exits non-zero and prints no result:
               inferred), and the HiFT source of one 10 s bf16-representable
               f0 track with the engine's bf16 HiFT parameters against their
               f32 copies (the port integrates the phase in f32);
-9. the kernels line, the card line, and last the result line.
+9. checkpoints — seeded random Whisper-medium, NLLB-200-distilled-600M,
+              ECAPA (1,024 channels) and the official CosyVoice2 triple, f32,
+              written by ``obs/checkpoint_emitters.py`` in their published
+              formats (``model.safetensors``, ``pytorch_model.bin``,
+              ``embedding_model.ckpt``, ``llm.pt`` / ``flow.pt`` / ``hift.pt``)
+              to a temporary directory (free disk checked first), read back by
+              ``load_whisper`` / ``load_nllb`` / ``load_ecapa`` (seconds and
+              GB/s; configs and every tensor equal), baked by ``bake_models``
+              and reloaded by ``load_converted`` / ``load_official_tts``
+              (equal), then one 10 s ``translate_speech`` with cloning on,
+              its audio read back through ``write_wav`` / ``read_wav``, served
+              by ``torch_engines(scale="reference")`` from ``EST_MODELS_DIR``
+              (asr, nmt and ecapa; the official triple left out, so the native
+              TTS runs): weights supplied, a log-mel launch a rung of the ASR's
+              temperature ladder and 2 resblock launches, the resblock kernel
+              checked at the request's shapes; and an orbax-style stage
+              directory refused;
+10. the kernels line, the card line, and last the result line.
 
 The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
 greedy call.
@@ -98,6 +115,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import sys
 import threading
 import time
@@ -1896,28 +1914,319 @@ def official_phase(dev, report, card, e2e):
     return official
 
 
+CKPT_SECONDS = 10.0
+# NLLB-200's tokenizer ids of the eng_Latn and fra_Latn language tokens: the
+# card's machine has no tokenizer with token_to_id, and an engine with
+# supplied weights uses no placeholder ids
+NLLB_LANG_IDS = {"eng": 256_047, "eng_Latn": 256_047, "fra": 256_057, "fra_Latn": 256_057}
+# The random NMT's shared-embedding rows of the byte tokenizer's a-z scaled by
+# this, so its tied head speaks letters: with supplied NMT weights an empty
+# translation fails the request (as in JAX), and random rows of a 256k
+# vocabulary almost never decode to a byte
+NMT_LETTER_SCALE = 8.0
+CKPT_DISK_MARGIN = 2e9
+
+
+def _ckpt_configs():
+    """The published widths: Whisper-medium, NLLB-200-distilled-600M,
+    spkrec-ecapa-voxceleb's ECAPA-TDNN, CosyVoice2-0.5B's official triple."""
+    from expressive_speech_translation_tpu_torch.models import cosyvoice_official as com
+    from expressive_speech_translation_tpu_torch.models import ecapa, nllb, whisper
+
+    return (whisper.WhisperConfig.medium(), nllb.NLLBConfig.distilled_600m(),
+            ecapa.EcapaConfig(), com.OfficialTtsConfig())
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _timed(label, fn, nbytes, card):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"  {label}: {nbytes / 1e9:.3f} GB in {seconds:.2f} s, {nbytes / 1e9 / seconds:.3f} GB/s"
+          f"  [{card}]", flush=True)
+    return out, {"seconds": seconds, "gb": nbytes / 1e9, "gb_per_s": nbytes / 1e9 / seconds}
+
+
+def checkpoints_write(tmp, dev, card) -> tuple:
+    """Seeded random trees at the published widths, written in the published
+    formats by ``obs/checkpoint_emitters.py``: HF Whisper as
+    ``model.safetensors`` (the tied ``proj_out.weight`` stored once, under
+    the embedding's name, as ``save_pretrained`` stores it), HF NLLB as
+    ``pytorch_model.bin``, speechbrain's ``embedding_model.ckpt``, and the
+    official ``llm.pt`` / ``flow.pt`` / ``hift.pt``. → (trees, configs,
+    source directories, figures)."""
+    from expressive_speech_translation_tpu_torch.models import cosyvoice_official as com
+    from expressive_speech_translation_tpu_torch.models import ecapa, flow_matcha, hift, nllb
+    from expressive_speech_translation_tpu_torch.models import whisper
+    from expressive_speech_translation_tpu_torch.models.safetensors_io import write_safetensors
+    from expressive_speech_translation_tpu_torch.obs import checkpoint_emitters as em
+
+    wcfg, ncfg, ecfg, ocfg = _ckpt_configs()
+    trees = {"asr": whisper.init_whisper(11, wcfg, dev), "nmt": nllb.init_nllb(12, ncfg, dev),
+             "ecapa": ecapa.init_ecapa(13, ecfg, dev), "tts": com.init_official_tts(14, ocfg, dev)}
+    letters = [4 + b for b in b"abcdefghijklmnopqrstuvwxyz"]
+    trees["nmt"]["embed"][letters] *= NMT_LETTER_SCALE
+    need = 2 * sum(_tree_bytes(t) for t in trees.values()) + CKPT_DISK_MARGIN
+    free = shutil.disk_usage(tmp).free
+    print(f"  {free / 1e9:.1f} GB free at {tmp}, {need / 1e9:.1f} GB needed", flush=True)
+    if free < need:
+        raise AssertionError(f"checkpoints phase: {free / 1e9:.1f} GB free at {tmp}, "
+                             f"{need / 1e9:.1f} GB needed for the checkpoints and their bake")
+    src = {k: os.path.join(tmp, "src", k) for k in trees}
+    for d in src.values():
+        os.makedirs(d)
+
+    def whisper_files():
+        state = em.whisper_hf_state_dict(trees["asr"], wcfg)
+        del state["proj_out.weight"]
+        write_safetensors(state, os.path.join(src["asr"], "model.safetensors"),
+                          metadata={"format": "pt"})
+        with open(os.path.join(src["asr"], "config.json"), "w") as f:
+            json.dump(em.whisper_hf_config(wcfg), f, indent=2)
+
+    def nllb_files():
+        torch.save(em.nllb_hf_state_dict(trees["nmt"], ncfg),
+                   os.path.join(src["nmt"], "pytorch_model.bin"))
+        with open(os.path.join(src["nmt"], "config.json"), "w") as f:
+            json.dump(em.nllb_hf_config(ncfg), f, indent=2)
+
+    def official_files():
+        tts = trees["tts"]
+        torch.save(em.cosyvoice_llm_state_dict(tts["lm"], ocfg.lm),
+                   os.path.join(src["tts"], "llm.pt"))
+        torch.save(flow_matcha.to_flow_state_dict(tts["flow"]), os.path.join(src["tts"], "flow.pt"))
+        torch.save(hift.to_hift_state_dict(tts["hift"], ocfg.hift),
+                   os.path.join(src["tts"], "hift.pt"))
+
+    writers = {"asr": whisper_files, "nmt": nllb_files, "tts": official_files,
+               "ecapa": lambda: torch.save(em.ecapa_speechbrain_state_dict(trees["ecapa"], ecfg),
+                                           os.path.join(src["ecapa"], "embedding_model.ckpt"))}
+    figures = {}
+    for name, write in writers.items():
+        t0 = time.perf_counter()
+        write()
+        seconds = time.perf_counter() - t0
+        nbytes = _dir_bytes(src[name])
+        figures[name] = {"seconds": seconds, "gb": nbytes / 1e9}
+        print(f"  wrote {name} ({', '.join(sorted(os.listdir(src[name])))}): "
+              f"{nbytes / 1e9:.3f} GB in {seconds:.2f} s  [{card}]", flush=True)
+    return trees, {"asr": wcfg, "nmt": ncfg, "ecapa": ecfg, "tts": ocfg}, src, figures
+
+
+def checkpoints_load(trees, cfgs, src, dev, card) -> dict:
+    """``load_whisper`` / ``load_nllb`` / ``load_ecapa`` onto the card: the
+    configs read from config.json or the tensors equal the sources', and
+    every tensor equals its source after the layout change."""
+    from expressive_speech_translation_tpu_torch.models import loaders
+
+    out = {}
+    for name, load in (("asr", loaders.load_whisper), ("nmt", loaders.load_nllb),
+                       ("ecapa", loaders.load_ecapa)):
+        (params, cfg), out[name] = _timed(f"{load.__name__} onto the card", lambda: load(
+            src[name], device=dev), _dir_bytes(src[name]), card)
+        if cfg != cfgs[name]:
+            raise AssertionError(f"{load.__name__} read {cfg}, not {cfgs[name]}")
+        _tensors_equal(params, trees[name], name)
+        del params
+    return out
+
+
+def checkpoints_bake(trees, cfgs, src, bake, dev, card) -> dict:
+    """``bake_models`` of the four sources (the triple's configs given, as a
+    deployment of another width gives them: head counts are not in the
+    shapes), then ``load_converted`` of each stage and
+    ``load_official_tts``: equal configs and tensors."""
+    from expressive_speech_translation_tpu_torch.models import ecapa, loaders, nllb, whisper
+
+    nbytes = sum(_dir_bytes(d) for d in src.values())
+    _, out = _timed("bake_models (asr, nmt, ecapa, the official triple)", lambda: loaders.
+                    bake_models(bake, asr=src["asr"], nmt=src["nmt"], ecapa=src["ecapa"],
+                                tts=src["tts"], tts_llm_cfg=cfgs["tts"].lm,
+                                tts_flow_cfg=cfgs["tts"].flow, tts_hift_cfg=cfgs["tts"].hift,
+                                device=dev), nbytes, card)
+    out["bake_gb"] = _dir_bytes(bake) / 1e9
+    out["stages"] = sorted(os.listdir(bake))
+    stages = {"asr": whisper.WhisperConfig, "nmt": nllb.NLLBConfig, "ecapa": ecapa.EcapaConfig}
+    for name, cls in stages.items():
+        (params, cfg), out[f"load_{name}"] = _timed(
+            f"load_converted {name}/", lambda: loaders.load_converted(os.path.join(bake, name),
+                                                                     cls, dev),
+            _dir_bytes(os.path.join(bake, name)), card)
+        if cfg != cfgs[name]:
+            raise AssertionError(f"bake {name}: config {cfg}")
+        _tensors_equal(params, trees[name], f"bake {name}")
+        del params
+    (params, cfg), out["load_official"] = _timed(
+        "load_official_tts", lambda: loaders.load_official_tts(bake, dev),
+        sum(_dir_bytes(os.path.join(bake, s)) for s in ("tts_llm", "tts_flow", "tts_hift")), card)
+    if cfg != cfgs["tts"]:
+        raise AssertionError(f"bake official: config {cfg}")
+    _tensors_equal(params, trees["tts"], "bake official")
+    del params
+    print(f"  bake: {out['stages']}, {out['bake_gb']:.3f} GB; every config and tensor equal",
+          flush=True)
+    return out
+
+
+def checkpoints_request(bake, tmp, dev, card, e2e) -> dict:
+    """``EST_MODELS_DIR`` at the bake with the official triple moved out (so
+    the native TTS runs the resblock kernel): ``torch_engines(scale=
+    "reference")`` serves ASR, NMT and the ECAPA conditioning from it, and
+    one 10 s ``translate_speech`` with cloning on reads its audio back
+    through ``write_wav`` / ``read_wav``; the launch counters are set to 0
+    just before it and read after: one log-mel launch a rung of the ASR's
+    temperature ladder (with supplied weights, 0.0 to 1.0 until the gates
+    pass), 2 resblock."""
+    from expressive_speech_translation_tpu_torch.media.wavio import read_wav, write_wav
+    from expressive_speech_translation_tpu_torch.pipeline.cascaded import CascadedBackend
+    from expressive_speech_translation_tpu_torch.pipeline.torch_engines import torch_engines
+
+    served = os.path.join(tmp, "served")
+    os.makedirs(served)
+    for stage in ("asr", "nmt", "ecapa"):
+        os.rename(os.path.join(bake, stage), os.path.join(served, stage))
+    os.environ["EST_MODELS_DIR"] = served
+    try:
+        t0 = time.perf_counter()
+        engines = torch_engines(scale="reference", lang_code_to_id=NLLB_LANG_IDS)
+        torch.cuda.synchronize()
+        engines_s = time.perf_counter() - t0
+    finally:
+        del os.environ["EST_MODELS_DIR"]
+    flags = {"asr_weightless": engines.asr.weightless, "nmt_weightless": engines.nmt.weightless,
+             "tts_weightless": engines.tts.weightless,
+             "conditioning_weightless": engines.tts.conditioning_weightless,
+             "official": engines.tts.official is not None}
+    print(f"  torch_engines from EST_MODELS_DIR in {engines_s:.1f} s: {flags}", flush=True)
+    if (flags["asr_weightless"] or flags["nmt_weightless"] or flags["conditioning_weightless"]
+            or flags["official"]):
+        raise AssertionError(f"EST_MODELS_DIR engines: {flags}")
+    wav = os.path.join(tmp, "request.wav")
+    write_wav(wav, _speechlike(CKPT_SECONDS, seed=401), 16_000)
+    x, sr = read_wav(wav)
+    if sr != 16_000 or x.shape != (int(16_000 * CKPT_SECONDS),):
+        raise AssertionError(f"read_wav gave {x.shape} at {sr} Hz")
+    backend = CascadedBackend(engines)
+    temps, res_shapes = [], []
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _recording_calls(engines.asr, "_decode", temps, lambda a, kw, out: a[2]), \
+            _recording_resblock_shapes(res_shapes):
+        out = backend.translate_speech(x, "eng", "fra")
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    _check_request(out, CKPT_SECONDS, "checkpoints 10 s request")
+    stages = {k: v["seconds"] for k, v in out["stage_summary"].items()}
+    native = next(r for r in e2e["requests"] if r["audio_s"] == CKPT_SECONDS)
+    print(f"  {CKPT_SECONDS:.0f} s request from the bake: wall {wall:.3f} s, RTF "
+          f"{wall / CKPT_SECONDS:.4f}  " + "  ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + f"  (random weights, e2e phase: wall {native['wall_s']:.3f} s  "
+          + "  ".join(f"{k} {v:.3f} s" for k, v in native["stages_s"].items()) + f")  [{card}]",
+          flush=True)
+    print(f"    ASR temperatures run {temps}; target {len(out['transcripts']['target'])} chars; "
+          f"launches {launches}", flush=True)
+    vc = engines.tts.cfg.vocoder
+    narrow = sum(1 for i in range(len(vc.upsample_rates))       # vocode's narrow stages: 2
+                 if (c := vc.base_channels // 2 ** (i + 1)) <= 128 and c % 8 == 0)
+    # each rung of the ladder computes its window's log-mel again, as each
+    # call of JAX's jitted decode runs the Pallas mel kernel
+    if launches["log_mel_frames"] != len(temps) or launches["fused_resblock_stage"] != narrow:
+        raise AssertionError(f"checkpoints request launched {launches}, not {len(temps)} "
+                             f"log-mel (one a rung) and {narrow} resblock")
+    result = {"wall_s": wall, "rtf": wall / CKPT_SECONDS, "stages_s": stages, "flags": flags,
+              "engines_s": engines_s, "asr_temperatures": temps, "launches": launches,
+              "target_chars": len(out["transcripts"]["target"]),
+              "resblock_request": time_request_resblock(dev, res_shapes, card,
+                                                        "the checkpoints request")}
+    del engines, backend
+    return result
+
+
+def checkpoints_refusal(bake, tmp) -> str:
+    """A stage directory with config.json and an orbax-style ``params/`` but
+    no ``params.safetensors`` (the JAX package's bake) must raise."""
+    from expressive_speech_translation_tpu_torch.models.loaders import WeightsNotFoundError
+    from expressive_speech_translation_tpu_torch.pipeline.torch_engines import torch_engines
+
+    orbax = os.path.join(tmp, "orbax", "asr")
+    os.makedirs(os.path.join(orbax, "params"))
+    shutil.copy(os.path.join(tmp, "served", "asr", "config.json"), orbax)
+    os.environ["EST_MODELS_DIR"] = os.path.dirname(orbax)
+    try:
+        torch_engines(scale="reference")
+    except WeightsNotFoundError as e:
+        print(f"  an orbax stage directory is refused: {e}", flush=True)
+        return str(e)
+    finally:
+        del os.environ["EST_MODELS_DIR"]
+    raise AssertionError("an orbax stage directory was served")
+
+
+def checkpoints_phase(dev, report, card, e2e):
+    """Seeded random Whisper-medium, NLLB-600M, ECAPA and the official
+    CosyVoice2 triple written in their published formats to a temporary
+    directory, loaded back, baked and reloaded (equal tensors), one 10 s
+    request served from the bake through EST_MODELS_DIR, and the orbax
+    refusal; the directory is deleted after. The launch counters of the
+    request are the phase's."""
+    import tempfile
+
+    print("== checkpoints: Whisper-medium (model.safetensors), NLLB-600M (pytorch_model.bin), "
+          "ECAPA (embedding_model.ckpt), CosyVoice2 llm/flow/hift.pt, f32, random weights",
+          flush=True)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="est_checkpoints_")
+    try:
+        trees, cfgs, src, written = checkpoints_write(tmp, dev, card)
+        ckpt = {"written": written, "loaded": checkpoints_load(trees, cfgs, src, dev, card)}
+        bake = os.path.join(tmp, "bake")
+        ckpt["bake"] = checkpoints_bake(trees, cfgs, src, bake, dev, card)
+        del trees
+        shutil.rmtree(os.path.join(tmp, "src"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        ckpt["request"] = checkpoints_request(bake, tmp, dev, card, e2e)
+        ckpt["launches"] = ckpt["request"]["launches"]
+        ckpt["refusal"] = checkpoints_refusal(bake, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt["seconds"] = time.perf_counter() - t_phase
+    print(f"  checkpoints phase {ckpt['seconds']:.1f} s", flush=True)
+    report["checkpoints"] = ckpt
+    return ckpt
+
+
 def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
-def _launches(name, e2e, batched, stream, mtp, official) -> dict:
+def _launches(name, e2e, batched, stream, mtp, official, ckpt) -> dict:
     """A kernel's launch count on each path driven: the three single
     requests, the detection of the 10 s request, the batched requests, the
     two streamed requests, the mtp phase's TTS runs, the official chain's
-    10 s request."""
+    10 s request, the 10 s request served from the bake."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
             "batched": batched["launches"][name], "streaming": stream["launches"][name],
-            "mtp": mtp["launches"][name], "official": official["launches"][name]}
+            "mtp": mtp["launches"][name], "official": official["launches"][name],
+            "checkpoints": ckpt["launches"][name]}
 
 
-def _decode_entry(name, source, replaces, rows, e2e, batched, stream, mtp, official):
+def _decode_entry(name, source, replaces, rows, e2e, batched, stream, mtp, official, ckpt):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
     timed = next(r for r in rows if "ms" in r)
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
-            "launches_by_path": _launches(name, e2e, batched, stream, mtp, official),
+            "launches_by_path": _launches(name, e2e, batched, stream, mtp, official, ckpt),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -1926,7 +2235,7 @@ def _decode_entry(name, source, replaces, rows, e2e, batched, stream, mtp, offic
 
 
 def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched, stream, mtp,
-                 official):
+                 official, ckpt):
     """One entry per kernel. ``launches`` counts the three single requests;
     ``launches_by_path`` adds the detection, the batched requests and the
     streamed ones.
@@ -1946,7 +2255,8 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched,
          "source": f"{PORT}/csrc/log_mel.cu",
          "replaces": f"{REFERENCE}/ops/pallas_mel.py:79",
          "launches": e2e["launches"]["log_mel_frames"],
-         "launches_by_path": _launches("log_mel_frames", e2e, batched, stream, mtp, official),
+         "launches_by_path": _launches("log_mel_frames", e2e, batched, stream, mtp, official,
+                                       ckpt),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -1956,7 +2266,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched,
          "replaces": f"{REFERENCE}/ops/pallas_vocoder.py:113",
          "launches": e2e["launches"]["fused_resblock_stage"],
          "launches_by_path": _launches("fused_resblock_stage", e2e, batched, stream, mtp,
-                                       official),
+                                       official, ckpt),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -1970,11 +2280,11 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched,
          "stream_plain_ms": sum(r["graph_plain_ms"] for r in streamed),
          "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
-                      batched, stream, mtp, official),
+                      batched, stream, mtp, official, ckpt),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
-                      batched, stream, mtp, official),
+                      batched, stream, mtp, official, ckpt),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
-                      batched, stream, mtp, official),
+                      batched, stream, mtp, official, ckpt),
     ]
 
 
@@ -2019,13 +2329,14 @@ def main() -> int:
     stream = streaming_phase(dev, report, card, backend, e2e)
     mtp = mtp_phase(dev, report, card, backend, e2e)
     official = official_phase(dev, report, card, e2e)
+    ckpt = checkpoints_phase(dev, report, card, e2e)
     report["seconds"] = time.perf_counter() - t_start
     print(f"== done in {report['seconds']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, batched, stream, mtp,
-                                              official)}))
+                                              official, ckpt)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,42 @@ def linear_from_state(weight, bias, device) -> Params:
     return p
 
 
+def hf_state_getter(state):
+    """name → ``state["model." + name]``, else ``state[name]``: an HF
+    ``...ForConditionalGeneration`` state dict is rooted at ``model.``, the
+    bare model's is not."""
+    def g(name):
+        for prefix in ("model.", ""):
+            if prefix + name in state:
+                return state[prefix + name]
+        raise KeyError(name)
+    return g
+
+
+def hf_pre_ln_block(g, base: str, device, *, cross: bool, k_bias: bool) -> Params:
+    """One encoder or decoder layer of an HF Whisper / M2M100 state dict
+    (``g`` from :func:`hf_state_getter`) → a pre-LN block of the port's
+    layout, the checkpoint's dtype kept."""
+    def attn(name):
+        return {ours: linear_from_state(g(f"{name}.{hf}_proj.weight"),
+                                        g(f"{name}.{hf}_proj.bias") if ours != "k" or k_bias
+                                        else None, device)
+                for ours, hf in (("q", "q"), ("k", "k"), ("v", "v"), ("o", "out"))}
+
+    def ln(name):
+        return {"scale": state_tensor(g(f"{name}.weight"), device),
+                "bias": state_tensor(g(f"{name}.bias"), device)}
+
+    p = {"self_attn": attn(f"{base}.self_attn"), "self_attn_ln": ln(f"{base}.self_attn_layer_norm"),
+         "mlp": {fc: linear_from_state(g(f"{base}.{fc}.weight"), g(f"{base}.{fc}.bias"), device)
+                 for fc in ("fc1", "fc2")},
+         "mlp_ln": ln(f"{base}.final_layer_norm")}
+    if cross:
+        p["cross_attn"] = attn(f"{base}.encoder_attn")
+        p["cross_attn_ln"] = ln(f"{base}.encoder_attn_layer_norm")
+    return p
+
+
 def permute_conv_kernels(tree, order):
     """Every 3-D ``kernel`` leaf of a nested tree permuted by ``order``, in
     place (the JAX package's conv kernels [width, in, out] → torch's);

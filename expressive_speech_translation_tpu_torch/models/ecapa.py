@@ -12,7 +12,8 @@ Port of the JAX package's ``models/ecapa.py`` (speechbrain's
 
 Activations run as [B, C, T] here (``conv1d``'s layout); conv kernels are
 stored ``[out, in, width]`` (:func:`from_jax_params` turns the JAX package's
-``[width, in, out]`` into it). Input features: the 80-mel Kaldi fbank at
+``[width, in, out]`` into it; :func:`from_speechbrain_state_dict` reads
+speechbrain's checkpoint straight into it). Input features: the 80-mel Kaldi fbank at
 16 kHz with per-utterance mean subtraction. The parameters stay f32 whatever
 the serving dtype: the JAX package runs them in f32 too.
 """
@@ -24,8 +25,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..core.device import resolve_device
 from ..ops.mel import kaldi_fbank
-from .common import Init, Params, tree_from_numpy
+from .common import Init, Params, state_tensor, tree_from_numpy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +96,52 @@ def from_jax_params(tree, device) -> Params:
 
     walk(p)
     return p
+
+
+def from_speechbrain_state_dict(state, cfg: EcapaConfig, device=None,
+                                dtype=torch.float32) -> Params:
+    """speechbrain ``spkrec-ecapa-voxceleb``'s ``embedding_model.ckpt`` state
+    dict → the port's tree on ``device`` in ``dtype`` (f32 by default, as the
+    port runs ECAPA): speechbrain wraps torch's convs and norms one level
+    deep (``…conv.conv``, ``…norm.norm``), an ``embedding_model.`` prefix
+    from a full-model save is dropped, a conv without a bias gets zeros, and
+    the conv kernels keep torch's ``[out, in, width]`` (the JAX package's
+    ``from_speechbrain_state_dict``)."""
+    dev = resolve_device(device)
+    sd = {k[len("embedding_model."):] if k.startswith("embedding_model.") else k: v
+          for k, v in state.items()}
+
+    def t(name):
+        return state_tensor(sd[name], dev).to(dtype)
+
+    def conv(prefix):
+        w = t(f"{prefix}.weight")
+        bias = (t(f"{prefix}.bias") if f"{prefix}.bias" in sd
+                else torch.zeros((w.shape[0],), dtype=dtype, device=dev))
+        return {"kernel": w, "bias": bias}
+
+    def bn(prefix):
+        return {"scale": t(f"{prefix}.weight"), "bias": t(f"{prefix}.bias"),
+                "mean": t(f"{prefix}.running_mean"), "var": t(f"{prefix}.running_var")}
+
+    def tdnn(prefix):
+        return {"conv": conv(f"{prefix}.conv.conv"), "bn": bn(f"{prefix}.norm.norm")}
+
+    return {
+        "block0": tdnn("blocks.0"),
+        "blocks": [{"tdnn1": tdnn(f"blocks.{b}.tdnn1"),
+                    "res2": [tdnn(f"blocks.{b}.res2net_block.blocks.{i}")
+                             for i in range(cfg.scale - 1)],
+                    "tdnn2": tdnn(f"blocks.{b}.tdnn2"),
+                    "se_conv1": conv(f"blocks.{b}.se_block.conv1.conv"),
+                    "se_conv2": conv(f"blocks.{b}.se_block.conv2.conv")}
+                   for b in range(1, 1 + len(DILATIONS))],
+        "mfa": tdnn("mfa"),
+        "asp_tdnn": tdnn("asp.tdnn"),
+        "asp_conv": conv("asp.conv.conv"),
+        "asp_bn": bn("asp_bn.norm"),
+        "fc": conv("fc.conv"),
+    }
 
 
 # ---------------------------------------------------------------------- layers

@@ -5,7 +5,8 @@ position guards, ``generate`` greedy or by beam search with the forced BOS
 as a runtime argument, and ``quantize_nllb_decoder``): shared embeddings
 scaled by sqrt(d), M2M100 sinusoidal positions (offset-2 table,
 padding-aware ids), pre-LN blocks with every projection biased, ReLU MLPs,
-final encoder/decoder layer norms, tied head.
+final encoder/decoder layer norms, tied head. :func:`from_hf_state_dict`
+reads an HF M2M100 checkpoint.
 """
 
 from __future__ import annotations
@@ -16,10 +17,12 @@ import functools
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from .beam import BeamConfig, beam_search, greedy_search
-from .common import (AttnConfig, Init, Params, init_decoder_kv_cache, layer_norm, mha,
-                     mha_step, mlp, precompute_layer_cross_kv, quantize_embed_head,
-                     quantize_transformer_blocks, tied_head_logits, tree_from_numpy)
+from .common import (AttnConfig, Init, Params, cast_floats, hf_pre_ln_block, hf_state_getter,
+                     init_decoder_kv_cache, layer_norm, mha, mha_step, mlp,
+                     precompute_layer_cross_kv, quantize_embed_head, quantize_transformer_blocks,
+                     state_tensor, tied_head_logits, tree_from_numpy)
 
 _mlp = functools.partial(mlp, activation=torch.relu)
 
@@ -85,6 +88,30 @@ def init_nllb(seed: int, cfg: NLLBConfig, device) -> Params:
 def from_jax_params(tree, device, dtype=torch.float32) -> Params:
     """The JAX package's NLLB parameter tree → the port's (same layout)."""
     return tree_from_numpy(tree, device, dtype)
+
+
+def from_hf_state_dict(state, cfg: NLLBConfig, device=None, dtype=torch.float32) -> Params:
+    """An HF ``M2M100ForConditionalGeneration`` state dict (``model.``-rooted
+    or bare; any float dtype) → the port's tree on ``device``, floating
+    leaves in ``dtype``: the shared embedding (also the tied head), every
+    dense weight [out, in] → kernel [in, out], and the sinusoidal position
+    table, which the checkpoint does not hold, from
+    :func:`m2m100_sinusoids` (the JAX package's ``from_hf_state_dict``)."""
+    dev = resolve_device(device)
+    g = hf_state_getter(state)
+
+    def stack(side, n, cross):
+        return {"layers": [hf_pre_ln_block(g, f"{side}.layers.{i}", dev, cross=cross, k_bias=True)
+                           for i in range(n)],
+                "ln": {"scale": state_tensor(g(f"{side}.layer_norm.weight"), dev),
+                       "bias": state_tensor(g(f"{side}.layer_norm.bias"), dev)}}
+
+    params = {"embed": state_tensor(g("shared.weight"), dev),
+              "pos": torch.as_tensor(m2m100_sinusoids(cfg.max_positions, cfg.d_model,
+                                                      cfg.pad_token), device=dev),
+              "encoder": stack("encoder", cfg.encoder_layers, False),
+              "decoder": stack("decoder", cfg.decoder_layers, True)}
+    return cast_floats(params, dtype)
 
 
 def encode(params: Params, cfg: NLLBConfig, tokens: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,8 @@ K/V, tied output head, no bias on k. Decoding is a Python loop over one decoder 
 at EOT; the prompt is teacher-forced through the same step.
 
 Layouts: dense kernels [in, out] as in the JAX package; the two conv kernels
-are stored in torch's [out, in, width] (:func:`from_jax_params` converts).
+are stored in torch's [out, in, width] (:func:`from_jax_params` converts;
+:func:`from_hf_state_dict` reads an HF checkpoint straight into them).
 """
 
 from __future__ import annotations
@@ -21,11 +22,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .common import (AttnConfig, Init, Params, dense, gelu, init_decoder_kv_cache,
-                     layer_norm, merge_heads, mha, mha_step, mlp,
+from ..core.device import resolve_device
+from .common import (AttnConfig, Init, Params, cast_floats, dense, gelu, hf_pre_ln_block,
+                     hf_state_getter, init_decoder_kv_cache, layer_norm, merge_heads, mha,
+                     mha_step, mlp,
                      precompute_layer_cross_kv, quantize_embed_head,
                      quantize_transformer_blocks, sinusoid_position_embedding,
-                     split_heads, tied_head_logits, tree_from_numpy)
+                     split_heads, state_tensor, tied_head_logits, tree_from_numpy)
 
 GumbelFn = Callable[[int, Tuple[int, ...]], torch.Tensor]
 
@@ -54,6 +57,18 @@ class WhisperConfig:
     @property
     def attn(self) -> AttnConfig:
         return AttnConfig(self.d_model, self.heads, k_bias=False)
+
+    @classmethod
+    def tiny(cls):
+        return cls(d_model=384, encoder_layers=4, decoder_layers=4, heads=6, ffn_dim=1536)
+
+    @classmethod
+    def base(cls):
+        return cls(d_model=512, encoder_layers=6, decoder_layers=6, heads=8, ffn_dim=2048)
+
+    @classmethod
+    def small(cls):
+        return cls(d_model=768, encoder_layers=12, decoder_layers=12, heads=12, ffn_dim=3072)
 
     @classmethod
     def medium(cls):
@@ -96,6 +111,41 @@ def from_jax_params(tree, device, dtype=torch.float32) -> Params:
         conv = p["encoder"][name]
         conv["kernel"] = conv["kernel"].permute(2, 1, 0).contiguous()
     return p
+
+
+def from_hf_state_dict(state, cfg: WhisperConfig, device=None, dtype=torch.float32) -> Params:
+    """An HF ``WhisperForConditionalGeneration`` / ``WhisperModel`` state dict
+    (``model.``-rooted or bare; torch tensors or numpy arrays, any float
+    dtype) → the port's tree on ``device``, floating leaves in ``dtype``:
+    dense weights [out, in] → kernels [in, out], the conv kernels kept in
+    torch's [out, in, width], the tied head read from the decoder's
+    embedding (the JAX package's ``from_hf_state_dict``)."""
+    dev = resolve_device(device)
+    g = hf_state_getter(state)
+
+    def t(name):
+        return state_tensor(g(name), dev)
+
+    def block(base, cross):
+        return hf_pre_ln_block(g, base, dev, cross=cross, k_bias=False)
+
+    params = {
+        "encoder": {
+            "conv1": {"kernel": t("encoder.conv1.weight"), "bias": t("encoder.conv1.bias")},
+            "conv2": {"kernel": t("encoder.conv2.weight"), "bias": t("encoder.conv2.bias")},
+            "pos": t("encoder.embed_positions.weight"),
+            "layers": [block(f"encoder.layers.{i}", False) for i in range(cfg.encoder_layers)],
+            "ln_post": {"scale": t("encoder.layer_norm.weight"),
+                        "bias": t("encoder.layer_norm.bias")},
+        },
+        "decoder": {
+            "embed": t("decoder.embed_tokens.weight"),
+            "pos": t("decoder.embed_positions.weight"),
+            "layers": [block(f"decoder.layers.{i}", True) for i in range(cfg.decoder_layers)],
+            "ln": {"scale": t("decoder.layer_norm.weight"), "bias": t("decoder.layer_norm.bias")},
+        },
+    }
+    return cast_floats(params, dtype)
 
 
 # --------------------------------------------------------------------- encoder

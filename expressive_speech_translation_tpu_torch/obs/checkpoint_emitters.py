@@ -1,0 +1,180 @@
+"""The port's trees written back in the published checkpoints' naming.
+
+``chip_smoke.py``'s checkpoints phase writes seeded random trees at the
+published widths in the published formats and loads them back through
+``models/loaders.py``; these emitters are the inverse of the converters:
+
+- :func:`whisper_hf_state_dict` / :func:`whisper_hf_config`: HF
+  ``WhisperForConditionalGeneration`` (``model.safetensors`` + ``config.json``);
+- :func:`nllb_hf_state_dict` / :func:`nllb_hf_config`: HF
+  ``M2M100ForConditionalGeneration`` (``pytorch_model.bin`` + ``config.json``);
+- :func:`ecapa_speechbrain_state_dict`: speechbrain's ``ECAPA_TDNN``
+  (``embedding_model.ckpt``);
+- :func:`cosyvoice_llm_state_dict`: the official CosyVoice2 ``Qwen2LM``
+  (``llm.pt``).
+
+Tied weights are one tensor under each of their names, as ``state_dict()``
+gives them; every other value is a contiguous copy on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+State = Dict[str, torch.Tensor]
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu").contiguous()
+
+
+def _linear(out: State, name: str, p, *, bias: bool = True) -> None:
+    out[f"{name}.weight"] = _host(p["kernel"].T)
+    if bias:
+        out[f"{name}.bias"] = _host(p["bias"])
+
+
+def _ln(out: State, name: str, p) -> None:
+    out[f"{name}.weight"] = _host(p["scale"])
+    out[f"{name}.bias"] = _host(p["bias"])
+
+
+def _pre_ln_block(out: State, base: str, p, *, k_bias: bool) -> None:
+    """The inverse of ``common.hf_pre_ln_block``."""
+    attns = [("self_attn", "self_attn")]
+    if "cross_attn" in p:
+        attns.append(("cross_attn", "encoder_attn"))
+    for ours, hf in attns:
+        for proj, name in (("q", "q"), ("k", "k"), ("v", "v"), ("o", "out")):
+            _linear(out, f"{base}.{hf}.{name}_proj", p[ours][proj], bias=proj != "k" or k_bias)
+        _ln(out, f"{base}.{hf}_layer_norm", p[f"{ours}_ln"])
+    _linear(out, f"{base}.fc1", p["mlp"]["fc1"])
+    _linear(out, f"{base}.fc2", p["mlp"]["fc2"])
+    _ln(out, f"{base}.final_layer_norm", p["mlp_ln"])
+
+
+def whisper_hf_config(cfg) -> dict:
+    """``config.json`` of an HF Whisper checkpoint of ``cfg``'s dims."""
+    return {"model_type": "whisper", "architectures": ["WhisperForConditionalGeneration"],
+            "vocab_size": cfg.vocab_size, "num_mel_bins": cfg.n_mels, "d_model": cfg.d_model,
+            "encoder_layers": cfg.encoder_layers, "decoder_layers": cfg.decoder_layers,
+            "encoder_attention_heads": cfg.heads, "decoder_attention_heads": cfg.heads,
+            "encoder_ffn_dim": cfg.ffn_dim, "decoder_ffn_dim": cfg.ffn_dim,
+            "max_source_positions": cfg.max_source_positions,
+            "max_target_positions": cfg.max_target_positions,
+            "decoder_start_token_id": cfg.bos_token, "bos_token_id": cfg.eos_token,
+            "eos_token_id": cfg.eos_token, "pad_token_id": cfg.eos_token,
+            "torch_dtype": "float32"}
+
+
+def whisper_hf_state_dict(params, cfg) -> State:
+    """The port's Whisper tree → ``WhisperForConditionalGeneration``'s state
+    dict (``proj_out.weight`` is the decoder's embedding)."""
+    enc, dec = params["encoder"], params["decoder"]
+    out: State = {}
+    for conv in ("conv1", "conv2"):
+        out[f"model.encoder.{conv}.weight"] = _host(enc[conv]["kernel"])
+        out[f"model.encoder.{conv}.bias"] = _host(enc[conv]["bias"])
+    out["model.encoder.embed_positions.weight"] = _host(enc["pos"])
+    for i, block in enumerate(enc["layers"]):
+        _pre_ln_block(out, f"model.encoder.layers.{i}", block, k_bias=False)
+    _ln(out, "model.encoder.layer_norm", enc["ln_post"])
+    out["model.decoder.embed_tokens.weight"] = embed = _host(dec["embed"])
+    out["model.decoder.embed_positions.weight"] = _host(dec["pos"])
+    for i, block in enumerate(dec["layers"]):
+        _pre_ln_block(out, f"model.decoder.layers.{i}", block, k_bias=False)
+    _ln(out, "model.decoder.layer_norm", dec["ln"])
+    out["proj_out.weight"] = embed
+    return out
+
+
+def nllb_hf_config(cfg) -> dict:
+    """``config.json`` of an HF NLLB (M2M100) checkpoint of ``cfg``'s dims."""
+    return {"model_type": "m2m_100", "architectures": ["M2M100ForConditionalGeneration"],
+            "vocab_size": cfg.vocab_size, "d_model": cfg.d_model,
+            "encoder_layers": cfg.encoder_layers, "decoder_layers": cfg.decoder_layers,
+            "encoder_attention_heads": cfg.heads, "decoder_attention_heads": cfg.heads,
+            "encoder_ffn_dim": cfg.ffn_dim, "decoder_ffn_dim": cfg.ffn_dim,
+            "max_position_embeddings": cfg.max_positions, "pad_token_id": cfg.pad_token,
+            "bos_token_id": cfg.bos_token, "eos_token_id": cfg.eos_token,
+            "decoder_start_token_id": cfg.decoder_start_token, "scale_embedding": True,
+            "activation_function": "relu", "torch_dtype": "float32"}
+
+
+def nllb_hf_state_dict(params, cfg) -> State:
+    """The port's NLLB tree → ``M2M100ForConditionalGeneration``'s state
+    dict (the shared embedding under its four tied names; the sinusoidal
+    positions are a buffer the checkpoint does not hold)."""
+    out: State = {}
+    embed = _host(params["embed"])
+    for name in ("model.shared.weight", "model.encoder.embed_tokens.weight",
+                 "model.decoder.embed_tokens.weight", "lm_head.weight"):
+        out[name] = embed
+    for side in ("encoder", "decoder"):
+        for i, block in enumerate(params[side]["layers"]):
+            _pre_ln_block(out, f"model.{side}.layers.{i}", block, k_bias=True)
+        _ln(out, f"model.{side}.layer_norm", params[side]["ln"])
+    return out
+
+
+def ecapa_speechbrain_state_dict(params, cfg) -> State:
+    """The port's ECAPA tree → speechbrain ``ECAPA_TDNN``'s state dict
+    (``…conv.conv`` / ``…norm.norm``; each BatchNorm's
+    ``num_batches_tracked`` 0)."""
+    out: State = {}
+
+    def conv(name, p):
+        out[f"{name}.weight"] = _host(p["kernel"])
+        out[f"{name}.bias"] = _host(p["bias"])
+
+    def bn(name, p):
+        for ours, sb in (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+                         ("var", "running_var")):
+            out[f"{name}.{sb}"] = _host(p[ours])
+        out[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+    def tdnn(name, p):
+        conv(f"{name}.conv.conv", p["conv"])
+        bn(f"{name}.norm.norm", p["bn"])
+
+    tdnn("blocks.0", params["block0"])
+    for b, block in enumerate(params["blocks"], start=1):
+        tdnn(f"blocks.{b}.tdnn1", block["tdnn1"])
+        for i, unit in enumerate(block["res2"]):
+            tdnn(f"blocks.{b}.res2net_block.blocks.{i}", unit)
+        tdnn(f"blocks.{b}.tdnn2", block["tdnn2"])
+        conv(f"blocks.{b}.se_block.conv1.conv", block["se_conv1"])
+        conv(f"blocks.{b}.se_block.conv2.conv", block["se_conv2"])
+    tdnn("mfa", params["mfa"])
+    tdnn("asp.tdnn", params["asp_tdnn"])
+    conv("asp.conv.conv", params["asp_conv"])
+    bn("asp_bn.norm", params["asp_bn"])
+    conv("fc.conv", params["fc"])
+    return out
+
+
+def cosyvoice_llm_state_dict(params, cfg) -> State:
+    """The port's speech-LM tree (no MTP heads) → the official ``Qwen2LM``'s
+    ``llm.pt`` state dict: the HF Qwen2 backbone under ``llm.model.model.``,
+    ``speech_embedding`` with the sos / task rows also in ``llm_embedding``,
+    the head as ``llm_decoder``."""
+    speech = _host(params["speech_embed"])
+    out: State = {"llm_embedding.weight": speech[[cfg.sos_index, cfg.task_index]].contiguous(),
+                  "speech_embedding.weight": speech}
+    _linear(out, "llm_decoder", params["head"], bias="bias" in params["head"])
+    pre = "llm.model.model"
+    out[f"{pre}.embed_tokens.weight"] = _host(params["text_embed"])
+    backbone = params["backbone"]
+    out[f"{pre}.norm.weight"] = _host(backbone["ln_f"]["scale"])
+    for i, layer in enumerate(backbone["layers"]):
+        base = f"{pre}.layers.{i}"
+        out[f"{base}.input_layernorm.weight"] = _host(layer["input_ln"]["scale"])
+        out[f"{base}.post_attention_layernorm.weight"] = _host(layer["post_ln"]["scale"])
+        for proj in ("q", "k", "v"):
+            _linear(out, f"{base}.self_attn.{proj}_proj", layer[proj])
+        _linear(out, f"{base}.self_attn.o_proj", layer["o"], bias=False)
+        for proj in ("gate", "up", "down"):
+            _linear(out, f"{base}.mlp.{proj}_proj", layer[proj], bias=False)
+    return out

@@ -26,7 +26,9 @@ the buckets of ``core/buckets.py``; ``torch_engines(batch_*=True)`` puts the
 micro-batchers of ``serve/batching.py`` in front of them.
 
 Without checkpoints every model runs on seeded random weights ("weightless"),
-as the JAX engines do.
+as the JAX engines do. ``EST_MODELS_DIR`` names a directory baked by
+``models/loaders.py`` (``bake_models``), whose stage directories
+``torch_engines`` serves as ``jax_engines`` serves its own bake.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import dataclasses
 import logging
 import os
 import zlib
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -865,9 +868,7 @@ _QUEUED_KEYS = {
     "mesh": (None, 12), "stage_parallel": (False, 12), "stage_tp": (1, 12),
     "stage_meshes": (None, 12),
 }
-_QUEUE_ITEMS = {8: "the Whisper / NLLB / ECAPA checkpoint converters and loaders, the "
-                   "tokenizers, and the baked-model loaders of EST_MODELS_DIR",
-                12: "meshes and stage-parallel serving"}
+_QUEUE_ITEMS = {12: "meshes and stage-parallel serving"}
 _PASSED_KEYS = frozenset((
     "asr_cfg", "asr_params", "asr_context_buckets", "asr_tokenizer", "nmt_cfg", "nmt_params",
     "nmt_tokenizer", "lang_code_to_id", "tts_cfg", "tts_params", "tts_tokenizer", "tts_noise",
@@ -882,8 +883,7 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 
 def _check_keys(kwargs: Dict[str, Any]) -> None:
     """Raise for every key the port would otherwise drop: a JAX factory key
-    asking for a feature still queued, a set ``EST_MODELS_DIR``, or a key
-    neither factory knows."""
+    asking for a feature still queued, or a key neither factory knows."""
     for key, value in kwargs.items():
         if key in _QUEUED_KEYS:
             default, item = _QUEUED_KEYS[key]
@@ -892,8 +892,46 @@ def _check_keys(kwargs: Dict[str, Any]) -> None:
                 raise _not_ported(f"torch_engines({key}={value!r})", item)
         elif key not in _PASSED_KEYS:
             raise TypeError(f"torch_engines() got an unexpected keyword argument {key!r}")
-    if os.environ.get("EST_MODELS_DIR"):
-        raise _not_ported("loading checkpoints from EST_MODELS_DIR", 8)
+
+
+def _load_baked(kwargs: Dict[str, Any], dev) -> None:
+    """Fill the factory's keys from ``EST_MODELS_DIR``'s stage directories,
+    as ``jax_engines`` reads its bake: ``asr/`` and ``nmt/`` give weights and
+    config, ``tts_llm/`` + ``tts_flow/`` + ``tts_hift/`` the official chain
+    (only all three, and only without ``tts_params``), ``ecapa/`` and
+    ``speech_tokenizer/`` the voice-prompt conditioning. An explicit key
+    wins; a directory without ``config.json`` is skipped, so a missing or
+    empty directory serves random weights. A stage directory holding the
+    JAX package's orbax bake raises (``load_converted``)."""
+    models_dir = os.environ.get("EST_MODELS_DIR")
+    if not models_dir:
+        return
+    from ..models.loaders import load_converted, load_official_tts
+
+    root = Path(models_dir)
+
+    def baked(stage: str) -> bool:
+        return (root / stage / "config.json").exists()
+
+    if baked("asr") and "asr_params" not in kwargs:
+        kwargs["asr_params"], kwargs["asr_cfg"] = load_converted(root / "asr", wm.WhisperConfig,
+                                                                 dev)
+        log.info("loaded baked ASR weights from %s", root / "asr")
+    if baked("nmt") and "nmt_params" not in kwargs:
+        kwargs["nmt_params"], kwargs["nmt_cfg"] = load_converted(root / "nmt", nlm.NLLBConfig,
+                                                                 dev)
+        log.info("loaded baked NMT weights from %s", root / "nmt")
+    if ("tts_official" not in kwargs and "tts_params" not in kwargs
+            and all(baked(s) for s in ("tts_llm", "tts_flow", "tts_hift"))):
+        kwargs["tts_official"] = load_official_tts(root, dev)
+        log.info("loaded baked official CosyVoice triple from %s", root)
+    if baked("ecapa") and "tts_ecapa" not in kwargs:
+        kwargs["tts_ecapa"] = load_converted(root / "ecapa", ecm.EcapaConfig, dev)
+        log.info("loaded baked ECAPA conditioning from %s", root / "ecapa")
+    if baked("speech_tokenizer") and "tts_speech_tokenizer" not in kwargs:
+        kwargs["tts_speech_tokenizer"] = load_converted(root / "speech_tokenizer",
+                                                        stm.SpeechTokenizerConfig, dev)
+        log.info("loaded baked FSQ speech tokenizer from %s", root / "speech_tokenizer")
 
 
 def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
@@ -918,7 +956,8 @@ def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
     ``nmt_tokenizer``/``tts_tokenizer`` override the shared ``tokenizer``.
     The JAX factory's other keys (meshes) are accepted at their defaults and
     raise ``NotImplementedError`` naming the ROADMAP item that brings them
-    otherwise, as does a set ``EST_MODELS_DIR``."""
+    otherwise. A set ``EST_MODELS_DIR`` serves the port's bake over the
+    scale's configs (:func:`_load_baked`)."""
     _check_keys(kwargs)
     dev = resolve_device(device)
     if scale == "reference":
@@ -926,6 +965,7 @@ def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
             kwargs.setdefault(k, v)
     elif scale != "toy":
         raise ValueError(f"unknown scale {scale!r} (toy|reference)")
+    _load_baked(kwargs, dev)
     dtype = kwargs.get("dtype", torch.bfloat16)
     tok = kwargs.get("tokenizer")
     asr: Any = TorchWhisperAsr(kwargs.get("asr_cfg"), kwargs.get("asr_params"),

@@ -273,9 +273,14 @@ def test_torch_engines_accepts_the_jax_defaults_and_refuses_the_unknown(monkeypa
     assert eng.asr.context_buckets == (30,)
     with pytest.raises(TypeError, match="unexpected keyword argument 'asr_bucket'"):
         torch_engines(**TINY, asr_bucket=(10,))
+    # a set EST_MODELS_DIR with no stage directory serves random weights, as in JAX
     monkeypatch.setenv("EST_MODELS_DIR", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="EST_MODELS_DIR.*Queue 1 item 8 "):
-        torch_engines(**TINY)
+    eng = torch_engines(**TINY)
+    jax_eng = jax_engines(asr_cfg=jwh.WhisperConfig(**_fields(TINY["asr_cfg"])),
+                          nmt_cfg=jnl.NLLBConfig(**_fields(TINY["nmt_cfg"])))
+    for stage in ("asr", "nmt", "tts"):
+        assert getattr(eng, stage).weightless is getattr(jax_eng, stage).weightless is True
+    assert eng.tts.conditioning_weightless is jax_eng.tts.conditioning_weightless is True
 
 
 # ------------------------------------------------------- the official chain

@@ -308,9 +308,12 @@ def test_asr_fallback_ladder_and_previous_text_prompts():
 
 
 def test_port_runs_without_jax_or_the_jax_package():
-    """A fresh process runs the port's tiny cascade on the CPU and must not
-    have imported jax or anything of the JAX package (this test process has
-    both: tests/conftest.py imports jax)."""
+    """A fresh process runs the port's tiny cascade on the CPU, imports
+    every module (the checkpoint loaders, the safetensors reader, the
+    tokenizers, the WAV codec among them) and serves a bake, and must not
+    have imported jax, anything of the JAX package, or the optional
+    ``safetensors`` / ``transformers`` / ``tokenizers`` (this test process
+    has them all: tests/conftest.py imports jax)."""
     script = textwrap.dedent("""
         import sys
         import numpy as np, torch
@@ -347,9 +350,22 @@ def test_port_runs_without_jax_or_the_jax_package():
         from expressive_speech_translation_tpu_torch.ops import (
             cuda_decode, cuda_int4, mel, resample)
         from expressive_speech_translation_tpu_torch.serve import batching
-        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-               or m == "expressive_speech_translation_tpu"
-               or m.startswith("expressive_speech_translation_tpu.")]
+        from expressive_speech_translation_tpu_torch.media import wavio
+        from expressive_speech_translation_tpu_torch.models import safetensors_io
+        from expressive_speech_translation_tpu_torch.obs import checkpoint_emitters
+        from expressive_speech_translation_tpu_torch.pipeline import tokenizer
+        # a bake served under EST_MODELS_DIR, read with torch alone
+        import os, tempfile
+        root = tempfile.mkdtemp()
+        loaders.save_converted(ecapa.init_ecapa(0, ecapa.EcapaConfig(channels=16, mfa_out=48,
+            bottleneck=8), "cpu"), ecapa.EcapaConfig(channels=16, mfa_out=48, bottleneck=8),
+            os.path.join(root, "ecapa"))
+        os.environ["EST_MODELS_DIR"] = root
+        assert torch_engines(device="cpu").tts.conditioning_weightless is False
+        assert type(tokenizer.load_tokenizer(None)).__name__ == "ByteTokenizer"
+        bad = [m for m in sys.modules if m.split(".")[0] in (
+            "jax", "expressive_speech_translation_tpu", "safetensors", "transformers",
+            "tokenizers")]
         print("FORBIDDEN", bad)
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
