@@ -34,21 +34,32 @@ Phases, in order; any failure exits non-zero and prints no result:
               counter read around the requests; the resblock kernel at the
               (C, T) the 10 s request handed it, checked and timed; language
               detection of the 10 s request (one log-mel launch);
-5. batched  — the same engines behind the three micro-batchers
+5. frontend — the e2e phase's backend: a 10 s 44.1 kHz stereo upload
+              (decorrelated channels) and a 16 kHz mono one written and read
+              back by ``media/wavio.py``, ``validate_audio_length`` and
+              ``AudioProcessor.process_audio`` on the card against the same
+              call with ``device="cpu"``; ``process_audio`` timed at 10 s and
+              at the 300 s cap with its peak memory; then, launch counters at
+              0, the upload's ``process_audio`` and ``translate_speech`` with
+              250 frames of 360×640 synthetic talking-head video at 25 fps:
+              the visual branch must find speech segments and call
+              ``distribute_audio`` (detector and mapper seconds printed),
+              log-mel launch once and the resblock twice;
+6. batched  — the same engines behind the three micro-batchers
               (``torch_engines(batch_*=True, max_batch=8)``), ``initialize()``,
               8 concurrent 10 s ``translate_speech`` requests from 8 threads:
               requests per second against the e2e phase's 10 s request served
               alone, the batches formed, peak memory; the resblock kernel must
               have launched at B > 1, and is checked and timed at the shapes
               the requests handed it;
-6. streaming — the e2e phase's engines (no second ``initialize()``),
+7. streaming — the e2e phase's engines (no second ``initialize()``),
               ``translate_speech_streaming`` of a 10 s and a 40 s request
               (two ASR windows), cloning on: time to the first audio event,
               wall, events and chunk lengths, the launch counters around each
               stream (log-mel once a window, resblock twice a streamed TTS
               chunk); the resblock kernel checked and timed at the (B, C, T)
               the stream handed it, in vocode's layout and the contiguous one;
-7. mtp      — the e2e phase's TTS config on one random tree with two MTP
+8. mtp      — the e2e phase's TTS config on one random tree with two MTP
               heads, bf16: ``synthesize`` of the 10 s request's text and voice
               prompt at ``mtp=1``, ``mtp=3`` (accept-all) and ``mtp=3,
               spec=True`` (stage seconds, speech tokens, backbone passes,
@@ -61,7 +72,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               weights against bf16 (logits within INT8_LOGIT_RTOL, both
               replayed as CUDA graphs in turns at B = 1 and 8) and one 10 s
               request on ``torch_engines(quantize=True)``;
-8. official — the official CosyVoice2 chain at its full width
+9. official — the official CosyVoice2 chain at its full width
               (``OfficialTtsConfig()``: Qwen2-0.5B LM with 6,561 speech tokens,
               the 512-wide 6 + 4 block conformer, the 256-channel estimator of
               14 units × 4 transformer blocks, 10 Euler steps with CFG, HiFT
@@ -81,7 +92,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               inferred), and the HiFT source of one 10 s bf16-representable
               f0 track with the engine's bf16 HiFT parameters against their
               f32 copies (the port integrates the phase in f32);
-9. checkpoints — seeded random Whisper-medium, NLLB-200-distilled-600M,
+10. checkpoints — seeded random Whisper-medium, NLLB-200-distilled-600M,
               ECAPA (1,024 channels) and the official CosyVoice2 triple, f32,
               written by ``obs/checkpoint_emitters.py`` in their published
               formats (``model.safetensors``, ``pytorch_model.bin``,
@@ -98,7 +109,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               temperature ladder and 2 resblock launches, the resblock kernel
               checked at the request's shapes; and an orbax-style stage
               directory refused;
-10. the kernels line, the card line, and last the result line.
+11. the kernels line, the card line, and last the result line.
 
 The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
 greedy call.
@@ -984,6 +995,242 @@ def _check_request(out, seconds: float, label: str) -> None:
         raise AssertionError(f"{label}: bad output {audio.shape}")
 
 
+FRONTEND_SECONDS = 10.0
+FRONTEND_UPLOAD_SR = 44_100
+FRONTEND_CAP_SECONDS = 300.0     # AudioConfig.max_audio_seconds, the longest upload served
+FRONTEND_ATOL = 1e-4             # process_audio on the card against device="cpu", f32
+FRONTEND_FPS = 25.0
+FRONTEND_FRAME = (360, 640)
+FRONTEND_LIPS_S = (2.0, 8.0)     # the lips open and close between these times
+# tests/test_face.py's synthetic talking head: a skin-toned wall, a skin
+# ellipse, lips, and a dark mouth interior
+_WALL, _SKIN, _LIPS, _MOUTH = (226, 176, 140), (195, 130, 105), (185, 70, 85), (20, 10, 10)
+
+
+def frontend_frames(seed: int = 0) -> list:
+    """10 s of 360×640 RGB uint8 video at 25 fps: tests/test_face.py's
+    talking head scaled ×2 (a head that sways, sensor noise), whose mouth
+    opens and closes every 6 frames between 2 s and 8 s and stays shut
+    outside them."""
+    h, w = FRONTEND_FRAME
+    g = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    lo, hi = (int(s * FRONTEND_FPS) for s in FRONTEND_LIPS_S)
+    frames = []
+    for t in range(int(FRONTEND_SECONDS * FRONTEND_FPS)):
+        f = np.empty((h, w, 3), np.uint8)
+        f[:] = _WALL
+        f += g.integers(0, 3, f.shape, dtype=np.uint8)
+        cy, cx = h // 2, w // 2 + int(12 * np.sin(t / 2.0))
+        f[((yy - cy) / 90.0) ** 2 + ((xx - cx) / 60.0) ** 2 < 1.0] = _SKIN
+        ly, lx = cy + 48, cx
+        f[ly - 6: ly + 6, lx - 18: lx + 18] = _LIPS
+        if lo <= t < hi and (t // 6) % 2 == 1:
+            f[ly - 4: ly + 4, lx - 12: lx + 12] = _MOUTH
+        frames.append(f)
+    return frames
+
+
+def _stereo_upload(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """[2, T] at ``sr``: the speech-like left channel and a right channel of
+    other tones under another envelope (decorrelated, so the downmix takes
+    its side-boosted branch)."""
+    t = np.arange(int(sr * seconds)) / sr
+    g = np.random.default_rng(seed)
+    right = (0.3 * np.sin(2 * np.pi * 330 * t) + 0.15 * np.sin(2 * np.pi * 1320 * t)
+             + 0.02 * g.standard_normal(t.shape)) * (0.5 + 0.5 * np.cos(2 * np.pi * 2.0 * t) ** 2)
+    return np.stack([_speechlike(seconds, seed, sr), right.astype(np.float32)])
+
+
+def _quiet_frames(proc, x, sr) -> tuple:
+    """The noise gate's quietest-frame selection of ``process_audio(x, sr)`` on
+    ``proc``'s device: (sorted frame indices, frame energies on the host)."""
+    from expressive_speech_translation_tpu_torch.ops.stft import stft
+
+    y = proc.process_audio(x, orig_sr=sr, denoise=False)
+    padded = np.zeros(proc._bucket(len(y), 16_000), np.float32)
+    padded[:len(y)] = y
+    real, imag = stft(torch.from_numpy(padded).to(proc.device), proc.config.denoise_n_fft,
+                      proc.config.denoise_hop)
+    energy = torch.sqrt(real * real + imag * imag + 1e-12).sum(-1)
+    energy = energy[:1 + len(y) // proc.config.denoise_hop]
+    return sorted(torch.topk(-energy, 10).indices.tolist()), energy.cpu().numpy()
+
+
+def frontend_upload(backend, dev, card, tmp) -> tuple:
+    """A 44.1 kHz stereo and a 16 kHz mono PCM16 upload written and read back
+    with ``media/wavio.py``, then ``validate_audio_length`` and
+    ``process_audio`` on the card (the backend's processor) against the same
+    call with ``device="cpu"``. → (rows, (the 44.1 kHz upload read back, its rate))."""
+    from expressive_speech_translation_tpu_torch.media.wavio import read_wav, write_wav
+    from expressive_speech_translation_tpu_torch.pipeline.audio_processor import AudioProcessor
+
+    proc, cpu = backend.audio_processor, AudioProcessor(backend.config.audio, device="cpu")
+    if proc.device.type != dev.type:
+        raise AssertionError(f"the backend's audio processor runs on {proc.device}, not {dev}")
+    rows, request = [], None
+    uploads = (("44.1 kHz stereo", _stereo_upload(FRONTEND_SECONDS, FRONTEND_UPLOAD_SR, 31),
+                FRONTEND_UPLOAD_SR),
+               ("16 kHz mono", _speechlike(FRONTEND_SECONDS, 32), 16_000))
+    for label, audio, sr in uploads:
+        path = os.path.join(tmp, f"upload_{sr}.wav")
+        write_wav(path, audio, sr)
+        x, got_sr = read_wav(path)
+        if got_sr != sr or x.shape != audio.shape:
+            raise AssertionError(f"{label}: read back {x.shape} at {got_sr} Hz")
+        corr = (float(np.sum(x[0] * x[1]) / np.sqrt(np.sum(x[0] ** 2) * np.sum(x[1] ** 2)))
+                if x.ndim == 2 else None)
+        proc.validate_audio_length(x.shape[-1] / sr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = proc.process_audio(x, orig_sr=sr)
+        seconds = time.perf_counter() - t0
+        want = cpu.process_audio(x, orig_sr=sr)
+        err = float(np.abs(y - want).max()) if y.shape == want.shape else math.inf
+        # the same without the gate (the resample's share of the difference),
+        # and the gate's quietest-frame selection on both
+        err_resample = float(np.abs(proc.process_audio(x, orig_sr=sr, denoise=False)
+                                    - cpu.process_audio(x, orig_sr=sr, denoise=False)).max())
+        (quiet, e_card), (quiet_cpu, e_cpu) = _quiet_frames(proc, x, sr), _quiet_frames(cpu, x, sr)
+        energy_rel = float(np.abs(e_card - e_cpu).max() / np.abs(e_cpu).max())
+        rows.append({"upload": label, "sr": sr, "channels": 1 if x.ndim == 1 else x.shape[0],
+                     "channel_corr": corr, "out_samples": len(y), "first_call_s": seconds,
+                     "max_abs_err_vs_cpu": err, "max_abs_err_vs_cpu_no_gate": err_resample,
+                     "quiet_frames": quiet, "quiet_frames_cpu": quiet_cpu,
+                     "frame_energy_max_rel_diff": energy_rel,
+                     "peak": float(np.abs(want).max())})
+        print(f"  {label} upload ({FRONTEND_SECONDS:.0f} s PCM16 through wavio"
+              + (f", channel correlation {corr:.4f}" if corr is not None else "")
+              + f"): process_audio on the card {len(y)} samples, first call {seconds:.3f} s; "
+              f"against device='cpu' max |diff| {err:.3e} (limit {FRONTEND_ATOL}; without the "
+              f"gate {err_resample:.3e}; quietest frames "
+              f"{'equal' if quiet == quiet_cpu else f'{quiet} against {quiet_cpu}'}, frame "
+              f"energies within {energy_rel:.1e})  [{card}]",
+              flush=True)
+        if not (np.isfinite(y).all() and y.dtype == np.float32
+                and len(y) == int(FRONTEND_SECONDS * 16_000) and err <= FRONTEND_ATOL):
+            raise AssertionError(f"{label}: process_audio on the card {y.shape} {y.dtype}, "
+                                 f"{err} from the CPU's (limit {FRONTEND_ATOL})")
+        if corr is not None and corr > 0.5:
+            raise AssertionError(f"{label}: channel correlation {corr} takes the plain average")
+        request = request or (x, sr)
+    return rows, request
+
+
+def frontend_timing(backend, card) -> dict:
+    """``process_audio`` of a 44.1 kHz stereo upload at the 10 s bucket and at
+    the 300 s cap, timed on the host clock around a synchronised card (the
+    first call apart, then the best of three), with the peak device memory
+    above what was allocated before."""
+    proc = backend.audio_processor
+    out = {}
+    for seconds in (FRONTEND_SECONDS, FRONTEND_CAP_SECONDS):
+        x = _stereo_upload(seconds, FRONTEND_UPLOAD_SR, 33)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            y = proc.process_audio(x, orig_sr=FRONTEND_UPLOAD_SR)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        if not (np.isfinite(y).all() and len(y) == int(seconds * 16_000)):
+            raise AssertionError(f"process_audio of {seconds} s: {y.shape}")
+        out[f"{seconds:.0f}s"] = {"first_s": runs[0], "best_s": min(runs[1:]), "runs_s": runs,
+                                  "peak_mib_above_resident": peak}
+        print(f"  process_audio of {seconds:.0f} s at 44.1 kHz stereo: first {runs[0] * 1e3:.1f} ms, "
+              f"best of 3 {min(runs[1:]) * 1e3:.1f} ms ({', '.join(f'{r * 1e3:.1f}' for r in runs)})"
+              f", peak {peak:.1f} MiB above the resident engines  [{card}]", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def _timing_calls(owner, name: str, calls: list):
+    """For the block's duration ``owner.name`` calls through, appending
+    (seconds, result) of each call to ``calls``."""
+    fn = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        calls.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(owner, name, timed)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, fn)
+
+
+def frontend_phase(dev, report, card, backend, e2e):
+    """The audio front end and video-guided ``translate_speech`` on the e2e
+    phase's backend: a 44.1 kHz stereo and a 16 kHz mono upload through
+    wavio, ``validate_audio_length`` and ``process_audio`` on the card
+    against ``device="cpu"``; ``process_audio`` timed at 10 s and at the
+    300 s cap; then, with the launch counters set to 0, the 10 s upload's
+    ``process_audio`` and ``translate_speech`` with 250 frames of 360×640
+    video at 25 fps (cloning on): the visual branch must run (speech
+    segments found, ``distribute_audio`` called), log-mel launch once and
+    the resblock twice."""
+    import tempfile
+
+    from expressive_speech_translation_tpu_torch.pipeline import visual_speech_detector as vsd
+
+    print(f"== frontend: AudioProcessor on the card, then a {FRONTEND_SECONDS:.0f} s request "
+          f"with {FRONTEND_FRAME[0]}x{FRONTEND_FRAME[1]} video frames at {FRONTEND_FPS:.0f} fps",
+          flush=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        uploads, (upload, sr) = frontend_upload(backend, dev, card, tmp)
+    timing = frontend_timing(backend, card)
+    t0 = time.perf_counter()
+    frames = frontend_frames()
+    frames_s = time.perf_counter() - t0
+
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    processed = backend.audio_processor.process_audio(upload, orig_sr=sr)
+    detect, mapped = [], []
+    with _timing_calls(vsd.VisualSpeechDetector, "detect_speech_segments", detect), \
+            _timing_calls(backend.visual_mapper, "distribute_audio", mapped):
+        out = backend.translate_speech(processed, "eng", "fra", original_video_frames=frames,
+                                       video_fps=FRONTEND_FPS)
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    _check_request(out, FRONTEND_SECONDS, "frontend request")
+    stages = {k: v["seconds"] for k, v in out["stage_summary"].items()}
+    segments = [(s.start, s.end) for s in detect[0][1]] if detect else []
+    native = next(r for r in e2e["requests"] if r["audio_s"] == FRONTEND_SECONDS)
+    print(f"  {FRONTEND_SECONDS:.0f} s upload, process_audio + translate_speech with frames: wall "
+          f"{wall:.3f} s  " + "  ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + f"  (audio only, e2e phase: wall {native['wall_s']:.3f} s, post "
+          f"{native['stages_s']['post']:.3f} s)  [{card}]", flush=True)
+    print(f"    visual branch: detector {detect[0][0] if detect else math.nan:.3f} s, segments "
+          f"{[(round(a, 3), round(b, 3)) for a, b in segments]}, distribute_audio "
+          f"{mapped[0][0] if mapped else math.nan:.3f} s; frames built in {frames_s:.1f} s "
+          f"(host)", flush=True)
+    print(f"    launches over process_audio and the request: {launches}", flush=True)
+    if len(detect) != 1 or not segments or len(mapped) != 1:
+        raise AssertionError(f"the visual branch did not run: detector calls {len(detect)}, "
+                             f"segments {segments}, distribute_audio calls {len(mapped)}")
+    narrow = _narrow_stages(backend)
+    if launches["log_mel_frames"] != 1 or launches["fused_resblock_stage"] != narrow:
+        raise AssertionError(f"frontend request launched {launches}, not log-mel 1 and "
+                             f"resblock {narrow}")
+    front = {"uploads": uploads, "timing": timing, "wall_s": wall, "stages_s": stages,
+             "detector_s": detect[0][0], "distribute_s": mapped[0][0], "segments": segments,
+             "frames_build_s": frames_s, "launches": launches,
+             "out_samples": int(out["audio"].shape[1])}
+    front["seconds"] = time.perf_counter() - t_phase
+    print(f"  frontend phase {front['seconds']:.1f} s", flush=True)
+    report["frontend"] = front
+    return front
+
+
 BATCH_REQUESTS = 8
 BATCH_SECONDS = 10.0
 
@@ -1114,6 +1361,15 @@ def _counting_stream_chunks(calls: list):
         cosyvoice.flow_vocode_chunk = chunk
 
 
+def _narrow_stages(backend) -> int:
+    """vocode's stages narrow enough for the resblock kernel (C ≤ 128, C % 8
+    == 0): its launches a vocode (2 at reference width)."""
+    tts = getattr(backend.engines.tts, "engine", backend.engines.tts)
+    vc = tts.cfg.vocoder
+    widths = [vc.base_channels // 2 ** (i + 1) for i in range(len(vc.upsample_rates))]
+    return sum(1 for c in widths if c <= 128 and c % 8 == 0)
+
+
 def streaming_phase(dev, report, card, backend, e2e):
     """``translate_speech_streaming`` (eng → fra, cloning on) of a 10 s and a
     40 s request on the e2e phase's backend, each with the launch counters
@@ -1129,10 +1385,7 @@ def streaming_phase(dev, report, card, backend, e2e):
     t_phase = time.perf_counter()
     streams, res_shapes = [], []
     launches_total = dict.fromkeys(LAUNCH_COUNTERS, 0)
-    tts = getattr(backend.engines.tts, "engine", backend.engines.tts)
-    vc = tts.cfg.vocoder
-    widths = [vc.base_channels // 2 ** (i + 1) for i in range(len(vc.upsample_rates))]
-    per_chunk = sum(1 for c in widths if c <= 128 and c % 8 == 0)  # vocode's narrow stages
+    per_chunk = _narrow_stages(backend)
     for seconds in STREAM_SECONDS:
         x = _speechlike(seconds, seed=200 + int(seconds))
         shapes, chunks, events = [], [], []
@@ -2208,25 +2461,29 @@ def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
-def _launches(name, e2e, batched, stream, mtp, official, ckpt) -> dict:
+def _launches(name, e2e, front, batched, stream, mtp, official, ckpt) -> dict:
     """A kernel's launch count on each path driven: the three single
-    requests, the detection of the 10 s request, the batched requests, the
-    two streamed requests, the mtp phase's TTS runs, the official chain's
-    10 s request, the 10 s request served from the bake."""
+    requests, the detection of the 10 s request, the frontend's upload and
+    video request, the batched requests, the two streamed requests, the mtp
+    phase's TTS runs, the official chain's 10 s request, the 10 s request
+    served from the bake."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
+            "frontend": front["launches"][name],
             "batched": batched["launches"][name], "streaming": stream["launches"][name],
             "mtp": mtp["launches"][name], "official": official["launches"][name],
             "checkpoints": ckpt["launches"][name]}
 
 
-def _decode_entry(name, source, replaces, rows, e2e, batched, stream, mtp, official, ckpt):
+def _decode_entry(name, source, replaces, rows, e2e, front, batched, stream, mtp, official,
+                  ckpt):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
     timed = next(r for r in rows if "ms" in r)
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
-            "launches_by_path": _launches(name, e2e, batched, stream, mtp, official, ckpt),
+            "launches_by_path": _launches(name, e2e, front, batched, stream, mtp, official,
+                                          ckpt),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -2234,8 +2491,8 @@ def _decode_entry(name, source, replaces, rows, e2e, batched, stream, mtp, offic
             "chain_calls": timed["chain_calls"]}
 
 
-def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched, stream, mtp,
-                 official, ckpt):
+def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, batched, stream,
+                 mtp, official, ckpt):
     """One entry per kernel. ``launches`` counts the three single requests;
     ``launches_by_path`` adds the detection, the batched requests and the
     streamed ones.
@@ -2255,8 +2512,8 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched,
          "source": f"{PORT}/csrc/log_mel.cu",
          "replaces": f"{REFERENCE}/ops/pallas_mel.py:79",
          "launches": e2e["launches"]["log_mel_frames"],
-         "launches_by_path": _launches("log_mel_frames", e2e, batched, stream, mtp, official,
-                                       ckpt),
+         "launches_by_path": _launches("log_mel_frames", e2e, front, batched, stream, mtp,
+                                       official, ckpt),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -2265,8 +2522,8 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched,
          "source": f"{PORT}/csrc/resblock.cu",
          "replaces": f"{REFERENCE}/ops/pallas_vocoder.py:113",
          "launches": e2e["launches"]["fused_resblock_stage"],
-         "launches_by_path": _launches("fused_resblock_stage", e2e, batched, stream, mtp,
-                                       official, ckpt),
+         "launches_by_path": _launches("fused_resblock_stage", e2e, front, batched, stream,
+                                       mtp, official, ckpt),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -2280,11 +2537,11 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, batched,
          "stream_plain_ms": sum(r["graph_plain_ms"] for r in streamed),
          "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
-                      batched, stream, mtp, official, ckpt),
+                      front, batched, stream, mtp, official, ckpt),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
-                      batched, stream, mtp, official, ckpt),
+                      front, batched, stream, mtp, official, ckpt),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
-                      batched, stream, mtp, official, ckpt),
+                      front, batched, stream, mtp, official, ckpt),
     ]
 
 
@@ -2325,6 +2582,7 @@ def main() -> int:
     build_phase(report)
     kernel_rows = kernels_phase(dev, report)
     e2e, backend = e2e_phase(dev, report, card)
+    front = frontend_phase(dev, report, card, backend, e2e)
     batched = batched_phase(dev, report, card, e2e)
     stream = streaming_phase(dev, report, card, backend, e2e)
     mtp = mtp_phase(dev, report, card, backend, e2e)
@@ -2335,7 +2593,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, batched, stream, mtp,
+    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, front, batched, stream, mtp,
                                               official, ckpt)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

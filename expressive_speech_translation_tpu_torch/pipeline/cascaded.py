@@ -2,28 +2,34 @@
 
 Port of the JAX package's ``pipeline/cascaded.py`` ``initialize``,
 ``translate_speech``, ``translate_speech_streaming``, ``translate_text``,
-``extract_pauses``, ``reference_audio_for_cloning`` and the natural-flow
-temporal mapping:
-ASR with word timestamps, NMT, TTS (cloning the source voice unless
-``use_voice_cloning=False``), host resampling to 16 kHz, temporal mapping onto
-the source's timing, and loudness toward -23 LUFS. Engines stay resident;
-stage boundaries are in-process arrays.
+``extract_pauses``, ``reference_audio_for_cloning``, the language queries and
+the temporal mapping: ASR with word timestamps, NMT, TTS (cloning the source
+voice unless ``use_voice_cloning=False``), host resampling to 16 kHz, then
+the visual-guided mapping into the speech segments of the request's video
+frames, or the natural-flow mapping onto the source's timing, and loudness
+toward -23 LUFS. Engines stay resident; stage boundaries are in-process
+arrays.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..core.config import AppConfig
 from ..core.errors import ValidationError
 from ..obs.perf import StageTimer
 from ..ops.host_dsp import loudness_normalize_np, resample_np
+from .audio_processor import AudioProcessor
 from .engines import Engines
-from .languages import COSYVOICE_LANGUAGES, NLLB_LANGUAGES
+from .languages import COSYVOICE_LANGUAGES, NLLB_LANGUAGES, supported_languages
 from .temporal_mapper import TemporalMapper
+from .visual_speech_detector import VisualSpeechDetector
+from .visual_temporal_mapper import VisualTemporalMapper
 
 log = logging.getLogger(__name__)
 
@@ -33,17 +39,29 @@ TARGET_LUFS = -23.0
 
 
 class CascadedBackend:
-    def __init__(self, engines: Engines):
+    def __init__(self, engines: Engines, config: Optional[AppConfig] = None):
         self.engines = engines
+        self.config = config or AppConfig()
         self.temporal_mapper = TemporalMapper()
+        self.visual_mapper = VisualTemporalMapper()
         self.initialized = False
         self.last_stage_summary: Dict[str, Any] = {}
 
+    @functools.cached_property
+    def audio_processor(self) -> AudioProcessor:
+        """The request front end (a server runs it before ``translate_speech``),
+        built at first use on the ASR engine's device: a backend over CPU
+        engines or fakes constructs on a host with no card, and an engine
+        that names no device gets the card's processor."""
+        asr = getattr(self.engines.asr, "engine", self.engines.asr)
+        return AudioProcessor(self.config.audio, device=getattr(asr, "device", None))
+
     def initialize(self) -> None:
-        """Warm-up: 1 s of silence through ASR with no language (so language
-        detection warms too), a short sentence through NMT, and the sentence
-        through TTS with the silence as the cloning reference, so the
-        voice-prompt conditioning warms too."""
+        """Warm-up: the visual mapper, then 1 s of silence through ASR with no
+        language (so language detection warms too), a short sentence through
+        NMT, and the sentence through TTS with the silence as the cloning
+        reference, so the voice-prompt conditioning warms too."""
+        self.visual_mapper.initialize()
         silence = np.zeros(16_000, np.float32)
         self.engines.asr.transcribe(silence)
         self.engines.nmt.translate("Hello world.", "eng", "fra")
@@ -53,6 +71,9 @@ class CascadedBackend:
 
     def is_language_supported(self, lang: str) -> bool:
         return lang in COSYVOICE_LANGUAGES and lang in NLLB_LANGUAGES
+
+    def get_supported_languages(self) -> List[str]:
+        return supported_languages()
 
     @staticmethod
     def extract_pauses(words: List[Dict[str, float]]) -> List[Dict[str, float]]:
@@ -76,13 +97,10 @@ class CascadedBackend:
         """16 kHz speech → {"audio": [1, T] f32 at 16 kHz, "transcripts":
         {"source", "target"}, "process_id", "stage_summary"}.
         ``use_voice_cloning=False`` synthesizes without the source-audio
-        reference. The signature is the JAX backend's: without video frames,
-        ``video_fps`` and any other keyword change nothing; the visual
-        temporal mapping that frames select is not ported and raises."""
-        if original_video_frames:
-            raise NotImplementedError(
-                "translate_speech(original_video_frames=...) is not ported yet: ROADMAP.md "
-                "Queue 1 item 10 (the visual temporal mapper)")
+        reference. With ``original_video_frames`` (at ``video_fps``) the
+        translation is placed into the speech segments the frames show;
+        without them ``video_fps`` changes nothing, nor does any other
+        keyword (the JAX backend's signature)."""
         process_id = f"{time.time_ns():x}"[-8:]
         if not self.is_language_supported(target_lang):
             raise ValidationError(f"Unsupported target language: {target_lang}")
@@ -116,7 +134,9 @@ class CascadedBackend:
             tts_audio = resample_np(np.asarray(tts_audio), tts_sr, 16_000)
 
         with timer.stage("post"):
-            out = self._apply_natural_temporal_mapping(tts_audio, x, words)
+            out = self._apply_natural_temporal_mapping(
+                tts_audio, x, words, original_video_frames=original_video_frames,
+                video_fps=video_fps)
             out = loudness_normalize_np(out, TARGET_LUFS)
 
         self.last_stage_summary = timer.summary()
@@ -215,13 +235,35 @@ class CascadedBackend:
         yield from tts_events(target_text, source_text, self.reference_audio_for_cloning(x))
 
     def _apply_natural_temporal_mapping(self, translated: np.ndarray, source: np.ndarray,
-                                        words: List[Dict[str, float]]) -> np.ndarray:
-        """Map the translation onto the source's timing (pauses come from the
-        word timestamps inside the timing profile). Best effort: on failure
-        the audio is returned unmapped."""
+                                        words: List[Dict[str, float]], *,
+                                        original_video_frames: Optional[list] = None,
+                                        video_fps: float = 25.0) -> np.ndarray:
+        """With video frames, place the translation into the speech segments
+        the frames show; with none, or no segment, or a failure there (logged,
+        as in the JAX backend), map it onto the source's timing (pauses come
+        from the word timestamps inside the timing profile). Best effort: on
+        a failure of that too the audio is returned unmapped."""
+        if original_video_frames:
+            try:
+                # a preset detector serves only a request at its own frame
+                # clock: segment times scale with frame_skip / fps
+                detector = self.visual_mapper.detector
+                if detector is None or getattr(detector, "fps", video_fps) != video_fps:
+                    detector = VisualSpeechDetector(fps=video_fps)
+                segments = detector.detect_speech_segments(original_video_frames)
+                if segments:
+                    total = len(original_video_frames) / video_fps
+                    return self.visual_mapper.distribute_audio(
+                        translated, segments, total, source_audio=source)
+                log.info("no visual speech segments; falling back to natural flow")
+            except Exception:  # noqa: BLE001 — the visual mapping never fails the request
+                log.exception("visual mapping failed; falling back to natural flow")
         try:
             profile = self.temporal_mapper.timing_profile(source, words or None)
             return self.temporal_mapper.apply_temporal_guidance(translated, source, profile)
         except Exception:  # noqa: BLE001 — temporal mapping never fails the request
             log.exception("temporal mapping failed; returning unmapped audio")
             return np.asarray(translated, np.float32).reshape(-1)
+
+    def cleanup(self) -> None:
+        log.info("CascadedBackend cleanup")

@@ -22,6 +22,12 @@ NLLB_LANGUAGES = {
     "hin": "hin_Deva", "ell": "ell_Grek", "ukr": "ukr_Cyrl",
 }
 
+
+def supported_languages() -> list[str]:
+    """Languages the cascade supports end to end."""
+    return sorted(set(COSYVOICE_LANGUAGES) & set(NLLB_LANGUAGES))
+
+
 # whisper short codes in language-token order (<|en|> is the first)
 _WHISPER_LANG_ORDER = [
     "en", "zh", "de", "es", "ru", "ko", "fr", "ja", "pt", "tr", "pl", "ca",

@@ -168,10 +168,37 @@ def test_translate_speech_at_its_defaults_clones_the_voice_like_jax(cascades):
     np.testing.assert_allclose(got["audio"], want["audio"], atol=AUDIO_ATOL, rtol=0)
 
 
-def test_translate_speech_takes_the_jax_keywords(cascades):
+def _visual_spies(monkeypatch, detector_cls, mapper):
+    """Record each ``detect_speech_segments`` call (the detector's fps, the
+    detector, the segments) and each ``distribute_audio`` call."""
+    detects, distributes = [], []
+    detect, distribute = detector_cls.detect_speech_segments, mapper.distribute_audio
+
+    def spy_detect(self, frames):
+        segs = detect(self, frames)
+        detects.append((self.fps, self, [(g.start, g.end) for g in segs]))
+        return segs
+
+    def spy_distribute(*args, **kwargs):
+        distributes.append(len(args[1]))
+        return distribute(*args, **kwargs)
+
+    monkeypatch.setattr(detector_cls, "detect_speech_segments", spy_detect)
+    monkeypatch.setattr(mapper, "distribute_audio", spy_distribute)
+    return detects, distributes
+
+
+def test_translate_speech_takes_the_jax_keywords(cascades, monkeypatch):
     """The JAX backend's signature: without frames, ``video_fps`` and an
-    unknown keyword change nothing; frames ask for the visual temporal
-    mapping, which is not ported, and raise before any engine runs."""
+    unknown keyword change nothing. With frames the translation goes into the
+    speech segments they show, as JAX's does: a talking-head clip (one
+    segment, the visual branch taken), the same clip at 30 fps with a 25 fps
+    detector preset (rebuilt at 30 fps), and still frames (no segment: the
+    natural-flow mapping, the visual mapper not called)."""
+    from expressive_speech_translation_tpu.pipeline import visual_speech_detector as jvsd
+    from expressive_speech_translation_tpu_torch.pipeline import visual_speech_detector as tvsd
+    from test_face import synthetic_clip
+
     jax_backend, backend = cascades
     x = _speechlike(2.5, seed=9)
     kw = dict(use_voice_cloning=False, video_fps=30.0, request_id="r1")
@@ -180,11 +207,73 @@ def test_translate_speech_takes_the_jax_keywords(cascades):
     assert got["transcripts"] == want["transcripts"]
     assert got["audio"].shape == want["audio"].shape
     np.testing.assert_allclose(got["audio"], want["audio"], atol=AUDIO_ATOL, rtol=0)
-    calls = backend.engines.tts._call_count
-    frames = [np.zeros((8, 8, 3), np.uint8)] * 4
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10 "):
-        backend.translate_speech(x, "eng", "fra", original_video_frames=frames, video_fps=25.0)
-    assert backend.engines.tts._call_count == calls
+
+    jspies = _visual_spies(monkeypatch, jvsd.VisualSpeechDetector, jax_backend.visual_mapper)
+    tspies = _visual_spies(monkeypatch, tvsd.VisualSpeechDetector, backend.visual_mapper)
+    still = [np.full((64, 64, 3), 90, np.uint8)] * 60
+    cases = [("face", list(synthetic_clip(n=60)), 24.0, None),
+             ("fps mismatch", list(synthetic_clip(n=75)), 30.0, 25.0),
+             ("still", still, 24.0, None)]
+    for label, frames, fps, preset in cases:
+        jax_backend.visual_mapper.detector = preset and jvsd.VisualSpeechDetector(fps=preset)
+        backend.visual_mapper.detector = preset and tvsd.VisualSpeechDetector(fps=preset)
+        vkw = dict(use_voice_cloning=False, original_video_frames=frames, video_fps=fps)
+        want = jax_backend.translate_speech(x, "eng", "fra", **vkw)
+        got = backend.translate_speech(x, "eng", "fra", **vkw)
+        assert got["transcripts"] == want["transcripts"], label
+        assert got["audio"].shape == want["audio"].shape, label
+        assert np.isfinite(got["audio"]).all()
+        np.testing.assert_allclose(got["audio"], want["audio"], atol=AUDIO_ATOL, rtol=0,
+                                   err_msg=label)
+        for (detects, distributes), mapper in ((jspies, jax_backend.visual_mapper),
+                                               (tspies, backend.visual_mapper)):
+            (det_fps, det, segs), = detects
+            assert det_fps == fps and det is not mapper.detector, label
+            assert bool(segs) == (label != "still"), (label, segs)
+            assert distributes == ([len(segs)] if segs else []), label
+            detects.clear(), distributes.clear()
+    jax_backend.visual_mapper.detector = backend.visual_mapper.detector = None
+
+
+def test_the_backend_language_queries_cleanup_and_audio_processor(cascades):
+    """``get_supported_languages`` and ``cleanup`` as JAX's; the backend's
+    audio processor is built at first use, on its ASR engine's device."""
+    jax_backend, backend = cascades
+    assert backend.get_supported_languages() == jax_backend.get_supported_languages()
+    assert "fra" in backend.get_supported_languages() and "ukr" not in \
+        backend.get_supported_languages()
+    assert backend.cleanup() is None and jax_backend.cleanup() is None
+    assert "audio_processor" not in vars(backend)
+    proc = backend.audio_processor
+    assert proc.device == torch.device("cpu") and backend.audio_processor is proc
+    assert proc.config is backend.config.audio
+    x = _speechlike(1.0, seed=10)
+    np.testing.assert_allclose(proc.process_audio(x), jax_backend.audio_processor.process_audio(x),
+                               atol=1e-5, rtol=0)
+
+
+def test_a_backend_over_fakes_constructs_without_the_card():
+    """Constructing and initializing needs no card; the audio processor,
+    built at first use for engines that name no device, asks for it."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device; the default device is valid here")
+
+    class Fake:
+        def transcribe(self, audio, language=None):
+            return {"text": "bonjour", "words": []}
+
+        def translate(self, text, src, tgt):
+            return text
+
+        def synthesize(self, text, **kw):
+            return np.zeros(24_000, np.float32)
+
+    f = Fake()
+    backend = CascadedBackend(Engines(asr=f, nmt=f, tts=f))
+    backend.initialize()
+    assert backend.initialized and backend.visual_mapper.initialized
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        backend.audio_processor
 
 
 def test_synthesize_with_a_reference_matches_jax(cascades):
@@ -310,12 +399,23 @@ def test_asr_fallback_ladder_and_previous_text_prompts():
 def test_port_runs_without_jax_or_the_jax_package():
     """A fresh process runs the port's tiny cascade on the CPU, imports
     every module (the checkpoint loaders, the safetensors reader, the
-    tokenizers, the WAV codec among them) and serves a bake, and must not
-    have imported jax, anything of the JAX package, or the optional
+    tokenizers, the WAV codec, the audio front end, the visual mapping and
+    the configuration among them), serves a bake, runs ``load_config()`` and
+    a request with video frames, with jax, the JAX package and ``yaml``
+    blocked from import, and must not have imported them nor the optional
     ``safetensors`` / ``transformers`` / ``tokenizers`` (this test process
-    has them all: tests/conftest.py imports jax)."""
+    has them all: tests/conftest.py imports jax); the new modules import no
+    ``scipy`` or ``yaml`` at module level."""
     script = textwrap.dedent("""
         import sys
+        import importlib.abc
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "expressive_speech_translation_tpu", "yaml"):
+                    raise ImportError(f"{name} is blocked")
+
+        sys.meta_path.insert(0, Block())
         import numpy as np, torch
         from expressive_speech_translation_tpu_torch.models import cosyvoice as cv, nllb, qwen2, whisper
         from expressive_speech_translation_tpu_torch.pipeline.cascaded import CascadedBackend
@@ -363,9 +463,23 @@ def test_port_runs_without_jax_or_the_jax_package():
         os.environ["EST_MODELS_DIR"] = root
         assert torch_engines(device="cpu").tts.conditioning_weightless is False
         assert type(tokenizer.load_tokenizer(None)).__name__ == "ByteTokenizer"
+        # the audio front end, the visual mapping and the configuration
+        from expressive_speech_translation_tpu_torch.core.config import load_config
+        from expressive_speech_translation_tpu_torch.ops import dsp, stft
+        from expressive_speech_translation_tpu_torch.pipeline import (
+            audio_processor, face, visual_speech_detector, visual_temporal_mapper)
+        assert not [m for m in sys.modules if m.split(".")[0] in ("scipy", "yaml")]
+        cfg = load_config(env={"EST_SERVE__PORT": "7001", "EST_MODELS_DIR": root})
+        assert cfg.serve.port == 7001 and load_config().audio.sample_rate == 16_000
+        proc = audio_processor.AudioProcessor(cfg.audio, device="cpu")
+        y = proc.process_audio(np.stack([x, x[::-1].copy()]), orig_sr=24_000)
+        assert y.shape == (16_000,) and np.isfinite(y).all()
+        frames = [np.full((48, 64, 3), 90, np.uint8)] * 12
+        out = backend.translate_speech(x, "eng", "fra", original_video_frames=frames)
+        assert out["audio"].ndim == 2 and np.isfinite(out["audio"]).all()
         bad = [m for m in sys.modules if m.split(".")[0] in (
             "jax", "expressive_speech_translation_tpu", "safetensors", "transformers",
-            "tokenizers")]
+            "tokenizers", "yaml")]
         print("FORBIDDEN", bad)
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
