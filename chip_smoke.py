@@ -45,21 +45,37 @@ Phases, in order; any failure exits non-zero and prints no result:
               the visual branch must find speech segments and call
               ``distribute_audio`` (detector and mapper seconds printed),
               log-mel launch once and the resblock twice;
-6. batched  — the same engines behind the three micro-batchers
+6. serve    — the e2e phase's backend as the default of a
+              ``TranslationManager``: with werkzeug (checked and printed),
+              ``serve/app.py``'s ``create_app(device="cuda")`` served by
+              ``make_server`` on a free localhost port in a thread, and real
+              HTTP requests (urllib): ``/translate`` of a 10 s 44.1 kHz
+              stereo PCM16 upload, the same streamed (SSE), ``/translate-text``
+              with synthesis, ``/process-video`` over a test ``VideoIO`` (the
+              upload's audio, the frontend phase's frames, a lip-sync that
+              raises so the mux runs), ``/health/model`` and
+              ``/available-backends``; without werkzeug, the calls each route
+              makes, driven directly. Each route's wall beside the
+              ``translate_speech`` seconds inside it, the stream's first
+              audio frame, peak memory; the audio decodes, the video is
+              watermarked and its visual branch ran, the placement is device
+              0 for every stage, log-mel launches once and the resblock twice
+              for each offline request;
+7. batched  — the same engines behind the three micro-batchers
               (``torch_engines(batch_*=True, max_batch=8)``), ``initialize()``,
               8 concurrent 10 s ``translate_speech`` requests from 8 threads:
               requests per second against the e2e phase's 10 s request served
               alone, the batches formed, peak memory; the resblock kernel must
               have launched at B > 1, and is checked and timed at the shapes
               the requests handed it;
-7. streaming — the e2e phase's engines (no second ``initialize()``),
+8. streaming — the e2e phase's engines (no second ``initialize()``),
               ``translate_speech_streaming`` of a 10 s and a 40 s request
               (two ASR windows), cloning on: time to the first audio event,
               wall, events and chunk lengths, the launch counters around each
               stream (log-mel once a window, resblock twice a streamed TTS
               chunk); the resblock kernel checked and timed at the (B, C, T)
               the stream handed it, in vocode's layout and the contiguous one;
-8. mtp      — the e2e phase's TTS config on one random tree with two MTP
+9. mtp      — the e2e phase's TTS config on one random tree with two MTP
               heads, bf16: ``synthesize`` of the 10 s request's text and voice
               prompt at ``mtp=1``, ``mtp=3`` (accept-all) and ``mtp=3,
               spec=True`` (stage seconds, speech tokens, backbone passes,
@@ -72,7 +88,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               weights against bf16 (logits within INT8_LOGIT_RTOL, both
               replayed as CUDA graphs in turns at B = 1 and 8) and one 10 s
               request on ``torch_engines(quantize=True)``;
-9. official — the official CosyVoice2 chain at its full width
+10. official — the official CosyVoice2 chain at its full width
               (``OfficialTtsConfig()``: Qwen2-0.5B LM with 6,561 speech tokens,
               the 512-wide 6 + 4 block conformer, the 256-channel estimator of
               14 units × 4 transformer blocks, 10 Euler steps with CFG, HiFT
@@ -92,7 +108,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               inferred), and the HiFT source of one 10 s bf16-representable
               f0 track with the engine's bf16 HiFT parameters against their
               f32 copies (the port integrates the phase in f32);
-10. checkpoints — seeded random Whisper-medium, NLLB-200-distilled-600M,
+11. checkpoints — seeded random Whisper-medium, NLLB-200-distilled-600M,
               ECAPA (1,024 channels) and the official CosyVoice2 triple, f32,
               written by ``obs/checkpoint_emitters.py`` in their published
               formats (``model.safetensors``, ``pytorch_model.bin``,
@@ -109,7 +125,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               temperature ladder and 2 resblock launches, the resblock kernel
               checked at the request's shapes; and an orbax-style stage
               directory refused;
-11. the kernels line, the card line, and last the result line.
+12. the kernels line, the card line, and last the result line.
 
 The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
 greedy call.
@@ -119,15 +135,19 @@ The long report goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
+import logging
 import math
 import os
 import shutil
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -1229,6 +1249,359 @@ def frontend_phase(dev, report, card, backend, e2e):
     print(f"  frontend phase {front['seconds']:.1f} s", flush=True)
     report["frontend"] = front
     return front
+
+
+SERVE_SECONDS = FRONTEND_SECONDS
+SERVE_TEXT = "The weather is fine today."
+_SSE_PREFIX = "data: "
+
+
+class SmokeVideoIO:
+    """The serve phase's test VideoIO: the upload's audio (its channels
+    averaged, at the upload's rate), the frontend phase's frames at 25 fps, a
+    lip-sync that raises (so the route falls back to the mux), and a mux that
+    writes a minimal ISO-BMFF file (an ftyp box, then an mdat box holding the
+    dubbed audio as PCM16), which the route watermarks."""
+
+    def __init__(self, audio: np.ndarray, sr: int, frames: list, fps: float = FRONTEND_FPS):
+        self.audio = (audio.mean(0) if audio.ndim == 2 else audio).astype(np.float32)
+        self.sr, self.video_frames, self.fps = sr, frames, fps
+
+    def extract_audio(self, video_path):
+        return self.audio, self.sr
+
+    def frames(self, video_path):
+        return self.video_frames, self.fps
+
+    def lipsync(self, video_path, audio, sr, out_path):
+        raise RuntimeError("no lip-sync model in the smoke")
+
+    def mux(self, video_path, audio, sr, out_path):
+        pcm = (np.clip(audio, -1.0, 1.0) * 32767.0).astype("<i2").tobytes()
+        ftyp = b"\x00\x00\x00\x18ftypisom\x00\x00\x02\x00isomiso2"
+        with open(out_path, "wb") as f:
+            f.write(ftyp + (8 + len(pcm)).to_bytes(4, "big") + b"mdat" + pcm)
+
+
+def _sse(lines) -> list:
+    return [json.loads(line[len(_SSE_PREFIX):]) for line in lines if line.startswith(_SSE_PREFIX)]
+
+
+def _serve_http(manager, vio, wav, video, device, tmp, run) -> None:
+    """The routes through the port's app served by werkzeug on a free
+    localhost port, in a thread, with real HTTP requests from urllib."""
+    import urllib.error
+    import urllib.request
+
+    from werkzeug.datastructures import FileStorage
+    from werkzeug.serving import make_server
+    from werkzeug.test import encode_multipart
+
+    logging.getLogger("werkzeug").setLevel(logging.WARNING)    # no line a request
+
+    from expressive_speech_translation_tpu_torch.core.config import AppConfig
+    from expressive_speech_translation_tpu_torch.serve.app import create_app
+
+    app = create_app(manager, AppConfig(temp_dir=tmp), device=device, video_io=vio)
+    server = make_server("127.0.0.1", 0, app, threaded=True)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_port}"
+
+    def request(path, fields=None, files=None, body=None, stream=False):
+        """→ (status, body bytes or SSE frames, seconds to the first audio
+        frame of a stream)."""
+        headers, data = {}, None
+        if files is not None:
+            boundary, data = encode_multipart({**fields, **{
+                k: FileStorage(io.BytesIO(raw), filename=name) for k, (raw, name) in files.items()}})
+            headers["Content-Type"] = f"multipart/form-data; boundary={boundary}"
+        elif body is not None:
+            data, headers["Content-Type"] = json.dumps(body).encode(), "application/json"
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + path, data=data, headers=headers,
+                                     method="GET" if data is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=900) as resp:
+                if not stream:
+                    return resp.status, resp.read(), None
+                lines, first = [], None
+                for raw in resp:
+                    line = raw.decode().rstrip("\n")
+                    if first is None and '"audio_chunk"' in line:
+                        first = time.perf_counter() - t0
+                    lines.append(line)
+                return resp.status, _sse(lines), first
+        except urllib.error.HTTPError as e:
+            return e.code, e.read(), None
+
+    try:
+        run("translate", lambda: request(
+            "/translate", {"target_language": "fra", "source_language": "eng"},
+            {"file": (wav, "upload.wav")}))
+        run("stream", lambda: request(
+            "/translate", {"target_language": "fra", "stream": "true"},
+            {"file": (wav, "upload.wav")}, stream=True))
+        run("text", lambda: request("/translate-text", body={
+            "text": SERVE_TEXT, "source_language": "eng", "target_language": "fra",
+            "synthesize": True}))
+        run("video", lambda: request("/process-video", {"target_language": "fra"},
+                                     {"file": (video, "clip.mp4")}, stream=True))
+        run("health", lambda: request("/health/model"))
+        run("backends", lambda: request("/available-backends"))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+
+def _serve_direct(manager, vio, wav, video, device, tmp, run) -> None:
+    """The calls each route makes under the HTTP layer, made directly: the
+    WAV read, ``validate_audio_length``, ``process_audio``,
+    ``translate_speech`` and the WAV encode; the stream framed with
+    ``generate_progress_event``; ``translate_text``; ``process_video``; the
+    health payload's parts. Each gives what its route's body would."""
+    from expressive_speech_translation_tpu_torch.media.wavio import read_wav_bytes, wav_bytes
+    from expressive_speech_translation_tpu_torch.serve.resource_monitor import (
+        device_memory_stats, process_rss_bytes)
+    from expressive_speech_translation_tpu_torch.serve.video import (VideoProcessor,
+                                                                     generate_progress_event)
+    from expressive_speech_translation_tpu_torch.pipeline.audio_processor import AudioProcessor
+
+    proc = AudioProcessor(device=device)
+    backend = manager.get_backend()
+
+    def b64_wav(audio):
+        return base64.b64encode(wav_bytes(audio, 16_000)).decode()
+
+    def processed():
+        x, sr = read_wav_bytes(wav, label="upload.wav")
+        proc.validate_audio_length(x.shape[-1] / sr)
+        return proc.process_audio(x, orig_sr=sr)
+
+    def translate():
+        out = backend.translate_speech(processed(), "eng", "fra")
+        return 200, json.dumps({"audio": b64_wav(out["audio"][0]),
+                                "transcripts": out["transcripts"],
+                                "weights": backend.weights_info()}).encode(), None
+
+    def stream():
+        t0, first, frames = time.perf_counter(), None, []
+        for ev in backend.translate_speech_streaming(processed(), "eng", "fra"):
+            if ev["type"] == "transcripts":
+                frame = generate_progress_event(50, "Translating speech", transcripts={
+                    "source": ev["source"], "target": ev["target"]})
+            else:
+                pcm = (np.clip(ev["chunk"], -1.0, 1.0) * 32767.0).astype("<i2").tobytes()
+                frame = generate_progress_event(75, "Synthesizing speech",
+                                                audio_chunk=base64.b64encode(pcm).decode(),
+                                                sample_rate=ev["sample_rate"])
+                first = first or time.perf_counter() - t0
+            frames.append(frame)
+        frames.append(generate_progress_event(100, "Complete", done=True))
+        return 200, _sse("".join(frames).split("\n\n")), first
+
+    def text():
+        out = backend.translate_text(SERVE_TEXT, "eng", "fra", synthesize=True)
+        return 200, json.dumps({"source_text": out["source_text"], "target_text": out["target_text"],
+                                "audio": b64_wav(out["audio"][0])}).encode(), None
+
+    def video_route():
+        frames = VideoProcessor(vio, temp_root=tmp, audio_processor=proc).process_video(
+            video, backend, "eng", "fra", filename="clip.mp4")
+        return 200, _sse("".join(frames).split("\n\n")), None
+
+    def health():
+        return 200, json.dumps({
+            "healthy": backend.initialized, "weights": backend.weights_info(),
+            "placement": backend.placement_info(), "decode": backend.decode_info(),
+            "process_rss_mb": round(process_rss_bytes() / 1e6, 1),
+            "device_memory": device_memory_stats()}).encode(), None
+
+    def backends():
+        return 200, json.dumps({"backends": manager.available_backends(),
+                                "default": manager.default_backend,
+                                "weights": manager.backend_weights(),
+                                "decode": manager.backend_decode()}).encode(), None
+
+    for name, fn in (("translate", translate), ("stream", stream), ("text", text),
+                     ("video", video_route), ("health", health), ("backends", backends)):
+        run(name, fn)
+
+
+def serve_routes(manager, backend, upload, frames, device, *, http: bool,
+                 seconds: float = SERVE_SECONDS, tmp: str) -> dict:
+    """Drive /translate (offline and streamed), /translate-text with
+    synthesis, /process-video over :class:`SmokeVideoIO`, /health/model and
+    /available-backends: through the port's app over HTTP (``http=True``),
+    or through the calls each route makes. ``upload`` is a [2, T] upload at
+    44.1 kHz of ``seconds``. → per route: status, body (JSON, or SSE frames),
+    wall seconds, the ``translate_speech`` seconds inside it, the launch
+    counts, and for the streams the seconds to the first audio frame."""
+    from expressive_speech_translation_tpu_torch.media.wavio import wav_bytes
+
+    wav = wav_bytes(upload, FRONTEND_UPLOAD_SR)
+    video = b"\x00\x00\x00\x18ftypisom\x00\x00\x02\x00isomiso2" + bytes(4096)
+    vio = SmokeVideoIO(upload, FRONTEND_UPLOAD_SR, frames)
+    out = {"http": http}
+
+    def run(name, fn):
+        translated, mapped, chunks = [], [], []
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        _reset_launches()
+        with _timing_calls(backend, "translate_speech", translated), \
+                _timing_calls(backend.visual_mapper, "distribute_audio", mapped), \
+                _counting_stream_chunks(chunks):
+            t0 = time.perf_counter()
+            status, body, first = fn()
+            wall = time.perf_counter() - t0
+        out[name] = {"status": status, "wall_s": wall, "first_audio_s": first,
+                     "translate_s": translated[0][0] if translated else None,
+                     "launches": _read_launches(), "tts_chunks": len(chunks),
+                     "distribute_calls": len(mapped),
+                     "body": body if isinstance(body, list) else json.loads(body)}
+
+    (_serve_http if http else _serve_direct)(manager, vio, wav, video, device, tmp, run)
+    return out
+
+
+def _decoded_wav(b64: str) -> np.ndarray:
+    from expressive_speech_translation_tpu_torch.media.wavio import read_wav_bytes
+
+    x, sr = read_wav_bytes(base64.b64decode(b64), label="response")
+    if sr != 16_000:
+        raise AssertionError(f"a response's WAV is at {sr} Hz")
+    return x
+
+
+def check_serve_routes(out: dict, *, seconds: float, weights: str, placement: dict) -> None:
+    """What both branches must give: 200s; the offline and video audio
+    decodes, finite and at least ``seconds`` of 16 kHz; the stream a
+    transcripts frame, an audio frame and ``done``; the video's last frame
+    complete, its MP4 watermarked, the visual branch run; the health
+    payload healthy with ``weights`` and ``placement``."""
+    from expressive_speech_translation_tpu_torch.pipeline.watermark import WaterMark
+
+    bad = {k: v["status"] for k, v in out.items() if k != "http" and v["status"] != 200}
+    if bad:
+        raise AssertionError(f"serve: routes answered {bad}: "
+                             + str({k: str(out[k]["body"])[:300] for k in bad}))
+    n = int(seconds * 16_000)
+    body = out["translate"]["body"]
+    audio = _decoded_wav(body["audio"])
+    if not (audio.ndim == 1 and len(audio) >= n and np.isfinite(audio).all()):
+        raise AssertionError(f"serve /translate: audio {audio.shape}")
+    if body["weights"] != weights or set(body["transcripts"]) != {"source", "target"}:
+        raise AssertionError(f"serve /translate: weights {body['weights']!r}, "
+                             f"transcripts {body['transcripts']}")
+    frames = out["stream"]["body"]
+    pcm = [np.frombuffer(base64.b64decode(f["audio_chunk"]), "<i2") for f in frames
+           if "audio_chunk" in f]
+    if not (any("transcripts" in f for f in frames) and pcm and frames[-1].get("done") is True
+            and sum(map(len, pcm)) > 0 and all(f.get("sample_rate", 16_000) == 16_000
+                                               for f in frames)):
+        raise AssertionError(f"serve stream: frames {[sorted(f) for f in frames][:8]}")
+    text = out["text"]["body"]
+    speech = _decoded_wav(text["audio"])
+    if not (text["source_text"] == SERVE_TEXT and len(speech) and np.isfinite(speech).all()):
+        raise AssertionError(f"serve /translate-text: {text.get('target_text')!r}, "
+                             f"{speech.shape}")
+    frames = out["video"]["body"]
+    final = frames[-1]
+    if final.get("phase") != "complete":
+        raise AssertionError(f"serve /process-video ended with {final}")
+    mp4 = base64.b64decode(final["result"]["video"])
+    size = int.from_bytes(mp4[24:28], "big")
+    dubbed = np.frombuffer(mp4[32:24 + size], "<i2")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "delivered.mp4")
+        with open(path, "wb") as f:
+            f.write(mp4)
+        marked = WaterMark.verify(path)
+    if not (mp4[4:8] == b"ftyp" and mp4[28:32] == b"mdat" and len(dubbed) >= n and marked):
+        raise AssertionError(f"serve /process-video: {len(mp4)} bytes, {len(dubbed)} samples, "
+                             f"watermark {marked}")
+    if [f["progress"] for f in frames] != [10, 20, 30, 55, 60, 75, 90, 100]:
+        raise AssertionError(f"serve /process-video progress {[f['progress'] for f in frames]}")
+    if out["video"]["distribute_calls"] != 1:
+        raise AssertionError("serve /process-video: the visual branch did not run "
+                             f"({out['video']['distribute_calls']} distribute_audio calls)")
+    health = out["health"]["body"]
+    if not (health["healthy"] is True and health["weights"] == weights
+            and health["placement"] == placement):
+        raise AssertionError(f"serve /health/model: {health}")
+    if out["backends"]["body"]["weights"] != {"cascaded": weights}:
+        raise AssertionError(f"serve /available-backends: {out['backends']['body']}")
+
+
+def serve_phase(dev, report, card, backend, e2e, front):
+    """The HTTP server over the e2e phase's backend, registered as the
+    default of a ``TranslationManager``: with werkzeug, ``create_app``
+    served by ``make_server`` in a thread and real HTTP requests; without
+    it, the calls each route makes. /translate and /process-video each
+    launch log-mel once and the resblock twice; the streamed /translate
+    log-mel once and the resblock twice a TTS chunk."""
+    import importlib.util
+
+    from expressive_speech_translation_tpu_torch.pipeline.backend import TranslationManager
+
+    http = importlib.util.find_spec("werkzeug") is not None
+    print(f"== serve: werkzeug {'imports' if http else 'is missing'}; "
+          + ("the port's app served over HTTP on localhost" if http else
+             "the HTTP layer itself is not run on the card: the calls each route makes are "
+             "driven directly") + f", a {SERVE_SECONDS:.0f} s 44.1 kHz stereo upload", flush=True)
+    t_phase = time.perf_counter()
+    manager = TranslationManager()
+    manager.register_backend("cascaded", backend, is_default=True)
+    upload = _stereo_upload(SERVE_SECONDS, FRONTEND_UPLOAD_SR, 41)
+    frames = frontend_frames()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = serve_routes(manager, backend, upload, frames, dev, http=http, tmp=tmp)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    native = next(r for r in e2e["requests"] if r["audio_s"] == SERVE_SECONDS)
+    for name, row in out.items():
+        if name == "http":
+            continue
+        inner = row["translate_s"]
+        print(f"  {name:9s} {'HTTP' if http else 'direct'}: status {row['status']}, wall "
+              f"{row['wall_s']:.3f} s"
+              + (f", translate_speech {inner:.3f} s inside (the rest {row['wall_s'] - inner:.3f} s)"
+                 if inner is not None else "")
+              + (f", first audio frame at {row['first_audio_s']:.3f} s"
+                 if row["first_audio_s"] is not None else "")
+              + (f", launches {row['launches']}" if any(row["launches"].values()) else "")
+              + (f", {row['tts_chunks']} TTS chunks" if row["tts_chunks"] else "")
+              + f"  [{card}]", flush=True)
+    print(f"    peak {peak:.2f} GiB above the resident engines; the e2e phase's {SERVE_SECONDS:.0f} s "
+          f"request {native['wall_s']:.3f} s, the frontend's video request "
+          f"{front['wall_s']:.3f} s", flush=True)
+    check_serve_routes(out, seconds=SERVE_SECONDS, weights="random",
+                       placement={"asr": [0], "nmt": [0], "tts": [0]})
+    narrow = _narrow_stages(backend)
+    for name in ("translate", "video"):
+        got = out[name]["launches"]
+        if got["log_mel_frames"] != 1 or got["fused_resblock_stage"] != narrow:
+            raise AssertionError(f"serve {name}: launched {got}, not log-mel 1 and resblock "
+                                 f"{narrow}")
+    got = out["stream"]["launches"]
+    if (got["log_mel_frames"] != 1 or not out["stream"]["tts_chunks"]
+            or got["fused_resblock_stage"] != narrow * out["stream"]["tts_chunks"]):
+        raise AssertionError(f"serve stream: launched {got} for {out['stream']['tts_chunks']} "
+                             f"TTS chunks")
+    serve = {"http": http, "peak_gib_above_resident": peak,
+             "routes": {k: {f: v for f, v in row.items() if f != "body"}
+                        for k, row in out.items() if k != "http"},
+             "health": out["health"]["body"],
+             "launches": {k: sum(row["launches"][k] for name, row in out.items()
+                                 if name != "http") for k in LAUNCH_COUNTERS}}
+    serve["seconds"] = time.perf_counter() - t_phase
+    print(f"  serve phase {serve['seconds']:.1f} s", flush=True)
+    report["serve"] = serve
+    return serve
 
 
 BATCH_REQUESTS = 8
@@ -2461,29 +2834,29 @@ def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
-def _launches(name, e2e, front, batched, stream, mtp, official, ckpt) -> dict:
+def _launches(name, e2e, front, serve, batched, stream, mtp, official, ckpt) -> dict:
     """A kernel's launch count on each path driven: the three single
     requests, the detection of the 10 s request, the frontend's upload and
-    video request, the batched requests, the two streamed requests, the mtp
-    phase's TTS runs, the official chain's 10 s request, the 10 s request
-    served from the bake."""
+    video request, the serve phase's routes, the batched requests, the two
+    streamed requests, the mtp phase's TTS runs, the official chain's 10 s
+    request, the 10 s request served from the bake."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
-            "frontend": front["launches"][name],
+            "frontend": front["launches"][name], "serve": serve["launches"][name],
             "batched": batched["launches"][name], "streaming": stream["launches"][name],
             "mtp": mtp["launches"][name], "official": official["launches"][name],
             "checkpoints": ckpt["launches"][name]}
 
 
-def _decode_entry(name, source, replaces, rows, e2e, front, batched, stream, mtp, official,
-                  ckpt):
+def _decode_entry(name, source, replaces, rows, e2e, front, serve, batched, stream, mtp,
+                  official, ckpt):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
     timed = next(r for r in rows if "ms" in r)
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
-            "launches_by_path": _launches(name, e2e, front, batched, stream, mtp, official,
-                                          ckpt),
+            "launches_by_path": _launches(name, e2e, front, serve, batched, stream, mtp,
+                                          official, ckpt),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -2491,8 +2864,8 @@ def _decode_entry(name, source, replaces, rows, e2e, front, batched, stream, mtp
             "chain_calls": timed["chain_calls"]}
 
 
-def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, batched, stream,
-                 mtp, official, ckpt):
+def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, serve, batched,
+                 stream, mtp, official, ckpt):
     """One entry per kernel. ``launches`` counts the three single requests;
     ``launches_by_path`` adds the detection, the batched requests and the
     streamed ones.
@@ -2512,8 +2885,8 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, b
          "source": f"{PORT}/csrc/log_mel.cu",
          "replaces": f"{REFERENCE}/ops/pallas_mel.py:79",
          "launches": e2e["launches"]["log_mel_frames"],
-         "launches_by_path": _launches("log_mel_frames", e2e, front, batched, stream, mtp,
-                                       official, ckpt),
+         "launches_by_path": _launches("log_mel_frames", e2e, front, serve, batched, stream,
+                                       mtp, official, ckpt),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -2522,8 +2895,8 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, b
          "source": f"{PORT}/csrc/resblock.cu",
          "replaces": f"{REFERENCE}/ops/pallas_vocoder.py:113",
          "launches": e2e["launches"]["fused_resblock_stage"],
-         "launches_by_path": _launches("fused_resblock_stage", e2e, front, batched, stream,
-                                       mtp, official, ckpt),
+         "launches_by_path": _launches("fused_resblock_stage", e2e, front, serve, batched,
+                                       stream, mtp, official, ckpt),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -2537,11 +2910,11 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, b
          "stream_plain_ms": sum(r["graph_plain_ms"] for r in streamed),
          "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
-                      front, batched, stream, mtp, official, ckpt),
+                      front, serve, batched, stream, mtp, official, ckpt),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
-                      front, batched, stream, mtp, official, ckpt),
+                      front, serve, batched, stream, mtp, official, ckpt),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
-                      front, batched, stream, mtp, official, ckpt),
+                      front, serve, batched, stream, mtp, official, ckpt),
     ]
 
 
@@ -2583,6 +2956,7 @@ def main() -> int:
     kernel_rows = kernels_phase(dev, report)
     e2e, backend = e2e_phase(dev, report, card)
     front = frontend_phase(dev, report, card, backend, e2e)
+    serve = serve_phase(dev, report, card, backend, e2e, front)
     batched = batched_phase(dev, report, card, e2e)
     stream = streaming_phase(dev, report, card, backend, e2e)
     mtp = mtp_phase(dev, report, card, backend, e2e)
@@ -2593,8 +2967,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, front, batched, stream, mtp,
-                                              official, ckpt)}))
+    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, front, serve, batched, stream,
+                                              mtp, official, ckpt)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

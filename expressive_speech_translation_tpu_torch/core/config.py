@@ -118,14 +118,14 @@ class ServeConfig:
 class EngineConfig:
     """Stage-engine construction for the server.
 
-    ``mode`` keeps the JAX package's field and values: "jax" (the compiled
-    models; random weights unless EST_MODELS_DIR or explicit params supply
-    real ones) or "fake" (deterministic test doubles); empty = the caller's
-    default. Which engines "jax" selects in this package is the server's
-    decision (ROADMAP Queue 1 item 11), not this module's.
+    ``mode`` keeps the JAX package's field and values: "jax" (the port's
+    own engines, ``torch_engines``; random weights unless EST_MODELS_DIR or
+    explicit params supply real ones), "fake" (deterministic test doubles) or
+    "remote" (not ported: ROADMAP Queue 1 item 13); empty = the caller's
+    default (``serve/app.py`` ``create_app``).
     """
 
-    mode: str = ""                       # "" (auto) | "jax" | "fake"
+    mode: str = ""                       # "" (auto) | "jax" | "fake" | "remote"
     scale: str = "reference"             # toy | reference (jax mode)
     quantize: bool = False               # weight-only int8 decode paths
     # Multi-token-prediction decode width for the TTS speech-LM. 0 = follow

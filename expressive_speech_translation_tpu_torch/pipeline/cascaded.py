@@ -25,6 +25,7 @@ from ..core.errors import ValidationError
 from ..obs.perf import StageTimer
 from ..ops.host_dsp import loudness_normalize_np, resample_np
 from .audio_processor import AudioProcessor
+from .backend import TranslationBackend
 from .engines import Engines
 from .languages import COSYVOICE_LANGUAGES, NLLB_LANGUAGES, supported_languages
 from .temporal_mapper import TemporalMapper
@@ -38,7 +39,7 @@ CLONE_REFERENCE_SECONDS = 25.0
 TARGET_LUFS = -23.0
 
 
-class CascadedBackend:
+class CascadedBackend(TranslationBackend):
     def __init__(self, engines: Engines, config: Optional[AppConfig] = None):
         self.engines = engines
         self.config = config or AppConfig()
@@ -68,6 +69,15 @@ class CascadedBackend:
         self.engines.tts.synthesize("Hello world.", reference_audio_16k=silence)
         self.initialized = True
         log.info("CascadedBackend initialized")
+
+    def weights_info(self) -> str:
+        return self.engines.weights_info()
+
+    def placement_info(self):
+        return self.engines.placement_info()
+
+    def decode_info(self):
+        return self.engines.decode_info()
 
     def is_language_supported(self, lang: str) -> bool:
         return lang in COSYVOICE_LANGUAGES and lang in NLLB_LANGUAGES

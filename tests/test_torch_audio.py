@@ -277,6 +277,8 @@ def test_invalid_audio_raises_like_jax(processors, case):
     with pytest.raises(ValidationError) as got:
         proc.process_audio(x)
     assert str(got.value) == str(want.value)
+    assert got.value.error_id == want.value.error_id
+    assert got.value.to_payload() == want.value.to_payload()
 
 
 @pytest.mark.parametrize("seconds,limit", [(301.0, None), (0.05, None), (61.0, 60.0),
@@ -288,13 +290,15 @@ def test_validate_audio_length_matches_jax(processors, seconds, limit):
         jproc.validate_audio_length(seconds, **kw)
         want = None
     except JaxValidationError as e:
-        want = str(e)
+        want = e
     if want is None:
         proc.validate_audio_length(seconds, **kw)
     else:
-        with pytest.raises(ValidationError, match=want.split("(")[0]) as got:
+        with pytest.raises(ValidationError, match=str(want).split("(")[0]) as got:
             proc.validate_audio_length(seconds, **kw)
-        assert str(got.value) == want and got.value.http_status == 400
+        assert str(got.value) == str(want) and got.value.http_status == 400
+        assert got.value.error_id == want.error_id
+        assert got.value.to_payload() == want.to_payload()
 
 
 def test_audio_processor_without_a_device_needs_the_card():

@@ -98,3 +98,5 @@ def test_the_same_errors(case):
         run(twav)
     assert str(got.value) == str(want.value)
     assert got.value.http_status == want.value.http_status == 400
+    assert got.value.error_id == want.value.error_id
+    assert got.value.to_payload() == want.value.to_payload()

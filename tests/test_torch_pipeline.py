@@ -399,24 +399,30 @@ def test_asr_fallback_ladder_and_previous_text_prompts():
 def test_port_runs_without_jax_or_the_jax_package():
     """A fresh process runs the port's tiny cascade on the CPU, imports
     every module (the checkpoint loaders, the safetensors reader, the
-    tokenizers, the WAV codec, the audio front end, the visual mapping and
-    the configuration among them), serves a bake, runs ``load_config()`` and
-    a request with video frames, with jax, the JAX package and ``yaml``
-    blocked from import, and must not have imported them nor the optional
-    ``safetensors`` / ``transformers`` / ``tokenizers`` (this test process
-    has them all: tests/conftest.py imports jax); the new modules import no
-    ``scipy`` or ``yaml`` at module level."""
+    tokenizers, the WAV codec, the audio front end, the visual mapping, the
+    configuration and the serving stack among them), serves a bake, runs
+    ``load_config()`` and a request with video frames, with jax, the JAX
+    package, ``yaml`` and ``psutil`` blocked from import, and must not have
+    imported them nor the optional ``safetensors`` / ``transformers`` /
+    ``tokenizers``, nor ``urllib3`` / ``certifi`` past what torch imports
+    (this test process has them all: tests/conftest.py imports jax); the
+    new modules import no ``scipy``
+    or ``yaml`` at module level. Every serving module but ``serve/app.py``
+    imports with werkzeug blocked too; then ``serve/app.py`` imports and
+    answers a request."""
     script = textwrap.dedent("""
         import sys
         import importlib.abc
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "expressive_speech_translation_tpu", "yaml"):
+                if name.split(".")[0] in BLOCKED:
                     raise ImportError(f"{name} is blocked")
 
+        BLOCKED = {"jax", "expressive_speech_translation_tpu", "yaml", "psutil", "werkzeug"}
         sys.meta_path.insert(0, Block())
         import numpy as np, torch
+        with_torch = set(sys.modules)      # torch itself may import certifi
         from expressive_speech_translation_tpu_torch.models import cosyvoice as cv, nllb, qwen2, whisper
         from expressive_speech_translation_tpu_torch.pipeline.cascaded import CascadedBackend
         from expressive_speech_translation_tpu_torch.pipeline.torch_engines import torch_engines
@@ -477,9 +483,26 @@ def test_port_runs_without_jax_or_the_jax_package():
         frames = [np.full((48, 64, 3), 90, np.uint8)] * 12
         out = backend.translate_speech(x, "eng", "fra", original_video_frames=frames)
         assert out["audio"].ndim == 2 and np.isfinite(out["audio"]).all()
+        # the serving stack: every module but the app without werkzeug
+        from expressive_speech_translation_tpu_torch import media, serve
+        from expressive_speech_translation_tpu_torch.core import errors
+        from expressive_speech_translation_tpu_torch.obs import logging_setup
+        from expressive_speech_translation_tpu_torch.pipeline import backend as be, engines, watermark
+        from expressive_speech_translation_tpu_torch.serve import (
+            audio_link, limiter, podcasts, resource_monitor, video)
+        assert errors.MediaError("m", user_message="u").to_payload()["error"] == "u"
+        assert resource_monitor.process_rss_bytes() > 0 and resource_monitor.device_memory_stats() == {}
+        assert "werkzeug" not in sys.modules
+        BLOCKED.discard("werkzeug")
+        from expressive_speech_translation_tpu_torch.serve import app
+        from werkzeug.test import Client
+        r = Client(app.create_app(device="cpu")).get("/available-backends")
+        assert r.status_code == 200 and r.get_json()["weights"] == {"cascaded": "fake"}
         bad = [m for m in sys.modules if m.split(".")[0] in (
             "jax", "expressive_speech_translation_tpu", "safetensors", "transformers",
-            "tokenizers", "yaml")]
+            "tokenizers", "yaml", "psutil")]
+        bad += [m for m in set(sys.modules) - with_torch
+                if m.split(".")[0] in ("urllib3", "certifi")]
         print("FORBIDDEN", bad)
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
