@@ -61,21 +61,40 @@ Phases, in order; any failure exits non-zero and prints no result:
               watermarked and its visual branch ran, the placement is device
               0 for every stage, log-mel launches once and the resblock twice
               for each offline request;
-7. batched  — the same engines behind the three micro-batchers
+7. lipsync  — MuseTalk at its published width (``MuseTalkConfig()``: VAE
+              128/256/512/512, UNet 320/640/1280/1280, audio 384) in bf16 with
+              seeded random weights, conditioned through ``whisper_feature_fn``
+              on a random whisper-tiny-width encoder (d_model 384, 80 mels):
+              ``musetalk_lipsync_fn`` renders the frontend phase's 250 frames
+              against the e2e phase's 10 s dub (handed over at 24 kHz, so it
+              resamples), timed and split into face boxes (host), the audio
+              condition, the crops, ``lipsync_frames`` and the blend, with
+              frames per second and peak memory; log-mel launches once and
+              the resblock never; nothing outside the face boxes or above the
+              jaw line changes and every jaw does; one batch of 2 crops in f32
+              on the card against ``device="cpu"`` (LIPSYNC_F32_RTOL); then
+              ``/process-video`` with ``apply_lip_sync=true`` over HTTP: through
+              the port's libav shim (an MP4 from ``native.encode_video``,
+              decoded back) where the card has g++ and libav's headers, and a
+              FLAC upload to ``/translate``; else, said on an earlier line with
+              the paths checked, over the serve phase's test VideoIO with the
+              real lip-sync. Frames, fps and audio length against the dub, the
+              visual branch run, log-mel twice and the resblock twice;
+8. batched  — the same engines behind the three micro-batchers
               (``torch_engines(batch_*=True, max_batch=8)``), ``initialize()``,
               8 concurrent 10 s ``translate_speech`` requests from 8 threads:
               requests per second against the e2e phase's 10 s request served
               alone, the batches formed, peak memory; the resblock kernel must
               have launched at B > 1, and is checked and timed at the shapes
               the requests handed it;
-8. streaming — the e2e phase's engines (no second ``initialize()``),
+9. streaming — the e2e phase's engines (no second ``initialize()``),
               ``translate_speech_streaming`` of a 10 s and a 40 s request
               (two ASR windows), cloning on: time to the first audio event,
               wall, events and chunk lengths, the launch counters around each
               stream (log-mel once a window, resblock twice a streamed TTS
               chunk); the resblock kernel checked and timed at the (B, C, T)
               the stream handed it, in vocode's layout and the contiguous one;
-9. mtp      — the e2e phase's TTS config on one random tree with two MTP
+10. mtp     — the e2e phase's TTS config on one random tree with two MTP
               heads, bf16: ``synthesize`` of the 10 s request's text and voice
               prompt at ``mtp=1``, ``mtp=3`` (accept-all) and ``mtp=3,
               spec=True`` (stage seconds, speech tokens, backbone passes,
@@ -88,7 +107,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               weights against bf16 (logits within INT8_LOGIT_RTOL, both
               replayed as CUDA graphs in turns at B = 1 and 8) and one 10 s
               request on ``torch_engines(quantize=True)``;
-10. official — the official CosyVoice2 chain at its full width
+11. official — the official CosyVoice2 chain at its full width
               (``OfficialTtsConfig()``: Qwen2-0.5B LM with 6,561 speech tokens,
               the 512-wide 6 + 4 block conformer, the 256-channel estimator of
               14 units × 4 transformer blocks, 10 Euler steps with CFG, HiFT
@@ -108,7 +127,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               inferred), and the HiFT source of one 10 s bf16-representable
               f0 track with the engine's bf16 HiFT parameters against their
               f32 copies (the port integrates the phase in f32);
-11. checkpoints — seeded random Whisper-medium, NLLB-200-distilled-600M,
+12. checkpoints — seeded random Whisper-medium, NLLB-200-distilled-600M,
               ECAPA (1,024 channels) and the official CosyVoice2 triple, f32,
               written by ``obs/checkpoint_emitters.py`` in their published
               formats (``model.safetensors``, ``pytorch_model.bin``,
@@ -123,9 +142,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               (asr, nmt and ecapa; the official triple left out, so the native
               TTS runs): weights supplied, a log-mel launch a rung of the ASR's
               temperature ladder and 2 resblock launches, the resblock kernel
-              checked at the request's shapes; and an orbax-style stage
-              directory refused;
-12. the kernels line, the card line, and last the result line.
+              checked at the request's shapes; an orbax-style stage
+              directory refused; and MuseTalk at its published width with a
+              whisper-tiny, f32, written in the release layout, read back by
+              ``load_musetalk`` (equal), baked, and 25 frames rendered by
+              ``default_lipsync_fn`` from the bake (the whisper condition:
+              log-mel once);
+13. the kernels line, the card line, and last the result line.
 
 The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
 greedy call.
@@ -178,6 +201,7 @@ STACK_MIN_BYTES = 100e6
 KERNELS = (3, 7, 11)
 DILATIONS = ((1, 3, 5),) * 3
 OUT_DIR = "chiprun_out"
+_KEPT: dict = {}         # arrays one phase hands a later one (never written to the report)
 PORT = "expressive_speech_translation_tpu_torch"
 REFERENCE = PORT.removesuffix("_torch")  # the JAX package the port replaces
 
@@ -928,6 +952,8 @@ def e2e_phase(dev, report, card):
             out = backend.translate_speech(x, "eng", "fra")
         wall = time.perf_counter() - t0
         _check_request(out, seconds, f"{seconds} s request")
+        if seconds == LIPSYNC_DUB_SECONDS:
+            _KEPT["dub"] = out["audio"][0]
         stages = {k: v["seconds"] for k, v in out["stage_summary"].items()}
         requests.append({"audio_s": seconds, "wall_s": wall, "rtf": wall / seconds,
                          "stages_s": stages, "out_samples": int(out["audio"].shape[1]),
@@ -1287,9 +1313,12 @@ def _sse(lines) -> list:
     return [json.loads(line[len(_SSE_PREFIX):]) for line in lines if line.startswith(_SSE_PREFIX)]
 
 
-def _serve_http(manager, vio, wav, video, device, tmp, run) -> None:
-    """The routes through the port's app served by werkzeug on a free
-    localhost port, in a thread, with real HTTP requests from urllib."""
+@contextlib.contextmanager
+def _http_server(app):
+    """``app`` served by werkzeug on a free localhost port, in a thread →
+    ``request(path, fields, files, body, stream)`` over real HTTP (urllib):
+    (status, body bytes or SSE frames, seconds to the first audio frame of a
+    stream). The server is shut down when the block ends."""
     import urllib.error
     import urllib.request
 
@@ -1298,19 +1327,12 @@ def _serve_http(manager, vio, wav, video, device, tmp, run) -> None:
     from werkzeug.test import encode_multipart
 
     logging.getLogger("werkzeug").setLevel(logging.WARNING)    # no line a request
-
-    from expressive_speech_translation_tpu_torch.core.config import AppConfig
-    from expressive_speech_translation_tpu_torch.serve.app import create_app
-
-    app = create_app(manager, AppConfig(temp_dir=tmp), device=device, video_io=vio)
     server = make_server("127.0.0.1", 0, app, threaded=True)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{server.server_port}"
 
     def request(path, fields=None, files=None, body=None, stream=False):
-        """→ (status, body bytes or SSE frames, seconds to the first audio
-        frame of a stream)."""
         headers, data = {}, None
         if files is not None:
             boundary, data = encode_multipart({**fields, **{
@@ -1336,6 +1358,21 @@ def _serve_http(manager, vio, wav, video, device, tmp, run) -> None:
             return e.code, e.read(), None
 
     try:
+        yield request
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+
+
+def _serve_http(manager, vio, wav, video, device, tmp, run) -> None:
+    """The routes through the port's app served by werkzeug on a free
+    localhost port, in a thread, with real HTTP requests from urllib."""
+    from expressive_speech_translation_tpu_torch.core.config import AppConfig
+    from expressive_speech_translation_tpu_torch.serve.app import create_app
+
+    app = create_app(manager, AppConfig(temp_dir=tmp), device=device, video_io=vio)
+    with _http_server(app) as request:
         run("translate", lambda: request(
             "/translate", {"target_language": "fra", "source_language": "eng"},
             {"file": (wav, "upload.wav")}))
@@ -1349,10 +1386,6 @@ def _serve_http(manager, vio, wav, video, device, tmp, run) -> None:
                                      {"file": (video, "clip.mp4")}, stream=True))
         run("health", lambda: request("/health/model"))
         run("backends", lambda: request("/available-backends"))
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=60)
 
 
 def _serve_direct(manager, vio, wav, video, device, tmp, run) -> None:
@@ -1602,6 +1635,394 @@ def serve_phase(dev, report, card, backend, e2e, front):
     print(f"  serve phase {serve['seconds']:.1f} s", flush=True)
     report["serve"] = serve
     return serve
+
+
+LIPSYNC_DUB_SECONDS = 10.0     # the e2e request whose dubbed audio the lip-sync renders against
+LIPSYNC_DUB_SR = 24_000        # the dub handed to the lip-sync fn at 24 kHz, so its resample runs
+LIPSYNC_F32_RTOL = 1e-3        # lipsync_frames f32 on the card against device="cpu": max |diff| / peak
+LIPSYNC_BAKE_FRAMES = 25       # frames rendered from the bake
+
+
+@contextlib.contextmanager
+def _synced_timing(owner, name: str, calls: list):
+    """:func:`_timing_calls` with the card synchronised before and after
+    each call, so the seconds are the call's own device work too."""
+    fn = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(owner, name, timed)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, fn)
+
+
+def lipsync_render(fn, frames: np.ndarray, dub: np.ndarray, sr: int, card) -> tuple:
+    """One ``musetalk_lipsync_fn`` call on the frames against the dub, the
+    counters at 0 just before it: seconds split into face boxes (host), the
+    audio condition, the crops, ``lipsync_frames`` and the blend; frames per
+    second; peak memory above what is resident. → (rendered frames, boxes,
+    figures)."""
+    from expressive_speech_translation_tpu_torch.models import musetalk as mtm
+    from expressive_speech_translation_tpu_torch.pipeline import musetalk_pipeline as mtp
+
+    pipe = fn.pipeline
+    boxes, cond, lip, blend, crops = [], [], [], [], []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _synced_timing(mtp, "per_frame_face_boxes", boxes), \
+            _synced_timing(pipe, "audio_feature_fn", cond), \
+            _synced_timing(pipe, "crops", crops), \
+            _synced_timing(mtm, "lipsync_frames", lip), \
+            _timing_calls(mtp, "blend_face_np", blend):
+        out = fn(frames, FRONTEND_FPS, dub, sr)
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    split = {"face_boxes_s": boxes[0][0], "condition_s": cond[0][0], "crops_s": crops[0][0],
+             "lipsync_frames_s": lip[0][0], "blend_s": sum(c[0] for c in blend)}
+    split["rest_s"] = wall - sum(split.values())
+    figures = {"frames": len(frames), "wall_s": wall, "fps": len(frames) / wall, **split,
+               "peak_gib_above_resident": peak, "launches": launches,
+               "condition_shape": list(cond[0][1].shape)}
+    print(f"  render of {len(frames)} frames {frames.shape[1]}x{frames.shape[2]}: {wall:.3f} s, "
+          f"{len(frames) / wall:.2f} frames/s: " + ", ".join(
+              f"{k[:-2]} {v:.3f} s" for k, v in split.items())
+          + f"; peak {peak:.2f} GiB above the resident; launches {launches}  [{card}]", flush=True)
+    boxes = [mtp.clamp_box(b, frames.shape[1], frames.shape[2]) for b in boxes[0][1]]
+    return out, boxes, figures
+
+
+def check_lipsync_output(frames: np.ndarray, out: np.ndarray, boxes) -> dict:
+    """The render's frames: the input's shape and dtype; outside each face
+    box equal; inside it, above the jaw line (the blend's alpha is 0 there),
+    within one level (the uint8 → float32 → uint8 round trip); the jaw
+    region changed in every frame."""
+    if out.shape != frames.shape or out.dtype != np.uint8:
+        raise AssertionError(f"lip-sync output {out.shape} {out.dtype}, not {frames.shape} uint8")
+    jaw_change = []
+    for i, (y0, x0, y1, x1) in enumerate(boxes):
+        outside = np.ones(frames.shape[1:3], bool)
+        outside[y0:y1, x0:x1] = False
+        if not np.array_equal(out[i][outside], frames[i][outside]):
+            raise AssertionError(f"lip-sync frame {i}: pixels outside the box {boxes[i]} changed")
+        jaw = y0 + int(np.floor((y1 - y0) * 0.45)) + 1          # the first row with alpha > 0
+        above = np.abs(out[i, y0:jaw, x0:x1].astype(int) - frames[i, y0:jaw, x0:x1].astype(int))
+        if above.max(initial=0) > 1:
+            raise AssertionError(f"lip-sync frame {i}: above the jaw line changed by "
+                                 f"{above.max()} levels")
+        jaw_change.append(float(np.abs(out[i, jaw:y1, x0:x1].astype(int)
+                                       - frames[i, jaw:y1, x0:x1].astype(int)).mean()))
+    if min(jaw_change) <= 0.0:
+        raise AssertionError(f"lip-sync: the jaw region of frame {int(np.argmin(jaw_change))} "
+                             "is unchanged")
+    return {"jaw_mean_abs_change": [min(jaw_change), float(np.mean(jaw_change)),
+                                    max(jaw_change)]}
+
+
+def lipsync_f32_check(fn, frames, boxes, dub16, dev, card) -> dict:
+    """One batch of 2 crops through ``lipsync_frames`` in f32 on the card
+    and with ``device="cpu"`` on the same f32 weights (the pipeline's seed)
+    and the same condition: the largest difference relative to the output's
+    peak, held to LIPSYNC_F32_RTOL."""
+    from expressive_speech_translation_tpu_torch.models import musetalk as mtm
+
+    pipe = fn.pipeline
+    params = mtm.init_musetalk(7, pipe.cfg, dev)             # MuseTalkPipeline's random seed
+    crops = pipe.crops(frames[:2], boxes[:2]).float()
+    windows = mtm.whisper_chunks_for_video(pipe.audio_feature_fn(dub16), len(frames),
+                                           FRONTEND_FPS, ctx=pipe.cfg.audio_ctx)[:2].float()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        got = mtm.lipsync_frames(params, pipe.cfg, crops, windows, batch_size=2).cpu()
+        got_latents = mtm.vae_encode(params["vae"], pipe.cfg, crops).cpu()
+    card_s = time.perf_counter() - t0
+    host = _tree_to(params, "cpu")
+    del params
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = mtm.lipsync_frames(host, pipe.cfg, crops.cpu(), windows.cpu(), batch_size=2)
+        want_latents = mtm.vae_encode(host["vae"], pipe.cfg, crops.cpu())
+    cpu_s = time.perf_counter() - t0
+    err = float((got - want).abs().max())
+    peak = float(want.abs().max())
+    # the encoder alone, to say where along the chain the two devices part
+    enc_rel = float((got_latents - want_latents).abs().max() / want_latents.abs().max())
+    print(f"  lipsync_frames f32, 2 crops, card against device=\"cpu\": max |diff| {err:.3e}, "
+          f"peak {peak:.3f}, ratio {err / peak:.3e} (tolerance {LIPSYNC_F32_RTOL:g}; the VAE "
+          f"encoder alone {enc_rel:.3e}); card {card_s:.3f} s, CPU {cpu_s:.1f} s  [{card}]",
+          flush=True)
+    if not (np.isfinite(err) and err <= LIPSYNC_F32_RTOL * peak):
+        raise AssertionError(f"lipsync_frames f32 on the card differs from the CPU by {err:.3e} "
+                             f"(peak {peak:.3f})")
+    return {"max_abs_err": err, "peak": peak, "rel": err / peak, "vae_encode_rel": enc_rel,
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+class LipsyncVideoIO(SmokeVideoIO):
+    """The serve phase's test VideoIO with a real lip-sync: ``lipsync`` runs
+    ``lipsync_fn`` on the frames and writes an ftyp box, an mdat box of the
+    audio as PCM16 and a ``rndr`` box holding, as JSON, what was rendered
+    (frame count, shape, fps, frames changed), which the route watermarks."""
+
+    def __init__(self, audio, sr, frames, lipsync_fn):
+        super().__init__(audio, sr, frames)
+        self.lipsync_fn = lipsync_fn
+
+    def lipsync(self, video_path, audio, sr, out_path):
+        frames = np.stack(self.video_frames)
+        rendered = self.lipsync_fn(frames, self.fps, audio, sr)
+        pcm = (np.clip(audio, -1.0, 1.0) * 32767.0).astype("<i2").tobytes()
+        info = json.dumps({"frames": len(rendered), "shape": list(rendered.shape[1:]),
+                           "fps": self.fps, "sr": sr,
+                           "changed": int((rendered != frames).any(axis=(1, 2, 3)).sum())}).encode()
+        ftyp = b"\x00\x00\x00\x18ftypisom\x00\x00\x02\x00isomiso2"
+        with open(out_path, "wb") as f:
+            f.write(ftyp + (8 + len(pcm)).to_bytes(4, "big") + b"mdat" + pcm
+                    + (8 + len(info)).to_bytes(4, "big") + b"rndr" + info)
+
+
+def _read_rndr(mp4: bytes) -> tuple:
+    """(PCM16 audio, the rndr box's JSON) of a LipsyncVideoIO output."""
+    size = int.from_bytes(mp4[24:28], "big")
+    audio = np.frombuffer(mp4[32:24 + size], "<i2")
+    at = 24 + size
+    n = int.from_bytes(mp4[at:at + 4], "big")
+    if mp4[at + 4:at + 8] != b"rndr":
+        raise AssertionError(f"no rndr box after the mdat box: {mp4[at:at + 8]!r}")
+    return audio, json.loads(mp4[at + 8:at + n])
+
+
+def lipsync_route(manager, backend, fn, frames, upload, dev, tmp, libav: bool) -> dict:
+    """``/process-video`` with ``apply_lip_sync=true`` through the port's
+    app served over HTTP on localhost (werkzeug is on the card: the serve
+    phase checks): through the port's shim when ``libav`` (an MP4 encoded by
+    ``native.encode_video``, decoded back after), else over
+    :class:`LipsyncVideoIO`; with the shim, a FLAC upload to /translate as
+    well. The counters are set to 0 just before each request."""
+    from expressive_speech_translation_tpu_torch.core.config import AppConfig
+    from expressive_speech_translation_tpu_torch.media import native
+    from expressive_speech_translation_tpu_torch.serve.app import create_app
+
+    mono = upload.mean(0).astype(np.float32)
+    renders, translated, mapped = [], [], []
+
+    def timed_fn(*args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        renders.append(time.perf_counter() - t0)
+        return out
+
+    if libav:
+        src = os.path.join(tmp, "clip.mp4")
+        native.encode_video(src, np.stack(frames), FRONTEND_FPS, audio=mono,
+                            audio_rate=FRONTEND_UPLOAD_SR)
+        vio = native.NativeVideoIO(lipsync_fn=timed_fn)
+        video = open(src, "rb").read()
+    else:
+        vio = LipsyncVideoIO(upload, FRONTEND_UPLOAD_SR, frames, timed_fn)
+        video = b"\x00\x00\x00\x18ftypisom\x00\x00\x02\x00isomiso2" + bytes(4096)
+    fields = {"target_language": "fra", "source_language": "eng", "apply_lip_sync": "true"}
+    out = {"shim": libav}
+
+    def run(name, call):
+        torch.cuda.synchronize()
+        _reset_launches()
+        with _timing_calls(backend, "translate_speech", translated), \
+                _timing_calls(backend.visual_mapper, "distribute_audio", mapped):
+            t0 = time.perf_counter()
+            status, body, _ = call()
+            wall = time.perf_counter() - t0
+        out[name] = {"status": status, "wall_s": wall, "launches": _read_launches(),
+                     "translate_s": translated[-1][0] if translated else None, "body": body}
+
+    app = create_app(manager, AppConfig(temp_dir=tmp), device=dev, video_io=vio)
+    with _http_server(app) as request:
+        run("video", lambda: request("/process-video", fields, {"file": (video, "clip.mp4")},
+                                     stream=True))
+        if libav:
+            flac = os.path.join(tmp, "upload.flac")
+            native.encode_audio(flac, mono, FRONTEND_UPLOAD_SR)
+            run("flac", lambda: request("/translate", fields,
+                                        {"file": (open(flac, "rb").read(), "upload.flac")}))
+    out["lipsync_s"] = renders
+    out["distribute_calls"] = len(mapped)
+    return out
+
+
+def check_lipsync_route(out: dict, frames, narrow: int, card) -> dict:
+    """The route's MP4: the final frame complete and watermarked, lip-sync
+    run (no 75 tick: the mux fallback did not run), the visual branch run;
+    frame count, fps and audio length against the dub; log-mel twice (ASR
+    and the condition), the resblock ``narrow`` times; the FLAC upload
+    decodes and translates."""
+    from expressive_speech_translation_tpu_torch.media import native
+    from expressive_speech_translation_tpu_torch.pipeline.watermark import WaterMark
+
+    row = out["video"]
+    if row["status"] != 200:
+        raise AssertionError(f"lipsync /process-video answered {row['status']}: "
+                             f"{str(row['body'])[:300]}")
+    sse = row["body"]
+    final = sse[-1]
+    if final.get("phase") != "complete":
+        raise AssertionError(f"lipsync /process-video ended with {final}")
+    if [f["progress"] for f in sse] != [10, 20, 30, 55, 60, 90, 100]:
+        raise AssertionError(f"lipsync /process-video progress {[f['progress'] for f in sse]} "
+                             "(75 = the mux fallback)")
+    if len(out["lipsync_s"]) != 1 or out["distribute_calls"] != 1:
+        raise AssertionError(f"lipsync /process-video: {len(out['lipsync_s'])} renders, "
+                             f"{out['distribute_calls']} distribute_audio calls")
+    mp4 = base64.b64decode(final["result"]["video"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "delivered.mp4")
+        with open(path, "wb") as f:
+            f.write(mp4)
+        if not WaterMark.verify(path):
+            raise AssertionError("lipsync /process-video: the delivered MP4 has no watermark")
+        if out["shim"]:
+            video, fps = native.decode_video(path)
+            audio, sr = native.decode_audio(path, target_rate=16_000, target_channels=1)
+            n_frames, shape = len(video), list(video.shape[1:])
+        else:
+            pcm, info = _read_rndr(mp4)
+            audio, sr, fps = pcm.astype(np.float32) / 32767.0, info["sr"], info["fps"]
+            n_frames, shape = info["frames"], info["shape"]
+            if info["changed"] != n_frames:
+                raise AssertionError(f"lipsync: {info['changed']} of {n_frames} frames changed")
+    dub_s = len(audio) / sr
+    # a shim round trip (encode, then decode) keeps all but the last frame
+    want_frames = len(frames) - 2 if out["shim"] else len(frames)
+    if not (n_frames >= want_frames and shape == list(frames[0].shape)
+            and abs(fps - FRONTEND_FPS) < 0.5 and dub_s >= FRONTEND_SECONDS - 0.1):
+        raise AssertionError(f"lipsync /process-video: {n_frames} frames {shape} at {fps} fps, "
+                             f"{dub_s:.3f} s of audio")
+    got = row["launches"]
+    if got["log_mel_frames"] != 2 or got["fused_resblock_stage"] != narrow:
+        raise AssertionError(f"lipsync /process-video launched {got}, not log-mel 2 (ASR and "
+                             f"the condition) and resblock {narrow}")
+    result = {"frames": n_frames, "fps": fps, "audio_s": dub_s, "wall_s": row["wall_s"],
+              "translate_s": row["translate_s"], "lipsync_s": out["lipsync_s"][0],
+              "launches": got, "shim": out["shim"]}
+    print(f"  /process-video apply_lip_sync=true (HTTP, "
+          f"{'the shim' if out['shim'] else 'the test VideoIO'}): wall {row['wall_s']:.3f} s, "
+          f"translate_speech {row['translate_s']:.3f} s and lip-sync {out['lipsync_s'][0]:.3f} s "
+          f"inside; {n_frames} frames {shape} at {fps:.2f} fps, {dub_s:.3f} s of audio; launches "
+          f"{got}  [{card}]", flush=True)
+    if "flac" in out:
+        flac = out["flac"]
+        body = json.loads(flac["body"])
+        if flac["status"] != 200 or len(_decoded_wav(body["audio"])) < int(16_000 * FRONTEND_SECONDS):
+            raise AssertionError(f"lipsync: the FLAC upload to /translate answered "
+                                 f"{flac['status']}: {str(body)[:300]}")
+        result["flac"] = {"wall_s": flac["wall_s"], "translate_s": flac["translate_s"],
+                          "launches": flac["launches"]}
+        print(f"  /translate of a FLAC upload (decoded by the shim): wall {flac['wall_s']:.3f} s, "
+              f"translate_speech {flac['translate_s']:.3f} s, launches {flac['launches']}  "
+              f"[{card}]", flush=True)
+    return result
+
+
+def lipsync_phase(dev, report, card, backend, e2e):
+    """MuseTalk at its published width (``MuseTalkConfig()``) in bf16 with
+    seeded random weights, conditioned on a random whisper-tiny-width
+    encoder (d_model 384, 80 mels) through ``whisper_feature_fn``: the
+    frontend phase's 250 frames of 360×640 at 25 fps rendered against the
+    e2e phase's 10 s dub (at 24 kHz: the fn resamples it), the split timed;
+    log-mel once (the condition's 30 s window), the resblock never; the jaw
+    changed and nothing above it; one batch of 2 crops in f32 on the card
+    against device="cpu"; then /process-video with lip-sync through the
+    port's shim where the card has libav, else over a test VideoIO."""
+    from expressive_speech_translation_tpu_torch.media import native
+    from expressive_speech_translation_tpu_torch.models import musetalk as mtm
+    from expressive_speech_translation_tpu_torch.models import whisper
+    from expressive_speech_translation_tpu_torch.ops.resample import resample
+    from expressive_speech_translation_tpu_torch.pipeline.backend import TranslationManager
+    from expressive_speech_translation_tpu_torch.pipeline.musetalk_pipeline import (
+        musetalk_lipsync_fn)
+
+    cfg, wcfg = mtm.MuseTalkConfig(), whisper.WhisperConfig.tiny()
+    print(f"== lipsync: MuseTalk VAE {cfg.vae_channels}, UNet {cfg.unet_channels}, audio "
+          f"{cfg.audio_dim} (whisper-tiny width, {wcfg.n_mels} mels), bf16, random weights",
+          flush=True)
+    t_phase = time.perf_counter()
+    tools = native.toolchain()
+    libav = tools["g++"] is not None and all(tools["headers"].values())
+    print(f"  media shim toolchain: g++ {tools['g++']}; libav headers "
+          + ", ".join(f"{p} {'found' if ok else 'missing'}" for p, ok in tools["headers"].items())
+          + (" -> the route runs through the port's shim" if libav else
+             " -> no libav here: the route runs over the serve phase's test VideoIO with the "
+             "real MuseTalk lip-sync"), flush=True)
+    if libav:
+        t0 = time.perf_counter()
+        native.build()
+        print(f"  built {native.library_path().name} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fn = musetalk_lipsync_fn(None, cfg, whisper=(whisper.init_whisper(21, wcfg, dev), wcfg),
+                             device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = (torch.cuda.memory_allocated() - resident) / 2**30
+    print(f"  musetalk_lipsync_fn built in {build_s:.2f} s, holding {held:.2f} GiB  [{card}]",
+          flush=True)
+
+    frames = np.stack(frontend_frames())
+    dub16 = _KEPT["dub"]
+    dub = resample(torch.from_numpy(dub16).to(dev), 16_000, LIPSYNC_DUB_SR).cpu().numpy()
+    out, boxes, render = lipsync_render(fn, frames, dub, LIPSYNC_DUB_SR, card)
+    launches = render["launches"]
+    if launches["log_mel_frames"] != 1 or launches["fused_resblock_stage"] != 0:
+        raise AssertionError(f"lip-sync render launched {launches}, not log-mel 1 (the "
+                             "condition's window) and resblock 0")
+    if render["condition_shape"] != [int(np.ceil(len(dub16) / 16_000 * 50)), cfg.audio_dim]:
+        raise AssertionError(f"lip-sync condition {render['condition_shape']} for "
+                             f"{len(dub16) / 16_000:.3f} s of dub")
+    lipsync = {"build_s": build_s, "held_gib": held, "render": render,
+               "output": check_lipsync_output(frames, out, boxes)}
+    del out
+    lipsync["f32_check"] = lipsync_f32_check(fn, frames, boxes, dub16, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    manager = TranslationManager()
+    manager.register_backend("cascaded", backend, is_default=True)
+    upload = _stereo_upload(FRONTEND_SECONDS, FRONTEND_UPLOAD_SR, 43)
+    with tempfile.TemporaryDirectory() as tmp:
+        route = lipsync_route(manager, backend, fn, list(frames), upload, dev, tmp, libav)
+    lipsync["route"] = check_lipsync_route(route, frames, _narrow_stages(backend), card)
+    lipsync["launches"] = {k: render["launches"][k] + route["video"]["launches"][k]
+                           + route.get("flac", {"launches": {k: 0}})["launches"][k]
+                           for k in LAUNCH_COUNTERS}
+    del fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    lipsync["seconds"] = time.perf_counter() - t_phase
+    print(f"  lipsync phase {lipsync['seconds']:.1f} s", flush=True)
+    report["lipsync"] = lipsync
+    return lipsync
 
 
 BATCH_REQUESTS = 8
@@ -2794,6 +3215,79 @@ def checkpoints_refusal(bake, tmp) -> str:
     raise AssertionError("an orbax stage directory was served")
 
 
+def checkpoints_lipsync(tmp, dev, card) -> dict:
+    """MuseTalk at its published width and a whisper-tiny, seeded random
+    f32, written by the emitters in the MuseTalk release layout
+    (``sd-vae-ft-mse/``, ``musetalk/pytorch_model.bin`` + ``musetalk.json``)
+    and as an HF ``model.safetensors``; ``load_musetalk`` reads the pair
+    back (equal config and tensors), ``bake_models(musetalk=...,
+    musetalk_whisper=...)`` bakes both, and ``default_lipsync_fn(device=
+    card)`` under ``EST_MODELS_DIR`` renders LIPSYNC_BAKE_FRAMES frames: it
+    must take the whisper condition, so log-mel launches once."""
+    from expressive_speech_translation_tpu_torch.models import loaders
+    from expressive_speech_translation_tpu_torch.models import musetalk as mtm
+    from expressive_speech_translation_tpu_torch.models import whisper
+    from expressive_speech_translation_tpu_torch.models.safetensors_io import write_safetensors
+    from expressive_speech_translation_tpu_torch.obs import checkpoint_emitters as em
+    from expressive_speech_translation_tpu_torch.pipeline.musetalk_pipeline import (
+        default_lipsync_fn)
+
+    cfg, wcfg = mtm.MuseTalkConfig(), whisper.WhisperConfig.tiny()
+    params, wparams = mtm.init_musetalk(31, cfg, dev), whisper.init_whisper(32, wcfg, dev)
+    need = 3 * (_tree_bytes(params) + _tree_bytes(wparams)) + CKPT_DISK_MARGIN
+    if shutil.disk_usage(tmp).free < need:
+        raise AssertionError(f"checkpoints lipsync: {need / 1e9:.1f} GB needed at {tmp}")
+    src, wdir, bake = (os.path.join(tmp, d) for d in ("musetalk_src", "whisper_tiny", "mt_bake"))
+
+    def write():
+        em.write_musetalk(src, params, cfg)
+        os.makedirs(wdir)
+        state = em.whisper_hf_state_dict(wparams, wcfg)
+        del state["proj_out.weight"]
+        write_safetensors(state, os.path.join(wdir, "model.safetensors"), metadata={"format": "pt"})
+        with open(os.path.join(wdir, "config.json"), "w") as f:
+            json.dump(em.whisper_hf_config(wcfg), f, indent=2)
+
+    _, out = _timed("wrote MuseTalk (sd-vae-ft-mse/, musetalk/) and whisper-tiny", write,
+                    _tree_bytes(params) + _tree_bytes(wparams), card)
+    (loaded, got_cfg), out["load"] = _timed("load_musetalk onto the card", lambda: loaders.
+                                            load_musetalk(src, device=dev), _dir_bytes(src), card)
+    if got_cfg != cfg:
+        raise AssertionError(f"load_musetalk read {got_cfg}")
+    _tensors_equal(loaded, params, "musetalk")
+    del loaded, params, wparams
+    _, out["bake"] = _timed("bake_models (musetalk, musetalk_whisper)", lambda: loaders.
+                            bake_models(bake, musetalk=src, musetalk_whisper=wdir, device=dev),
+                            _dir_bytes(src) + _dir_bytes(wdir), card)
+    os.environ["EST_MODELS_DIR"] = bake
+    try:
+        t0 = time.perf_counter()
+        fn = default_lipsync_fn(device=dev)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+    finally:
+        del os.environ["EST_MODELS_DIR"]
+    condition = fn.pipeline.audio_feature_fn.__qualname__
+    frames = np.stack(frontend_frames()[:LIPSYNC_BAKE_FRAMES])
+    dub = _KEPT["dub"][: int(16_000 * LIPSYNC_BAKE_FRAMES / FRONTEND_FPS)]
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rendered = fn(frames, FRONTEND_FPS, dub, 16_000)
+    out["render_s"] = time.perf_counter() - t0
+    out["launches"] = _read_launches()
+    print(f"  default_lipsync_fn from the bake: built in {out['build_s']:.2f} s (condition "
+          f"{condition}), {LIPSYNC_BAKE_FRAMES} frames in {out['render_s']:.3f} s, launches "
+          f"{out['launches']}  [{card}]", flush=True)
+    if not condition.startswith("whisper_feature_fn") or out["launches"]["log_mel_frames"] != 1:
+        raise AssertionError(f"the bake's lip-sync took {condition} and launched "
+                             f"{out['launches']}, not the whisper condition and log-mel once")
+    if rendered.shape != frames.shape or rendered.dtype != np.uint8 or not (rendered != frames).any():
+        raise AssertionError(f"the bake's lip-sync gave {rendered.shape} {rendered.dtype}")
+    del fn
+    return out
+
+
 def checkpoints_phase(dev, report, card, e2e):
     """Seeded random Whisper-medium, NLLB-600M, ECAPA and the official
     CosyVoice2 triple written in their published formats to a temporary
@@ -2820,6 +3314,10 @@ def checkpoints_phase(dev, report, card, e2e):
         ckpt["request"] = checkpoints_request(bake, tmp, dev, card, e2e)
         ckpt["launches"] = ckpt["request"]["launches"]
         ckpt["refusal"] = checkpoints_refusal(bake, tmp)
+        shutil.rmtree(os.path.join(tmp, "served"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        ckpt["lipsync"] = checkpoints_lipsync(tmp, dev, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
@@ -2834,29 +3332,31 @@ def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
-def _launches(name, e2e, front, serve, batched, stream, mtp, official, ckpt) -> dict:
+def _launches(name, e2e, front, serve, lipsync, batched, stream, mtp, official, ckpt) -> dict:
     """A kernel's launch count on each path driven: the three single
     requests, the detection of the 10 s request, the frontend's upload and
-    video request, the serve phase's routes, the batched requests, the two
-    streamed requests, the mtp phase's TTS runs, the official chain's 10 s
-    request, the 10 s request served from the bake."""
+    video request, the serve phase's routes, the lip-sync render and its
+    routes, the batched requests, the two streamed requests, the mtp phase's
+    TTS runs, the official chain's 10 s request, the 10 s request served from
+    the bake."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
             "frontend": front["launches"][name], "serve": serve["launches"][name],
+            "lipsync": lipsync["launches"][name],
             "batched": batched["launches"][name], "streaming": stream["launches"][name],
             "mtp": mtp["launches"][name], "official": official["launches"][name],
             "checkpoints": ckpt["launches"][name]}
 
 
-def _decode_entry(name, source, replaces, rows, e2e, front, serve, batched, stream, mtp,
-                  official, ckpt):
+def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, batched, stream,
+                  mtp, official, ckpt):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
     timed = next(r for r in rows if "ms" in r)
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
-            "launches_by_path": _launches(name, e2e, front, serve, batched, stream, mtp,
-                                          official, ckpt),
+            "launches_by_path": _launches(name, e2e, front, serve, lipsync, batched, stream,
+                                          mtp, official, ckpt),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -2864,8 +3364,8 @@ def _decode_entry(name, source, replaces, rows, e2e, front, serve, batched, stre
             "chain_calls": timed["chain_calls"]}
 
 
-def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, serve, batched,
-                 stream, mtp, official, ckpt):
+def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, serve, lipsync,
+                 batched, stream, mtp, official, ckpt):
     """One entry per kernel. ``launches`` counts the three single requests;
     ``launches_by_path`` adds the detection, the batched requests and the
     streamed ones.
@@ -2885,8 +3385,8 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "source": f"{PORT}/csrc/log_mel.cu",
          "replaces": f"{REFERENCE}/ops/pallas_mel.py:79",
          "launches": e2e["launches"]["log_mel_frames"],
-         "launches_by_path": _launches("log_mel_frames", e2e, front, serve, batched, stream,
-                                       mtp, official, ckpt),
+         "launches_by_path": _launches("log_mel_frames", e2e, front, serve, lipsync, batched,
+                                       stream, mtp, official, ckpt),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -2895,8 +3395,8 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "source": f"{PORT}/csrc/resblock.cu",
          "replaces": f"{REFERENCE}/ops/pallas_vocoder.py:113",
          "launches": e2e["launches"]["fused_resblock_stage"],
-         "launches_by_path": _launches("fused_resblock_stage", e2e, front, serve, batched,
-                                       stream, mtp, official, ckpt),
+         "launches_by_path": _launches("fused_resblock_stage", e2e, front, serve, lipsync,
+                                       batched, stream, mtp, official, ckpt),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -2910,11 +3410,11 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "stream_plain_ms": sum(r["graph_plain_ms"] for r in streamed),
          "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
-                      front, serve, batched, stream, mtp, official, ckpt),
+                      front, serve, lipsync, batched, stream, mtp, official, ckpt),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
-                      front, serve, batched, stream, mtp, official, ckpt),
+                      front, serve, lipsync, batched, stream, mtp, official, ckpt),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
-                      front, serve, batched, stream, mtp, official, ckpt),
+                      front, serve, lipsync, batched, stream, mtp, official, ckpt),
     ]
 
 
@@ -2957,6 +3457,7 @@ def main() -> int:
     e2e, backend = e2e_phase(dev, report, card)
     front = frontend_phase(dev, report, card, backend, e2e)
     serve = serve_phase(dev, report, card, backend, e2e, front)
+    lipsync = lipsync_phase(dev, report, card, backend, e2e)
     batched = batched_phase(dev, report, card, e2e)
     stream = streaming_phase(dev, report, card, backend, e2e)
     mtp = mtp_phase(dev, report, card, backend, e2e)
@@ -2967,8 +3468,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, front, serve, batched, stream,
-                                              mtp, official, ckpt)}))
+    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, front, serve, lipsync, batched,
+                                              stream, mtp, official, ckpt)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

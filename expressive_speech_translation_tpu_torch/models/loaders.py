@@ -5,12 +5,13 @@ The port of the JAX package's ``models/loaders.py``, with torch alone:
 - :func:`load_state_dict` reads a file or an HF-style model directory (never
   the network): safetensors through the port's own reader
   (``safetensors_io``), pickled ``.pt`` / ``.bin`` through ``torch.load``;
-- ``load_whisper`` / ``load_nllb`` / ``load_ecapa`` / ``load_qwen2_backbone``
-  and ``load_cosyvoice_{llm,flow,hift}`` compose it with each model's
-  converter, the dims read from ``config.json`` or the tensors;
+- ``load_whisper`` / ``load_nllb`` / ``load_ecapa`` / ``load_qwen2_backbone``,
+  ``load_cosyvoice_{llm,flow,hift}`` and ``load_musetalk`` compose it with
+  each model's converter, the dims read from ``config.json`` or the tensors;
 - the bake: :func:`bake_models` (and the CLI, :func:`main`) converts
   checkpoints once into stage directories (``asr/``, ``nmt/``, ``ecapa/``,
-  ``speech_tokenizer/``, ``tts_llm/``, ``tts_flow/``, ``tts_hift/``), each
+  ``speech_tokenizer/``, ``tts_llm/``, ``tts_flow/``, ``tts_hift/``,
+  ``musetalk/``, ``musetalk_whisper/``), each
   a ``config.json`` (the JAX package's schema, ``dataclasses.asdict`` of the
   config) and a ``params.safetensors`` holding the port's tree flattened to
   ``.``-joined key paths, list indices as numbers. The JAX package bakes
@@ -18,7 +19,8 @@ The port of the JAX package's ``models/loaders.py``, with torch alone:
   a directory. ``torch_engines`` serves the bake under ``EST_MODELS_DIR``::
 
       python -m expressive_speech_translation_tpu_torch.models.loaders \\
-          --asr DIR --nmt DIR --tts DIR --ecapa DIR --out DIR [--device cpu]
+          --asr DIR --nmt DIR --tts DIR --ecapa DIR [--musetalk DIR]
+          [--musetalk-whisper DIR] --out DIR [--device cpu]
 """
 
 from __future__ import annotations
@@ -264,6 +266,54 @@ def load_cosyvoice_hift(path: PathLike, cfg=None, device=None):
     return hm.from_hift_state_dict(load_state_dict(path), cfg, device), cfg
 
 
+# ------------------------------------------------------------------- MuseTalk
+
+
+def load_musetalk(path: PathLike, cfg=None, device=None):
+    """The MuseTalk release layout → ({"vae", "unet"} params on ``device``,
+    MuseTalkConfig): ``sd-vae-ft-mse/`` (or ``vae/``, or the root) holding a
+    diffusers AutoencoderKL, and ``musetalk/pytorch_model.bin`` (or
+    ``unet.pth``) with ``musetalk.json``. Without ``cfg`` the dims are read
+    from the two JSONs."""
+    from . import musetalk as mtm
+
+    root = Path(path)
+    vae_dir = next((d for d in (root / "sd-vae-ft-mse", root / "vae", root)
+                    if (d / "config.json").exists()
+                    and any((d / f).exists() for f in (
+                        "diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin",
+                        "model.safetensors", "pytorch_model.bin"))), None)
+    unet_file = next((f for f in (root / "musetalk" / "pytorch_model.bin",
+                                  root / "musetalk" / "unet.pth", root / "unet.pth",
+                                  root / "pytorch_model.bin") if f.exists()), None)
+    if vae_dir is None or unet_file is None:
+        raise WeightsNotFoundError(
+            f"MuseTalk checkpoints not found under {root} — expected "
+            "sd-vae-ft-mse/ (diffusers AutoencoderKL) and musetalk/"
+            "pytorch_model.bin (+ musetalk.json)")
+    if cfg is None:
+        vae_hf = json.loads((vae_dir / "config.json").read_text())
+        kwargs: Dict[str, Any] = dict(
+            vae_channels=tuple(vae_hf.get("block_out_channels", (128, 256, 512, 512))),
+            vae_layers=vae_hf.get("layers_per_block", 2),
+            latent_channels=vae_hf.get("latent_channels", 4),
+            image_size=256,
+            norm_groups=vae_hf.get("norm_num_groups", 32))
+        unet_json = next((f for f in (unet_file.parent / "musetalk.json", root / "musetalk.json")
+                          if f.exists()), None)
+        if unet_json is not None:
+            u = json.loads(unet_json.read_text())
+            kwargs.update(
+                unet_channels=tuple(u.get("block_out_channels", (320, 640, 1280, 1280))),
+                unet_layers=u.get("layers_per_block", 2),
+                audio_dim=u.get("cross_attention_dim", 384),
+                heads=u.get("attention_head_dim", 8))
+        cfg = mtm.MuseTalkConfig(**kwargs)
+    params = mtm.from_hf_state_dict(load_state_dict(vae_dir), load_state_dict(unet_file), cfg,
+                                    device)
+    return params, cfg
+
+
 # ------------------------------------------------------------------ the bake
 
 
@@ -380,7 +430,7 @@ def load_official_tts(models_root: PathLike, device=None, dtype=None):
             com.OfficialTtsConfig(lm=lm_cfg, flow=flow_cfg, hift=hift_cfg))
 
 
-_NOT_PORTED = ("musetalk", "musetalk_whisper", "diff2lip", "openvoice", "seamless")
+_NOT_PORTED = ("diff2lip", "openvoice", "seamless")
 
 
 def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[str] = None,
@@ -390,17 +440,27 @@ def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[
                 seamless: Optional[str] = None, tts_llm_cfg=None, tts_flow_cfg=None,
                 tts_hift_cfg=None, device=None) -> None:
     """Convert checkpoints into stage directories under ``out_root``:
-    ``asr/`` (HF Whisper), ``nmt/`` (HF NLLB), ``ecapa/`` (speechbrain) and
+    ``asr/`` (HF Whisper), ``nmt/`` (HF NLLB), ``ecapa/`` (speechbrain),
+    ``musetalk/`` (the MuseTalk release layout, :func:`load_musetalk`),
+    ``musetalk_whisper/`` (HF whisper-tiny, MuseTalk's audio condition) and
     from a CosyVoice2 directory ``tts_llm/``, ``tts_flow/``, ``tts_hift/``
     (whichever of ``llm.pt`` / ``model.pt``, ``flow.pt``, ``hift.pt`` it
     holds). The trees are converted on ``device``. The JAX package's other
-    families (MuseTalk, diff2lip, OpenVoice, Seamless) are not ported."""
-    asked = [name for name, path in zip(_NOT_PORTED, (musetalk, musetalk_whisper, diff2lip,
-                                                        openvoice, seamless)) if path]
+    families (diff2lip, OpenVoice, Seamless) are not ported."""
+    asked = [name for name, path in zip(_NOT_PORTED, (diff2lip, openvoice, seamless)) if path]
     if asked:
         raise NotImplementedError(f"baking {', '.join(asked)} is not ported yet: ROADMAP.md "
-                                  "Queue 1 item 13 (training and the off-path families)")
+                                  "Queue 1 item 13 (diff2lip, the alternate backends, "
+                                  "training)")
     out = Path(out_root)
+    if musetalk:
+        save_converted(*load_musetalk(musetalk, device=device), out / "musetalk")
+        log.info("baked MuseTalk %s -> %s", musetalk, out / "musetalk")
+    if musetalk_whisper:
+        # the conditioning encoder (whisper-tiny for the published UNet),
+        # apart from the ASR bake, whose scale is Whisper-medium
+        save_converted(*load_whisper(musetalk_whisper, device=device), out / "musetalk_whisper")
+        log.info("baked MuseTalk whisper %s -> %s", musetalk_whisper, out / "musetalk_whisper")
     if ecapa:
         save_converted(*load_ecapa(ecapa, device=device), out / "ecapa")
         log.info("baked ECAPA %s -> %s", ecapa, out / "ecapa")
@@ -441,6 +501,8 @@ def main(argv=None) -> int:
     ap.add_argument("--nmt", help="HF NLLB checkpoint dir")
     ap.add_argument("--tts", help="CosyVoice2 checkpoint dir (llm.pt, flow.pt, hift.pt)")
     ap.add_argument("--ecapa", help="speechbrain ECAPA checkpoint (file or dir)")
+    ap.add_argument("--musetalk", help="MuseTalk release dir (sd-vae-ft-mse/ + musetalk/)")
+    ap.add_argument("--musetalk-whisper", help="HF whisper-tiny dir (MuseTalk's audio condition)")
     for name in _NOT_PORTED:
         ap.add_argument(f"--{name.replace('_', '-')}", help="not ported (ROADMAP Queue 1 item 13)")
     ap.add_argument("--out", required=True, help="output root for the stage directories")
@@ -448,6 +510,7 @@ def main(argv=None) -> int:
                                      "'cpu' on a machine without one)")
     args = ap.parse_args(argv)
     bake_models(args.out, asr=args.asr, nmt=args.nmt, tts=args.tts, ecapa=args.ecapa,
+                musetalk=args.musetalk, musetalk_whisper=args.musetalk_whisper,
                 device=args.device, **{name: getattr(args, name) for name in _NOT_PORTED})
     return 0
 

@@ -11,7 +11,11 @@ published widths in the published formats and loads them back through
 - :func:`ecapa_speechbrain_state_dict`: speechbrain's ``ECAPA_TDNN``
   (``embedding_model.ckpt``);
 - :func:`cosyvoice_llm_state_dict`: the official CosyVoice2 ``Qwen2LM``
-  (``llm.pt``).
+  (``llm.pt``);
+- :func:`musetalk_vae_state_dict` / :func:`musetalk_unet_state_dict` and
+  :func:`write_musetalk`: the MuseTalk release layout (a diffusers
+  ``AutoencoderKL`` directory, ``sd-vae-ft-mse/``, and the UNet's
+  ``musetalk/pytorch_model.bin`` with ``musetalk.json``).
 
 Tied weights are one tensor under each of their names, as ``state_dict()``
 gives them; every other value is a contiguous copy on the host.
@@ -19,6 +23,8 @@ gives them; every other value is a contiguous copy on the host.
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Dict
 
 import torch
@@ -178,3 +184,137 @@ def cosyvoice_llm_state_dict(params, cfg) -> State:
         for proj in ("gate", "up", "down"):
             _linear(out, f"{base}.mlp.{proj}_proj", layer[proj], bias=False)
     return out
+
+
+def _conv(out: State, name: str, p) -> None:
+    out[f"{name}.weight"] = _host(p["kernel"])
+    out[f"{name}.bias"] = _host(p["bias"])
+
+
+def _resnet(out: State, name: str, p) -> None:
+    """The inverse of ``musetalk._res_p``: a diffusers ResnetBlock2D."""
+    _ln(out, f"{name}.norm1", p["norm1"])
+    _conv(out, f"{name}.conv1", p["conv1"])
+    _ln(out, f"{name}.norm2", p["norm2"])
+    _conv(out, f"{name}.conv2", p["conv2"])
+    if "temb" in p:
+        _linear(out, f"{name}.time_emb_proj", p["temb"])
+    if "shortcut" in p:
+        _conv(out, f"{name}.conv_shortcut", p["shortcut"])
+
+
+def musetalk_vae_config(cfg) -> dict:
+    """``config.json`` of a diffusers AutoencoderKL of ``cfg``'s VAE dims."""
+    n = len(cfg.vae_channels)
+    return {"_class_name": "AutoencoderKL", "in_channels": 3, "out_channels": 3,
+            "block_out_channels": list(cfg.vae_channels), "layers_per_block": cfg.vae_layers,
+            "latent_channels": cfg.latent_channels, "norm_num_groups": cfg.norm_groups,
+            "sample_size": cfg.image_size, "act_fn": "silu",
+            "down_block_types": ["DownEncoderBlock2D"] * n,
+            "up_block_types": ["UpDecoderBlock2D"] * n}
+
+
+def musetalk_vae_state_dict(params, cfg) -> State:
+    """The port's VAE tree → diffusers ``AutoencoderKL``'s state dict (the
+    modern attention names: group_norm, to_q / to_k / to_v, to_out.0)."""
+    out: State = {}
+
+    def mid(side, p):
+        _resnet(out, f"{side}.mid_block.resnets.0", p["res1"])
+        _resnet(out, f"{side}.mid_block.resnets.1", p["res2"])
+        a = f"{side}.mid_block.attentions.0"
+        _ln(out, f"{a}.group_norm", p["attn"]["gn"])
+        for ours, hf in (("q", "to_q"), ("k", "to_k"), ("v", "to_v"), ("o", "to_out.0")):
+            _linear(out, f"{a}.{hf}", p["attn"][ours])
+
+    enc, dec = params["encoder"], params["decoder"]
+    _conv(out, "encoder.conv_in", enc["conv_in"])
+    for i, block in enumerate(enc["down"]):
+        for j, res in enumerate(block["resnets"]):
+            _resnet(out, f"encoder.down_blocks.{i}.resnets.{j}", res)
+        if "downsample" in block:
+            _conv(out, f"encoder.down_blocks.{i}.downsamplers.0.conv", block["downsample"])
+    mid("encoder", enc["mid"])
+    _ln(out, "encoder.conv_norm_out", enc["norm_out"])
+    _conv(out, "encoder.conv_out", enc["conv_out"])
+    _conv(out, "decoder.conv_in", dec["conv_in"])
+    mid("decoder", dec["mid"])
+    for i, block in enumerate(dec["up"]):
+        for j, res in enumerate(block["resnets"]):
+            _resnet(out, f"decoder.up_blocks.{i}.resnets.{j}", res)
+        if "upsample" in block:
+            _conv(out, f"decoder.up_blocks.{i}.upsamplers.0.conv", block["upsample"])
+    _ln(out, "decoder.conv_norm_out", dec["norm_out"])
+    _conv(out, "decoder.conv_out", dec["conv_out"])
+    _conv(out, "quant_conv", params["quant_conv"])
+    _conv(out, "post_quant_conv", params["post_quant_conv"])
+    return out
+
+
+def musetalk_unet_config(cfg) -> dict:
+    """``musetalk.json``: the UNet2DConditionModel's dims."""
+    n = len(cfg.unet_channels)
+    return {"_class_name": "UNet2DConditionModel", "in_channels": 2 * cfg.latent_channels,
+            "out_channels": cfg.latent_channels, "sample_size": cfg.image_size // 8,
+            "block_out_channels": list(cfg.unet_channels), "layers_per_block": cfg.unet_layers,
+            "cross_attention_dim": cfg.audio_dim, "attention_head_dim": cfg.heads,
+            "norm_num_groups": cfg.norm_groups, "flip_sin_to_cos": True, "freq_shift": 0,
+            "down_block_types": ["CrossAttnDownBlock2D"] * (n - 1) + ["DownBlock2D"],
+            "up_block_types": ["UpBlock2D"] + ["CrossAttnUpBlock2D"] * (n - 1)}
+
+
+def musetalk_unet_state_dict(params, cfg) -> State:
+    """The port's UNet tree → diffusers ``UNet2DConditionModel``'s state
+    dict."""
+    out: State = {}
+
+    def transformer(name, p):
+        _ln(out, f"{name}.norm", p["gn"])
+        _conv(out, f"{name}.proj_in", p["proj_in"])
+        _conv(out, f"{name}.proj_out", p["proj_out"])
+        tb = f"{name}.transformer_blocks.0"
+        for k in ("norm1", "norm2", "norm3"):
+            _ln(out, f"{tb}.{k}", p[k])
+        for attn in ("attn1", "attn2"):
+            for ours, hf in (("q", "to_q"), ("k", "to_k"), ("v", "to_v")):
+                _linear(out, f"{tb}.{attn}.{hf}", p[attn][ours], bias=False)
+            _linear(out, f"{tb}.{attn}.to_out.0", p[attn]["o"])
+        _linear(out, f"{tb}.ff.net.0.proj", p["ff_proj"])
+        _linear(out, f"{tb}.ff.net.2", p["ff_out"])
+
+    _conv(out, "conv_in", params["conv_in"])
+    _linear(out, "time_embedding.linear_1", params["time_mlp"]["lin1"])
+    _linear(out, "time_embedding.linear_2", params["time_mlp"]["lin2"])
+    for side, sampler in (("down", "downsample"), ("up", "upsample")):
+        for i, block in enumerate(params[side]):
+            for j, res in enumerate(block["resnets"]):
+                _resnet(out, f"{side}_blocks.{i}.resnets.{j}", res)
+            for j, attn in enumerate(block.get("attns", [])):
+                transformer(f"{side}_blocks.{i}.attentions.{j}", attn)
+            if sampler in block:
+                _conv(out, f"{side}_blocks.{i}.{sampler}rs.0.conv", block[sampler])
+    _resnet(out, "mid_block.resnets.0", params["mid"]["res1"])
+    transformer("mid_block.attentions.0", params["mid"]["attn"])
+    _resnet(out, "mid_block.resnets.1", params["mid"]["res2"])
+    _ln(out, "conv_norm_out", params["norm_out"])
+    _conv(out, "conv_out", params["conv_out"])
+    return out
+
+
+def write_musetalk(root, params, cfg) -> Path:
+    """Write a MuseTalk tree in the release layout under ``root``:
+    ``sd-vae-ft-mse/`` (``config.json`` and
+    ``diffusion_pytorch_model.safetensors``) and ``musetalk/``
+    (``musetalk.json`` and ``pytorch_model.bin``). → ``root``."""
+    from ..models.safetensors_io import write_safetensors
+
+    root = Path(root)
+    vae, unet = root / "sd-vae-ft-mse", root / "musetalk"
+    vae.mkdir(parents=True, exist_ok=True)
+    unet.mkdir(parents=True, exist_ok=True)
+    (vae / "config.json").write_text(json.dumps(musetalk_vae_config(cfg), indent=2))
+    write_safetensors(musetalk_vae_state_dict(params["vae"], cfg),
+                      vae / "diffusion_pytorch_model.safetensors", metadata={"format": "pt"})
+    (unet / "musetalk.json").write_text(json.dumps(musetalk_unet_config(cfg), indent=2))
+    torch.save(musetalk_unet_state_dict(params["unet"], cfg), unet / "pytorch_model.bin")
+    return root

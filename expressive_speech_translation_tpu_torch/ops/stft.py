@@ -72,6 +72,17 @@ def power_spectrogram(x: torch.Tensor, n_fft: int, hop: int, *,
     return real * real + imag * imag
 
 
+def spectrogram(x: torch.Tensor, n_fft: int, hop: int, *, window: Optional[np.ndarray] = None,
+                center: bool = True, power: float = 2.0) -> torch.Tensor:
+    """Magnitude (power=1) or power (power=2) spectrogram, [..., frames, n_bins]."""
+    mag2 = power_spectrogram(x, n_fft, hop, window=window, center=center)
+    if power == 2.0:
+        return mag2
+    if power == 1.0:
+        return torch.sqrt(torch.clamp_min(mag2, 1e-20))
+    return torch.pow(torch.clamp_min(mag2, 1e-20), power / 2.0)
+
+
 @functools.lru_cache(maxsize=32)
 def _inverse_bases(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
     """Inverse real DFT as two products: ``irfft(X)[n] = (1/N) Σ_k w_k (Re·cos

@@ -1,9 +1,9 @@
-"""Host-side face and mouth localization for visual speech detection.
+"""Host-side face and mouth localization for lip-sync and visual speech.
 
-The port's copy of the JAX package's ``pipeline/face.py`` up to the
-clip-level detector (the per-window tracking and per-frame boxes that serve
-lip-sync are not ported). The reference localizes mouths with MediaPipe
-FaceMesh (convex hull of 15 mouth landmarks, every 3rd frame) and faces with
+The port's copy of the JAX package's ``pipeline/face.py``: the clip-level
+detector, and the per-window tracking, phase-correlation refinement and
+per-frame boxes that serve lip-sync. The reference localizes mouths with
+MediaPipe FaceMesh (convex hull of 15 mouth landmarks, every 3rd frame) and faces with
 DWPose / S3FD boxes. Neither model is available, so this module is a
 classical detector that localizes faces and mouths on real video:
 
@@ -429,3 +429,244 @@ class FaceLandmarkDetector:
         cy, cx = (y0 + y1) // 2, (x0 + x1) // 2
         half = min(side // 2, cy, cx, h - cy, w - cx)
         return (cy - half, cx - half, cy + half, cx + half)
+
+
+def frames_face_detector(frames: Sequence[np.ndarray]) -> BBox:
+    """diff2lip-compatible detector: real face box when one is found, centre
+    crop otherwise (pipeline/diff2lip.py center_face_detector fallback)."""
+    if len(frames) == 0:
+        from ..core.errors import MediaError
+
+        raise MediaError("no video frames for face detection",
+                         user_message="The video contains no frames")
+    box = FaceLandmarkDetector().face_bbox_for_lipsync(frames)
+    if box is not None:
+        return box
+    h, w = np.asarray(frames[0]).shape[:2]
+    s = min(h, w)
+    y0, x0 = (h - s) // 2, (w - s) // 2
+    return (y0, x0, y0 + s, x0 + s)
+
+
+def track_face_windows(
+    frames: Sequence[np.ndarray], fps: float = 25.0, *, window_s: float = 2.0,
+) -> List[Optional[FaceTrack]]:
+    """Windowed tracking: one FaceTrack per ~window_s slice of the clip
+    (multi-shot videos and moving heads need more than a single per-clip box;
+    the reference re-detects with FaceMesh every analysed frame). Windows
+    with no detection inherit the nearest detected neighbour."""
+    n = len(frames)
+    if n == 0:
+        return []
+    win = max(int(window_s * fps), 4)
+    tracks: List[Optional[FaceTrack]] = []
+    for s in range(0, n, win):
+        chunk = frames[s: s + win]
+        face = detect_face_bbox(chunk)
+        if face is None:
+            tracks.append(None)
+            continue
+        # anchor localisation: the full-window box smears a fast-moving head
+        # along its path (the blob covers the swept strip). Re-detect inside
+        # that ROI on a narrow chunk around the window CENTRE — constrained
+        # to the ROI it cannot wander onto background, and over 8 frames it
+        # sees the head only where it actually is at the anchor frame.
+        c = min(s + win // 2, n - 1)
+        sub = [np.asarray(frames[i])[face[0]:face[2], face[1]:face[3]]
+               for i in range(max(c - 4, s), min(c + 4, s + len(chunk)))]
+        if len(sub) >= 2 and (face[2] - face[0]) >= 8 and (face[3] - face[1]) >= 8:
+            local = detect_face_bbox(sub)
+            if local is not None:
+                face = (face[0] + local[0], face[1] + local[1],
+                        face[0] + local[2], face[1] + local[3])
+        tracks.append(FaceTrack(face=face, mouth=detect_mouth_bbox(chunk, face)))
+    # fill gaps from the nearest detected window — marked detected=False so
+    # downstream refinement knows these centres are NOT real detections
+    detected = [i for i, t in enumerate(tracks) if t is not None]
+    for i, t in enumerate(tracks):
+        if t is None and detected:
+            src_track = tracks[min(detected, key=lambda j: abs(j - i))]
+            tracks[i] = dataclasses.replace(src_track, detected=False)
+    return tracks
+
+
+def _gray_patch(frame: np.ndarray, box, size: int = 48) -> np.ndarray:
+    """Fixed-size grayscale crop of ``box`` (nearest resample — translation
+    estimation only needs consistent sampling, not fidelity)."""
+    f = np.asarray(frame)
+    h, w = f.shape[:2]
+    y0 = int(np.clip(box[0], 0, h - 2))
+    x0 = int(np.clip(box[1], 0, w - 2))
+    y1 = int(np.clip(box[2], y0 + 2, h))
+    x1 = int(np.clip(box[3], x0 + 2, w))
+    crop = f[y0:y1, x0:x1]
+    if crop.ndim == 3:
+        crop = crop.mean(axis=-1)
+    yi = np.linspace(0, crop.shape[0] - 1, size).astype(int)
+    xi = np.linspace(0, crop.shape[1] - 1, size).astype(int)
+    return crop[np.ix_(yi, xi)].astype(np.float32)
+
+
+def _phase_shift(a: np.ndarray, b: np.ndarray) -> Tuple[float, float]:
+    """Phase correlation: the (dy, dx) translating patch ``a`` onto ``b``
+    in patch pixels (FFT cross-power spectrum peak, wraparound-signed)."""
+    win = np.outer(np.hanning(a.shape[0]), np.hanning(a.shape[1]))
+    fa = np.fft.fft2((a - a.mean()) * win)
+    fb = np.fft.fft2((b - b.mean()) * win)
+    r = fb * np.conj(fa)
+    r /= np.maximum(np.abs(r), 1e-9)
+    corr = np.abs(np.fft.ifft2(r))
+    peak = np.unravel_index(int(np.argmax(corr)), corr.shape)
+
+    def subpixel(axis_idx, axis_len, pick):
+        # parabolic interpolation around the peak along one axis; ``pick``
+        # indexes corr at a given position along that axis
+        c0 = pick((axis_idx - 1) % axis_len)
+        c1 = pick(axis_idx)
+        c2 = pick((axis_idx + 1) % axis_len)
+        denom = c0 - 2 * c1 + c2
+        return float(axis_idx) + (0.5 * (c0 - c2) / denom if abs(denom) > 1e-12 else 0.0)
+
+    dy = subpixel(peak[0], a.shape[0], lambda i: corr[i, peak[1]])
+    dx = subpixel(peak[1], a.shape[1], lambda j: corr[peak[0], j])
+    if dy > a.shape[0] / 2:
+        dy -= a.shape[0]
+    if dx > a.shape[1] / 2:
+        dx -= a.shape[1]
+    return dy, dx
+
+
+def smooth_boxes(boxes: List, window: int = 5) -> List[BBox]:
+    """MuseTalk's CENTERED 5-frame bbox smoothing
+    (Docker/api_inference_logic.py:27-38 smooth_bbox parity: window
+    [i−w//2, i+w//2], out-of-place). The diff2lip pipeline's FORWARD
+    in-place smoother is pipeline/diff2lip.smooth_boxes — the reference
+    ships both with different semantics."""
+    arr = np.asarray(boxes, np.float32)
+    out = []
+    for i in range(len(arr)):
+        lo, hi = max(0, i - window // 2), min(len(arr), i + window // 2 + 1)
+        out.append(tuple(int(round(v)) for v in arr[lo:hi].mean(axis=0)))
+    return out
+
+
+def refine_boxes_flow(
+    frames: Sequence[np.ndarray],
+    boxes: List[BBox],
+    anchors: List[int],
+    *,
+    patch: int = 48,
+    max_step_frac: float = 0.35,
+) -> List[BBox]:
+    """Per-frame refinement between detection anchors (VERDICT r2 #9): the
+    face patch is tracked frame-to-frame by phase correlation, with linear
+    drift correction so each segment lands exactly on the next anchored
+    detection. Fast head motion inside a window — which pure window
+    interpolation lags — follows the actual pixels."""
+    n = len(frames)
+    if n == 0 or not anchors:
+        return list(boxes)
+    out = np.asarray(boxes, np.float32).copy()
+    anchors = sorted(set(int(a) for a in anchors))
+    # interior segments run detection→detection (drift-corrected to land on
+    # the far anchor); boundary segments run detection→clip edge where no
+    # detection exists — pure flow there, NO correction (correcting toward
+    # the interpolated edge box would drag the track back off the face)
+    segments = [(c0, c1, True) for c0, c1 in zip(anchors[:-1], anchors[1:])]
+    if anchors[0] > 0:
+        segments.insert(0, (anchors[0], 0, False))
+    if anchors[-1] < n - 1:
+        segments.append((anchors[-1], n - 1, False))
+    h, w = np.asarray(frames[0]).shape[:2]
+    for c0, c1, correct in segments:
+        if c0 == c1:
+            continue
+        step = 1 if c1 > c0 else -1
+        box = out[c0].copy()
+        bh, bw = box[2] - box[0], box[3] - box[1]
+        if bh < 4 or bw < 4:
+            continue
+        max_dy, max_dx = max_step_frac * bh, max_step_frac * bw
+        prev_patch = _gray_patch(frames[c0], box, patch)
+        pred = {c0: box.copy()}
+        for f in range(c0 + step, c1 + step, step):
+            cur_patch = _gray_patch(frames[f], box, patch)
+            dy, dx = _phase_shift(prev_patch, cur_patch)
+            # patch pixels → frame pixels; clamp implausible jumps
+            dy = float(np.clip(dy * bh / patch, -max_dy, max_dy))
+            dx = float(np.clip(dx * bw / patch, -max_dx, max_dx))
+            box = box + np.asarray([dy, dx, dy, dx], np.float32)
+            box[0::2] = np.clip(box[0::2], 0, h - 1)
+            box[1::2] = np.clip(box[1::2], 0, w - 1)
+            pred[f] = box.copy()
+            prev_patch = _gray_patch(frames[f], box, patch)
+        # drift correction: distribute the endpoint error linearly so the
+        # segment still lands on the detected box at c1 (interior only —
+        # both endpoints are real detections there)
+        err = (out[c1] - pred[c1]) if correct else np.zeros(4, np.float32)
+        span = abs(c1 - c0)
+        for f in pred:
+            a = abs(f - c0) / span
+            out[f] = pred[f] + a * err
+    return [tuple(int(round(v)) for v in b) for b in out]
+
+
+def per_frame_face_boxes(
+    frames: Sequence[np.ndarray], fps: float = 25.0, *, window_s: float = 2.0,
+    refine: bool = True,
+) -> List[BBox]:
+    """Per-frame face boxes: windowed detections → linear interpolation →
+    phase-correlation flow refinement between anchors (``refine``) → 5-frame
+    smoothing (the reference's per-frame S3FD/DWPose boxes get the same
+    5-frame smoothing — api_inference_logic.py:89-97, diff2lip smooth_boxes).
+
+    With a learned detector mounted the pipeline is the reference's exact
+    shape instead: TRUE per-frame detection + 5-frame smoothing, no windowed
+    interpolation or flow refinement needed. Frames the detector misses
+    inherit the previous detection (the reference's coord_placeholder reuse);
+    a clip it misses entirely falls through to the classical path."""
+    n = len(frames)
+    det = learned_detector()
+    if det is not None and n > 0:
+        try:
+            boxes, last = [], None
+            for f in frames:
+                b = det(np.asarray(f))
+                if b is not None:
+                    last = b
+                boxes.append(last)
+            if last is not None:
+                first = next(b for b in boxes if b is not None)
+                boxes = [b if b is not None else first for b in boxes]
+                return smooth_boxes(boxes) if n > 1 else list(boxes)
+        except Exception as e:  # noqa: BLE001 — degrade to classical
+            log.warning("face: per-frame learned detection failed (%s); "
+                        "using classical tracking", e)
+    tracks = track_face_windows(frames, fps, window_s=window_s)
+    if not tracks or all(t is None for t in tracks):
+        h, w = np.asarray(frames[0]).shape[:2]
+        s = min(h, w)
+        y0, x0 = (h - s) // 2, (w - s) // 2
+        return [(y0, x0, y0 + s, x0 + s)] * n
+    win = max(int(window_s * fps), 4)
+    centers = [min(i * win + win // 2, n - 1) for i in range(len(tracks))]
+    # only REAL detections anchor the flow's drift correction: gap-filled
+    # windows carry a copied neighbour box at the wrong place, and correcting
+    # toward them drags the track off the face exactly where detection failed
+    real_anchors = [c for c, t in zip(centers, tracks) if t.detected]
+    boxes_at = np.asarray([t.face for t in tracks], np.float32)
+    out: List[BBox] = []
+    for f in range(n):
+        j = int(np.searchsorted(centers, f))
+        if j == 0:
+            box = boxes_at[0]
+        elif j >= len(centers):
+            box = boxes_at[-1]
+        else:
+            c0, c1 = centers[j - 1], centers[j]
+            a = (f - c0) / max(c1 - c0, 1)
+            box = (1 - a) * boxes_at[j - 1] + a * boxes_at[j]
+        out.append(tuple(int(round(v)) for v in box))
+    if refine and n > 1 and real_anchors:
+        out = refine_boxes_flow(frames, out, real_anchors)
+    return smooth_boxes(out) if n > 1 else out

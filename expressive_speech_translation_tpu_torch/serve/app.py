@@ -503,10 +503,38 @@ def main() -> None:
     setup_logging(config.log_dir)
     # the server defaults to the port's engines (mode "jax";
     # EST_ENGINES__MODE overrides); random weights show in /health/model
-    # and in every /translate response
-    log.warning("native media shim not ported (ROADMAP.md Queue 1 item 9): "
-                "/process-video disabled")
-    app = create_app(config=config, default_engine_mode="jax")
+    # and in every /translate response. The video route runs in-process when
+    # the native media shim builds: decode and mux through the C++ shim,
+    # lip-sync through the resident MuseTalk pipeline (baked weights and the
+    # whisper condition when EST_MODELS_DIR has them).
+    video_io = None
+    from ..media import native as est_media
+
+    if est_media.available():
+        from ..pipeline.musetalk_pipeline import default_lipsync_fn
+
+        # lazy: building the MuseTalk pipeline (random weights = a full
+        # SD-scale init) must not hold up startup when /process-video is not
+        # used; the first video request pays for it. The lock matters:
+        # run_simple(threaded=True) serves concurrent requests, and an
+        # unguarded check-then-build would build the pipeline twice
+        import threading
+
+        _lipsync_cell: list = []
+        _lipsync_lock = threading.Lock()
+
+        def _lazy_lipsync(frames, fps, audio, sr):
+            with _lipsync_lock:
+                if not _lipsync_cell:
+                    _lipsync_cell.append(default_lipsync_fn())
+                fn = _lipsync_cell[0]
+            return fn(frames, fps, audio, sr)
+
+        video_io = est_media.NativeVideoIO(lipsync_fn=_lazy_lipsync)
+    else:
+        log.warning("native media shim not built: /process-video disabled "
+                    "(deploy/ images build media/csrc)")
+    app = create_app(config=config, default_engine_mode="jax", video_io=video_io)
     try:
         app.manager.get_backend()
     except Exception:

@@ -400,8 +400,9 @@ def test_port_runs_without_jax_or_the_jax_package():
     """A fresh process runs the port's tiny cascade on the CPU, imports
     every module (the checkpoint loaders, the safetensors reader, the
     tokenizers, the WAV codec, the audio front end, the visual mapping, the
-    configuration and the serving stack among them), serves a bake, runs
-    ``load_config()`` and a request with video frames, with jax, the JAX
+    configuration, the serving stack, the media shim and MuseTalk among
+    them), serves a bake, runs ``load_config()``, a request with video
+    frames and a lip-sync render, with jax, the JAX
     package, ``yaml`` and ``psutil`` blocked from import, and must not have
     imported them nor the optional ``safetensors`` / ``transformers`` /
     ``tokenizers``, nor ``urllib3`` / ``certifi`` past what torch imports
@@ -491,6 +492,18 @@ def test_port_runs_without_jax_or_the_jax_package():
         from expressive_speech_translation_tpu_torch.serve import (
             audio_link, limiter, podcasts, resource_monitor, video)
         assert errors.MediaError("m", user_message="u").to_payload()["error"] == "u"
+        # the video route's media shim and lip-sync
+        from expressive_speech_translation_tpu_torch.media import native
+        from expressive_speech_translation_tpu_torch.models import musetalk
+        from expressive_speech_translation_tpu_torch.pipeline import musetalk_pipeline
+        native.available()
+        mt_cfg = musetalk.MuseTalkConfig(image_size=32, vae_channels=(8, 16), vae_layers=1,
+            unet_channels=(8, 16), unet_layers=1, audio_dim=16, audio_ctx=4, heads=2,
+            norm_groups=4)
+        lip = musetalk_pipeline.musetalk_lipsync_fn(cfg=mt_cfg, device="cpu",
+                                                    dtype=torch.float32)
+        clip = np.random.default_rng(0).integers(0, 255, (3, 40, 48, 3), np.uint8)
+        assert lip(clip, 25.0, np.zeros(3_000, np.float32), 24_000).shape == clip.shape
         assert resource_monitor.process_rss_bytes() > 0 and resource_monitor.device_memory_stats() == {}
         assert "werkzeug" not in sys.modules
         BLOCKED.discard("werkzeug")

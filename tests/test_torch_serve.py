@@ -686,13 +686,17 @@ def test_over_one_backend_the_apps_answer_within_two_codes(tmp_path):
 
 
 def test_a_non_wav_upload_answers_with_jax_no_shim_text(tmp_path, monkeypatch):
-    """The port has no media shim yet (ROADMAP Queue 1 item 9): a non-WAV
-    upload answers 400 with the payload JAX answers where its shim is not
-    built (this host builds JAX's, so its loader is pointed at an empty
-    directory)."""
+    """Where neither package's media shim is built, a non-WAV upload answers
+    400 with the same payload (this host builds both, so JAX's loader is
+    pointed at an empty directory and the port's at a library that is not
+    there, with its build already failed)."""
     native = importlib.import_module("expressive_speech_translation_tpu.media.native")
     monkeypatch.setattr(native, "_SO_PATH", tmp_path / "none" / "libest_media.so")
     monkeypatch.setattr(native, "_LIB", None)
+    tnative = importlib.import_module("expressive_speech_translation_tpu_torch.media.native")
+    monkeypatch.setattr(tnative, "library_path", lambda: tmp_path / "none" / "libest_media.so")
+    monkeypatch.setattr(tnative, "_LIB", None)
+    monkeypatch.setattr(tnative, "_BUILD_ERROR", "g++ failed")
     jc, tc = _clients(tmp_path)
     r = _same(jc, tc, "post", "/translate", data={"file": (io.BytesIO(b"ID3" + bytes(64)),
                                                            "clip.mp3"), "target_language": "fra"})
