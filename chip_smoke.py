@@ -80,21 +80,37 @@ Phases, in order; any failure exits non-zero and prints no result:
               the paths checked, over the serve phase's test VideoIO with the
               real lip-sync. Frames, fps and audio length against the dub, the
               visual branch run, log-mel twice and the resblock twice;
-8. batched  — the same engines behind the three micro-batchers
+8. diff2lip — the diff2lip TFG UNet at its published width
+              (``Diff2LipConfig()``: 128 px, 128 channels × (1, 1, 2, 3, 4),
+              attention at ds 8/16, the audio-as-style encoder, ddim25),
+              seeded random weights, its parameter count and the operations
+              of one UNet call (``FlopCounterMode``): ``generate`` of the
+              first 25 frontend frames with the f32 tree, of all 250 with
+              the tree in bf16, and of one batch of 8 in cross-identity mode
+              (the identity clip reversed), against the e2e phase's 10 s dub,
+              each split into face boxes (host), mel windows, crops,
+              sampling (card) and the blend (host), with frames per second,
+              the sampling's TFLOP/s and share of the FP32 or bf16 peak, and
+              peak memory; the frames' shape and dtype kept, nothing outside
+              a face box changed, every jaw changed; in f32, one
+              ``gd_unet_apply`` on 2 crops and the sampled crops of a
+              ``ddim4`` batch of 2 on the card against ``device="cpu"``
+              (DIFF2LIP_F32_RTOL); log-mel and the resblock never launched;
+9. batched  — the same engines behind the three micro-batchers
               (``torch_engines(batch_*=True, max_batch=8)``), ``initialize()``,
               8 concurrent 10 s ``translate_speech`` requests from 8 threads:
               requests per second against the e2e phase's 10 s request served
               alone, the batches formed, peak memory; the resblock kernel must
               have launched at B > 1, and is checked and timed at the shapes
               the requests handed it;
-9. streaming — the e2e phase's engines (no second ``initialize()``),
+10. streaming — the e2e phase's engines (no second ``initialize()``),
               ``translate_speech_streaming`` of a 10 s and a 40 s request
               (two ASR windows), cloning on: time to the first audio event,
               wall, events and chunk lengths, the launch counters around each
               stream (log-mel once a window, resblock twice a streamed TTS
               chunk); the resblock kernel checked and timed at the (B, C, T)
               the stream handed it, in vocode's layout and the contiguous one;
-10. mtp     — the e2e phase's TTS config on one random tree with two MTP
+11. mtp     — the e2e phase's TTS config on one random tree with two MTP
               heads, bf16: ``synthesize`` of the 10 s request's text and voice
               prompt at ``mtp=1``, ``mtp=3`` (accept-all) and ``mtp=3,
               spec=True`` (stage seconds, speech tokens, backbone passes,
@@ -107,7 +123,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               weights against bf16 (logits within INT8_LOGIT_RTOL, both
               replayed as CUDA graphs in turns at B = 1 and 8) and one 10 s
               request on ``torch_engines(quantize=True)``;
-11. official — the official CosyVoice2 chain at its full width
+12. official — the official CosyVoice2 chain at its full width
               (``OfficialTtsConfig()``: Qwen2-0.5B LM with 6,561 speech tokens,
               the 512-wide 6 + 4 block conformer, the 256-channel estimator of
               14 units × 4 transformer blocks, 10 Euler steps with CFG, HiFT
@@ -127,7 +143,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               inferred), and the HiFT source of one 10 s bf16-representable
               f0 track with the engine's bf16 HiFT parameters against their
               f32 copies (the port integrates the phase in f32);
-12. checkpoints — seeded random Whisper-medium, NLLB-200-distilled-600M,
+13. checkpoints — seeded random Whisper-medium, NLLB-200-distilled-600M,
               ECAPA (1,024 channels) and the official CosyVoice2 triple, f32,
               written by ``obs/checkpoint_emitters.py`` in their published
               formats (``model.safetensors``, ``pytorch_model.bin``,
@@ -147,8 +163,13 @@ Phases, in order; any failure exits non-zero and prints no result:
               whisper-tiny, f32, written in the release layout, read back by
               ``load_musetalk`` (equal), baked, and 25 frames rendered by
               ``default_lipsync_fn`` from the bake (the whisper condition:
-              log-mel once);
-13. the kernels line, the card line, and last the result line.
+              log-mel once); and diff2lip at its published width, f32, written
+              by the emitter as a ``module.``-prefixed ``e2e.pt``, read back
+              by ``load_diff2lip`` (equal), baked, reloaded by
+              ``load_converted`` (equal), and 8 frames rendered by
+              ``Diff2LipPipeline.from_models_dir`` from the bake, each step's
+              seconds and GB/s;
+14. the kernels line, the card line, and last the result line.
 
 The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
 greedy call.
@@ -2025,6 +2046,202 @@ def lipsync_phase(dev, report, card, backend, e2e):
     return lipsync
 
 
+DIFF2LIP_F32_RTOL = 1e-3       # diff2lip f32 on the card against device="cpu": max |diff| / peak
+DIFF2LIP_F32_FRAMES = 25       # frames rendered with the f32 tree (JAX's default dtype)
+DIFF2LIP_CROSS_FRAMES = 8      # one batch rendered in cross-identity mode
+DIFF2LIP_BAKE_FRAMES = 8       # frames rendered from the bake
+
+
+def diff2lip_unet_flops(params, cfg, dev) -> float:
+    """Operations of one ``gd_unet_apply`` call for one frame: the
+    convolutions' and matmuls' multiply-adds ×2, as ``FlopCounterMode``
+    counts them on the call at the published width (norms, activations and
+    the softmax left out)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from expressive_speech_translation_tpu_torch.models import gd_unet
+
+    s = cfg.image_size
+    x = torch.zeros((1, 3, s, s), device=dev)
+    mask = torch.zeros((1, 1, s, 1), device=dev)
+    counter = FlopCounterMode(display=False)
+    with counter, torch.inference_mode():
+        gd_unet.gd_unet_apply(params, cfg.unet, x, torch.zeros(1, dtype=torch.long, device=dev),
+                              cond_img=x, mask=mask, ref_img=x,
+                              mel=torch.zeros((1, cfg.mel_window, cfg.n_mels), device=dev))
+    return float(counter.get_total_flops())
+
+
+def diff2lip_render(pipe, frames: np.ndarray, dub16: np.ndarray, card, label: str,
+                    unet_flops: float, identity=None) -> tuple:
+    """One ``Diff2LipPipeline.generate`` on the frames against the 16 kHz
+    dub, the card synchronised around each part: seconds split into face
+    boxes (host), mel windows, crops, sampling (card) and the blend (host);
+    frames per second; the sampling's TFLOP/s and its share of the FP32 or
+    bf16 data-sheet peak; peak memory above the resident. → (frames, the
+    target's boxes, figures)."""
+    from expressive_speech_translation_tpu_torch.pipeline import diff2lip as d2l
+    from expressive_speech_translation_tpu_torch.pipeline import musetalk_pipeline as mtp
+
+    boxes, mels, crops, samples, blend = [], [], [], [], []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _synced_timing(d2l, "per_frame_face_boxes", boxes), \
+            _synced_timing(d2l, "mel_windows_for_frames", mels), \
+            _synced_timing(pipe, "crops", crops), \
+            _synced_timing(pipe, "sample", samples), \
+            _timing_calls(d2l, "blend_face_np", blend):
+        out = pipe.generate(frames, dub16, FRONTEND_FPS, identity_frames=identity,
+                            generator=torch.Generator(device=pipe.device).manual_seed(0))
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    split = {"face_boxes_s": sum(c[0] for c in boxes), "mel_windows_s": mels[0][0],
+             "crops_s": sum(c[0] for c in crops), "sampling_s": sum(c[0] for c in samples),
+             "blend_s": sum(c[0] for c in blend)}
+    split["rest_s"] = wall - sum(split.values())
+    dtype = pipe.params["out"]["conv"]["kernel"].dtype
+    peak_rate = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    flop = len(frames) * pipe.diffusion.num_timesteps * unet_flops
+    rate = flop / split["sampling_s"]
+    figures = {"label": label, "frames": len(frames), "dtype": str(dtype), "wall_s": wall,
+               "fps": len(frames) / wall, **split, "batches": len(samples),
+               "sampling_tflop": flop / 1e12, "sampling_tflops": rate / 1e12,
+               "peak_share": rate / peak_rate, "peak_gib_above_resident": peak,
+               "cross_identity": identity is not None}
+    print(f"  {label}: {len(frames)} frames {frames.shape[1]}x{frames.shape[2]} in {wall:.3f} s, "
+          f"{len(frames) / wall:.2f} frames/s: " + ", ".join(
+              f"{k[:-2]} {v:.3f} s" for k, v in split.items())
+          + f"; sampling {flop / 1e12:.1f} TFLOP in {len(samples)} batches at "
+          f"{rate / 1e12:.1f} TFLOP/s, {100 * rate / peak_rate:.1f}% of the "
+          f"{'bf16' if peak_rate == PEAK_BF16 else 'FP32'} data-sheet peak; peak "
+          f"{peak:.2f} GiB above the resident  [{card}]", flush=True)
+    boxes = [mtp.clamp_box(b, frames.shape[1], frames.shape[2]) for b in boxes[0][1]]
+    return out, boxes, figures
+
+
+def diff2lip_f32_check(params, cfg, frames, boxes, dub16, dev, card) -> dict:
+    """In f32, card against ``device="cpu"`` on the same tree and draws: one
+    ``gd_unet_apply`` at the published width on 2 crops, and the sampled
+    crops (before the blend) of one batch of 2 frames through a ``ddim4``
+    copy of the config; each max |diff| / peak within DIFF2LIP_F32_RTOL."""
+    from expressive_speech_translation_tpu_torch.models import gd_unet
+    from expressive_speech_translation_tpu_torch.pipeline import diff2lip as d2l
+
+    host = _tree_to(params, "cpu")
+    cfg4 = dataclasses.replace(cfg, sampling_steps="ddim4")
+    card_pipe = d2l.Diff2LipPipeline(cfg4, params, device=dev)
+    cpu_pipe = d2l.Diff2LipPipeline(cfg4, host, device="cpu")
+    crops = card_pipe.crops(list(frames[:2]), boxes[:2]).cpu()
+    ref = crops.flip(0)
+    mel = torch.from_numpy(d2l.mel_windows_for_frames(dub16, 2, FRONTEND_FPS, device="cpu"))
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(crops.shape, generator=g)
+    t = torch.tensor([960, 40])
+    draws = d2l.BatchNoise(torch.randn(crops.shape, generator=g),
+                           torch.randn(crops.shape, generator=g),
+                           [torch.randn(crops.shape, generator=g)
+                            for _ in range(card_pipe.diffusion.num_timesteps)])
+    rows = {}
+
+    def unet(pipe, dev_):
+        return gd_unet.gd_unet_apply(pipe.params, cfg.unet, x.to(dev_), t.to(dev_),
+                                     cond_img=crops.to(dev_), mask=pipe.mask, ref_img=ref.to(dev_),
+                                     mel=mel.to(dev_))
+
+    def sampled(pipe, dev_):
+        return pipe.sample(crops.to(dev_), ref.to(dev_), mel.to(dev_), noise=d2l.BatchNoise(
+            draws.cond.to(dev_), draws.x_init.to(dev_), [d.to(dev_) for d in draws.steps]))
+
+    for name, fn in (("gd_unet_apply", unet), ("sampled crops, ddim4", sampled)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            got = fn(card_pipe, dev).float().cpu()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            want = fn(cpu_pipe, "cpu").float()
+        cpu_s = time.perf_counter() - t0
+        err, peak = float((got - want).abs().max()), float(want.abs().max())
+        rows[name] = {"max_abs_err": err, "peak": peak, "rel": err / peak, "card_s": card_s,
+                      "cpu_s": cpu_s}
+        print(f"  diff2lip {name} f32, 2 crops, card against device=\"cpu\": max |diff| "
+              f"{err:.3e}, peak {peak:.3f}, ratio {err / peak:.3e} (tolerance "
+              f"{DIFF2LIP_F32_RTOL:g}); card {card_s:.3f} s, CPU {cpu_s:.1f} s  [{card}]",
+              flush=True)
+        if not (np.isfinite(err) and err <= DIFF2LIP_F32_RTOL * peak):
+            raise AssertionError(f"diff2lip {name} f32 on the card differs from the CPU by "
+                                 f"{err:.3e} (peak {peak:.3f})")
+    return rows
+
+
+def diff2lip_phase(dev, report, card):
+    """diff2lip at its published width (``Diff2LipConfig()``: 128 px, 128
+    base channels, mult (1, 1, 2, 3, 4), attention at ds 8/16, ddim25) with
+    seeded random weights, against the e2e phase's 10 s dub and the
+    frontend phase's 360×640 frames at 25 fps: ``generate`` of the first
+    DIFF2LIP_F32_FRAMES frames with the f32 tree, of all 250 with the same
+    tree in bf16, and one batch in cross-identity mode (the identity clip
+    reversed), each split and timed; shape and dtype kept, nothing outside
+    a face box changed and every jaw changed; the card against the CPU in
+    f32; log-mel and the resblock never launched."""
+    from expressive_speech_translation_tpu_torch.models.common import cast_floats
+    from expressive_speech_translation_tpu_torch.pipeline import diff2lip as d2l
+
+    cfg = d2l.Diff2LipConfig()
+    print(f"== diff2lip: TFG UNet {cfg.image_size} px, {cfg.model_channels} channels x "
+          f"{cfg.channel_mult}, attention at ds {cfg.attention_ds}, {cfg.heads} heads, audio "
+          f"encoder {cfg.audio_model_channels} x {cfg.audio_channel_mult}, {cfg.sampling_steps}, "
+          "random weights", flush=True)
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    _reset_launches()
+    params = d2l.init_diff2lip_unet(11, cfg, dev)
+    n_params = _tree_bytes(params) // 4                  # f32
+    unet_flops = diff2lip_unet_flops(params, cfg, dev)
+    pipe = d2l.Diff2LipPipeline(cfg, params, device=dev)
+    steps = pipe.diffusion.num_timesteps
+    print(f"  {n_params / 1e6:.2f} M parameters ({4 * n_params / 1e6:.0f} MB in f32); one UNet "
+          f"call {unet_flops / 1e9:.1f} GFLOP a frame (FlopCounterMode), "
+          f"{unet_flops * steps / 1e12:.2f} TFLOP a frame over {steps} steps", flush=True)
+    frames = np.stack(frontend_frames())
+    dub16 = _KEPT["dub"]
+    runs = {}
+    f32_frames = frames[:DIFF2LIP_F32_FRAMES]
+    out, boxes, runs["f32"] = diff2lip_render(pipe, f32_frames, dub16, card,
+                                              "f32 generate", unet_flops)
+    runs["f32"]["output"] = check_lipsync_output(f32_frames, out, boxes)
+    f32_boxes = boxes
+    pipe = d2l.Diff2LipPipeline(cfg, cast_floats(params, torch.bfloat16), device=dev)
+    out, boxes, runs["bf16"] = diff2lip_render(pipe, frames, dub16, card, "bf16 generate",
+                                               unet_flops)
+    runs["bf16"]["output"] = check_lipsync_output(frames, out, boxes)
+    cross = frames[:DIFF2LIP_CROSS_FRAMES]
+    out, boxes, runs["cross"] = diff2lip_render(pipe, cross, dub16, card,
+                                                "bf16 generate, cross identity", unet_flops,
+                                                identity=cross[::-1].copy())
+    runs["cross"]["output"] = check_lipsync_output(cross, out, boxes)
+    del out, pipe
+    result = {"params": n_params, "unet_gflop_a_frame": unet_flops / 1e9, "runs": runs,
+              "f32_check": diff2lip_f32_check(params, cfg, f32_frames, f32_boxes, dub16, dev,
+                                              card)}
+    result["launches"] = _read_launches()
+    if any(result["launches"].values()):
+        raise AssertionError(f"the diff2lip phase launched {result['launches']}: it runs no "
+                             "kernel of the port")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["held_gib_after"] = (torch.cuda.memory_allocated() - resident) / 2**30
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"  launches {result['launches']}; diff2lip phase {result['seconds']:.1f} s", flush=True)
+    report["diff2lip"] = result
+    return result
+
+
 BATCH_REQUESTS = 8
 BATCH_SECONDS = 10.0
 
@@ -3288,6 +3505,65 @@ def checkpoints_lipsync(tmp, dev, card) -> dict:
     return out
 
 
+def checkpoints_diff2lip(tmp, dev, card) -> dict:
+    """diff2lip at its published width, seeded random f32, written by the
+    emitter as diff2lip's pickled ``e2e.pt`` (``module.``-prefixed keys, the
+    qkv head-major); ``load_diff2lip`` reads it back (equal config and
+    tensors), ``bake_models(diff2lip=...)`` bakes it, ``load_converted``
+    reads the bake (equal), and ``Diff2LipPipeline.from_models_dir`` renders
+    DIFF2LIP_BAKE_FRAMES frames from it."""
+    from expressive_speech_translation_tpu_torch.models import loaders
+    from expressive_speech_translation_tpu_torch.obs import checkpoint_emitters as em
+    from expressive_speech_translation_tpu_torch.pipeline import diff2lip as d2l
+
+    cfg = d2l.Diff2LipConfig()
+    params = d2l.init_diff2lip_unet(41, cfg, dev)
+    nbytes = _tree_bytes(params)
+    need = 3 * nbytes + CKPT_DISK_MARGIN
+    if shutil.disk_usage(tmp).free < need:
+        raise AssertionError(f"checkpoints diff2lip: {need / 1e9:.1f} GB needed at {tmp}")
+    src, bake = os.path.join(tmp, "diff2lip_src"), os.path.join(tmp, "d2l_bake")
+    _, out = _timed("wrote diff2lip e2e.pt", lambda: em.write_diff2lip(
+        os.path.join(src, "e2e.pt"), params, cfg.unet), nbytes, card)
+    (loaded, got_cfg), out["load"] = _timed("load_diff2lip onto the card", lambda: loaders.
+                                            load_diff2lip(src, device=dev), _dir_bytes(src), card)
+    if got_cfg != cfg:
+        raise AssertionError(f"load_diff2lip read {got_cfg}")
+    _tensors_equal(loaded, params, "diff2lip")
+    del loaded
+    _, out["bake"] = _timed("bake_models (diff2lip)", lambda: loaders.bake_models(
+        bake, diff2lip=src, device=dev), _dir_bytes(src), card)
+    (baked, baked_cfg), out["load_converted"] = _timed(
+        "load_converted diff2lip/", lambda: loaders.load_converted(
+            os.path.join(bake, "diff2lip"), d2l.Diff2LipConfig, dev),
+        _dir_bytes(os.path.join(bake, "diff2lip")), card)
+    if baked_cfg != cfg:
+        raise AssertionError(f"bake diff2lip: config {baked_cfg}")
+    _tensors_equal(baked, params, "bake diff2lip")
+    del baked, params
+    t0 = time.perf_counter()
+    pipe = d2l.Diff2LipPipeline.from_models_dir(bake, device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    frames = np.stack(frontend_frames()[:DIFF2LIP_BAKE_FRAMES])
+    dub = _KEPT["dub"][: int(16_000 * DIFF2LIP_BAKE_FRAMES / FRONTEND_FPS)]
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rendered = pipe.generate(frames, dub, FRONTEND_FPS)
+    out["render_s"] = time.perf_counter() - t0
+    out["launches"] = _read_launches()
+    print(f"  Diff2LipPipeline.from_models_dir: built in {out['build_s']:.2f} s, "
+          f"{DIFF2LIP_BAKE_FRAMES} frames in {out['render_s']:.3f} s, launches "
+          f"{out['launches']}  [{card}]", flush=True)
+    if (rendered.shape != frames.shape or rendered.dtype != np.uint8
+            or not (rendered != frames).any() or any(out["launches"].values())):
+        raise AssertionError(f"the diff2lip bake rendered {rendered.shape} {rendered.dtype}, "
+                             f"launches {out['launches']}")
+    del pipe
+    return out
+
+
 def checkpoints_phase(dev, report, card, e2e):
     """Seeded random Whisper-medium, NLLB-600M, ECAPA and the official
     CosyVoice2 triple written in their published formats to a temporary
@@ -3318,6 +3594,9 @@ def checkpoints_phase(dev, report, card, e2e):
         gc.collect()
         torch.cuda.empty_cache()
         ckpt["lipsync"] = checkpoints_lipsync(tmp, dev, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ckpt["diff2lip"] = checkpoints_diff2lip(tmp, dev, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
@@ -3332,31 +3611,32 @@ def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
-def _launches(name, e2e, front, serve, lipsync, batched, stream, mtp, official, ckpt) -> dict:
+def _launches(name, e2e, front, serve, lipsync, diff2lip, batched, stream, mtp, official,
+              ckpt) -> dict:
     """A kernel's launch count on each path driven: the three single
     requests, the detection of the 10 s request, the frontend's upload and
     video request, the serve phase's routes, the lip-sync render and its
-    routes, the batched requests, the two streamed requests, the mtp phase's
-    TTS runs, the official chain's 10 s request, the 10 s request served from
-    the bake."""
+    routes, the diff2lip phase, the batched requests, the two streamed
+    requests, the mtp phase's TTS runs, the official chain's 10 s request,
+    the 10 s request served from the bake."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
             "frontend": front["launches"][name], "serve": serve["launches"][name],
-            "lipsync": lipsync["launches"][name],
+            "lipsync": lipsync["launches"][name], "diff2lip": diff2lip["launches"][name],
             "batched": batched["launches"][name], "streaming": stream["launches"][name],
             "mtp": mtp["launches"][name], "official": official["launches"][name],
             "checkpoints": ckpt["launches"][name]}
 
 
-def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, batched, stream,
-                  mtp, official, ckpt):
+def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff2lip, batched,
+                  stream, mtp, official, ckpt):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
     timed = next(r for r in rows if "ms" in r)
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
-            "launches_by_path": _launches(name, e2e, front, serve, lipsync, batched, stream,
-                                          mtp, official, ckpt),
+            "launches_by_path": _launches(name, e2e, front, serve, lipsync, diff2lip, batched,
+                                          stream, mtp, official, ckpt),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -3365,7 +3645,7 @@ def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, batc
 
 
 def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, serve, lipsync,
-                 batched, stream, mtp, official, ckpt):
+                 diff2lip, batched, stream, mtp, official, ckpt):
     """One entry per kernel. ``launches`` counts the three single requests;
     ``launches_by_path`` adds the detection, the batched requests and the
     streamed ones.
@@ -3385,8 +3665,8 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "source": f"{PORT}/csrc/log_mel.cu",
          "replaces": f"{REFERENCE}/ops/pallas_mel.py:79",
          "launches": e2e["launches"]["log_mel_frames"],
-         "launches_by_path": _launches("log_mel_frames", e2e, front, serve, lipsync, batched,
-                                       stream, mtp, official, ckpt),
+         "launches_by_path": _launches("log_mel_frames", e2e, front, serve, lipsync, diff2lip,
+                                       batched, stream, mtp, official, ckpt),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -3396,7 +3676,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "replaces": f"{REFERENCE}/ops/pallas_vocoder.py:113",
          "launches": e2e["launches"]["fused_resblock_stage"],
          "launches_by_path": _launches("fused_resblock_stage", e2e, front, serve, lipsync,
-                                       batched, stream, mtp, official, ckpt),
+                                       diff2lip, batched, stream, mtp, official, ckpt),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -3410,11 +3690,11 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "stream_plain_ms": sum(r["graph_plain_ms"] for r in streamed),
          "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
-                      front, serve, lipsync, batched, stream, mtp, official, ckpt),
+                      front, serve, lipsync, diff2lip, batched, stream, mtp, official, ckpt),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
-                      front, serve, lipsync, batched, stream, mtp, official, ckpt),
+                      front, serve, lipsync, diff2lip, batched, stream, mtp, official, ckpt),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
-                      front, serve, lipsync, batched, stream, mtp, official, ckpt),
+                      front, serve, lipsync, diff2lip, batched, stream, mtp, official, ckpt),
     ]
 
 
@@ -3458,6 +3738,7 @@ def main() -> int:
     front = frontend_phase(dev, report, card, backend, e2e)
     serve = serve_phase(dev, report, card, backend, e2e, front)
     lipsync = lipsync_phase(dev, report, card, backend, e2e)
+    diff2lip = diff2lip_phase(dev, report, card)
     batched = batched_phase(dev, report, card, e2e)
     stream = streaming_phase(dev, report, card, backend, e2e)
     mtp = mtp_phase(dev, report, card, backend, e2e)
@@ -3468,8 +3749,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, front, serve, lipsync, batched,
-                                              stream, mtp, official, ckpt)}))
+    print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, front, serve, lipsync, diff2lip,
+                                              batched, stream, mtp, official, ckpt)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,13 @@ The port of the JAX package's ``models/loaders.py``, with torch alone:
   the network): safetensors through the port's own reader
   (``safetensors_io``), pickled ``.pt`` / ``.bin`` through ``torch.load``;
 - ``load_whisper`` / ``load_nllb`` / ``load_ecapa`` / ``load_qwen2_backbone``,
-  ``load_cosyvoice_{llm,flow,hift}`` and ``load_musetalk`` compose it with
-  each model's converter, the dims read from ``config.json`` or the tensors;
+  ``load_cosyvoice_{llm,flow,hift}``, ``load_musetalk`` and ``load_diff2lip``
+  compose it with each model's converter, the dims read from
+  ``config.json`` or the tensors;
 - the bake: :func:`bake_models` (and the CLI, :func:`main`) converts
   checkpoints once into stage directories (``asr/``, ``nmt/``, ``ecapa/``,
   ``speech_tokenizer/``, ``tts_llm/``, ``tts_flow/``, ``tts_hift/``,
-  ``musetalk/``, ``musetalk_whisper/``), each
+  ``musetalk/``, ``musetalk_whisper/``, ``diff2lip/``), each
   a ``config.json`` (the JAX package's schema, ``dataclasses.asdict`` of the
   config) and a ``params.safetensors`` holding the port's tree flattened to
   ``.``-joined key paths, list indices as numbers. The JAX package bakes
@@ -20,7 +21,7 @@ The port of the JAX package's ``models/loaders.py``, with torch alone:
 
       python -m expressive_speech_translation_tpu_torch.models.loaders \\
           --asr DIR --nmt DIR --tts DIR --ecapa DIR [--musetalk DIR]
-          [--musetalk-whisper DIR] --out DIR [--device cpu]
+          [--musetalk-whisper DIR] [--diff2lip CKPT] --out DIR [--device cpu]
 """
 
 from __future__ import annotations
@@ -314,6 +315,24 @@ def load_musetalk(path: PathLike, cfg=None, device=None):
     return params, cfg
 
 
+def load_diff2lip(path: PathLike, cfg=None, device=None):
+    """diff2lip's pickled TFGModel checkpoint (a file, or a directory
+    holding ``checkpoint.pt``, ``model.pt``, ``e2e.pt`` or ``data.pkl``) →
+    (params on ``device``, Diff2LipConfig; the published e2e geometry
+    unless ``cfg`` is given)."""
+    from . import gd_unet
+    from ..pipeline.diff2lip import Diff2LipConfig
+
+    p = Path(path)
+    if p.is_dir():
+        for candidate in ("checkpoint.pt", "model.pt", "e2e.pt", "data.pkl"):
+            if (p / candidate).exists():
+                p = p / candidate
+                break
+    cfg = cfg or Diff2LipConfig()
+    return gd_unet.from_tfg_state_dict(load_state_dict(p), cfg.unet, device), cfg
+
+
 # ------------------------------------------------------------------ the bake
 
 
@@ -430,7 +449,7 @@ def load_official_tts(models_root: PathLike, device=None, dtype=None):
             com.OfficialTtsConfig(lm=lm_cfg, flow=flow_cfg, hift=hift_cfg))
 
 
-_NOT_PORTED = ("diff2lip", "openvoice", "seamless")
+_NOT_PORTED = ("openvoice", "seamless")
 
 
 def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[str] = None,
@@ -442,16 +461,16 @@ def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[
     """Convert checkpoints into stage directories under ``out_root``:
     ``asr/`` (HF Whisper), ``nmt/`` (HF NLLB), ``ecapa/`` (speechbrain),
     ``musetalk/`` (the MuseTalk release layout, :func:`load_musetalk`),
-    ``musetalk_whisper/`` (HF whisper-tiny, MuseTalk's audio condition) and
-    from a CosyVoice2 directory ``tts_llm/``, ``tts_flow/``, ``tts_hift/``
+    ``musetalk_whisper/`` (HF whisper-tiny, MuseTalk's audio condition),
+    ``diff2lip/`` (a TFGModel checkpoint, :func:`load_diff2lip`) and from a
+    CosyVoice2 directory ``tts_llm/``, ``tts_flow/``, ``tts_hift/``
     (whichever of ``llm.pt`` / ``model.pt``, ``flow.pt``, ``hift.pt`` it
     holds). The trees are converted on ``device``. The JAX package's other
-    families (diff2lip, OpenVoice, Seamless) are not ported."""
-    asked = [name for name, path in zip(_NOT_PORTED, (diff2lip, openvoice, seamless)) if path]
+    families (OpenVoice, Seamless) are not ported."""
+    asked = [name for name, path in zip(_NOT_PORTED, (openvoice, seamless)) if path]
     if asked:
         raise NotImplementedError(f"baking {', '.join(asked)} is not ported yet: ROADMAP.md "
-                                  "Queue 1 item 13 (diff2lip, the alternate backends, "
-                                  "training)")
+                                  "Queue 1 item 13 (the alternate backends, training)")
     out = Path(out_root)
     if musetalk:
         save_converted(*load_musetalk(musetalk, device=device), out / "musetalk")
@@ -461,6 +480,9 @@ def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[
         # apart from the ASR bake, whose scale is Whisper-medium
         save_converted(*load_whisper(musetalk_whisper, device=device), out / "musetalk_whisper")
         log.info("baked MuseTalk whisper %s -> %s", musetalk_whisper, out / "musetalk_whisper")
+    if diff2lip:
+        save_converted(*load_diff2lip(diff2lip, device=device), out / "diff2lip")
+        log.info("baked diff2lip %s -> %s", diff2lip, out / "diff2lip")
     if ecapa:
         save_converted(*load_ecapa(ecapa, device=device), out / "ecapa")
         log.info("baked ECAPA %s -> %s", ecapa, out / "ecapa")
@@ -493,7 +515,7 @@ def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[
 def main(argv=None) -> int:
     """Bake checkpoints for the port:
     python -m expressive_speech_translation_tpu_torch.models.loaders
-    --asr DIR --nmt DIR --tts DIR --ecapa DIR --out DIR"""
+    --asr DIR --nmt DIR --tts DIR --ecapa DIR [--diff2lip CKPT] --out DIR"""
     import argparse
 
     ap = argparse.ArgumentParser(description=main.__doc__)
@@ -503,6 +525,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ecapa", help="speechbrain ECAPA checkpoint (file or dir)")
     ap.add_argument("--musetalk", help="MuseTalk release dir (sd-vae-ft-mse/ + musetalk/)")
     ap.add_argument("--musetalk-whisper", help="HF whisper-tiny dir (MuseTalk's audio condition)")
+    ap.add_argument("--diff2lip", help="diff2lip TFG checkpoint (file, or dir with e2e.pt etc.)")
     for name in _NOT_PORTED:
         ap.add_argument(f"--{name.replace('_', '-')}", help="not ported (ROADMAP Queue 1 item 13)")
     ap.add_argument("--out", required=True, help="output root for the stage directories")
@@ -511,7 +534,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     bake_models(args.out, asr=args.asr, nmt=args.nmt, tts=args.tts, ecapa=args.ecapa,
                 musetalk=args.musetalk, musetalk_whisper=args.musetalk_whisper,
-                device=args.device, **{name: getattr(args, name) for name in _NOT_PORTED})
+                diff2lip=args.diff2lip, device=args.device,
+                **{name: getattr(args, name) for name in _NOT_PORTED})
     return 0
 
 

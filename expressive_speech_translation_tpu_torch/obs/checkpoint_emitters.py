@@ -15,7 +15,10 @@ published widths in the published formats and loads them back through
 - :func:`musetalk_vae_state_dict` / :func:`musetalk_unet_state_dict` and
   :func:`write_musetalk`: the MuseTalk release layout (a diffusers
   ``AutoencoderKL`` directory, ``sd-vae-ft-mse/``, and the UNet's
-  ``musetalk/pytorch_model.bin`` with ``musetalk.json``).
+  ``musetalk/pytorch_model.bin`` with ``musetalk.json``);
+- :func:`diff2lip_tfg_state_dict` and :func:`write_diff2lip`: diff2lip's
+  pickled TFGModel (``e2e.pt``), the attention's qkv re-interleaved
+  head-major as the legacy checkpoints hold it.
 
 Tied weights are one tensor under each of their names, as ``state_dict()``
 gives them; every other value is a contiguous copy on the host.
@@ -318,3 +321,86 @@ def write_musetalk(root, params, cfg) -> Path:
     (unet / "musetalk.json").write_text(json.dumps(musetalk_unet_config(cfg), indent=2))
     torch.save(musetalk_unet_state_dict(params["unet"], cfg), unet / "pytorch_model.bin")
     return root
+
+
+def _tfg_res(out: State, name: str, p) -> None:
+    """The inverse of ``gd_unet._res_p``: a guided-diffusion ResBlock."""
+    _ln(out, f"{name}.in_layers.0", p["in_norm"])
+    _conv(out, f"{name}.in_layers.2", p["in_conv"])
+    _linear(out, f"{name}.emb_layers.1", p["emb"])
+    _ln(out, f"{name}.out_layers.0", p["out_norm"])
+    _conv(out, f"{name}.out_layers.3", p["out_conv"])
+    if "skip" in p:
+        _conv(out, f"{name}.skip_connection", p["skip"])
+
+
+def _tfg_attn(out: State, name: str, p, heads: int) -> None:
+    """The inverse of ``gd_unet._attn_p``: per-head q / k / v back into one
+    qkv 1×1 conv [3C, C, 1] ordered head-major [h0: q|k|v, h1: q|k|v, …]."""
+    c = p["q"]["kernel"].shape[0]
+    w = torch.stack([p[n]["kernel"].T.reshape(heads, c // heads, c) for n in "qkv"], dim=1)
+    b = torch.stack([p[n]["bias"].reshape(heads, c // heads) for n in "qkv"], dim=1)
+    _ln(out, f"{name}.norm", p["norm"])
+    out[f"{name}.qkv.weight"] = _host(w.reshape(3 * c, c, 1))
+    out[f"{name}.qkv.bias"] = _host(b.reshape(3 * c))
+    out[f"{name}.proj_out.weight"] = _host(p["o"]["kernel"].T[:, :, None])
+    out[f"{name}.proj_out.bias"] = _host(p["o"]["bias"])
+
+
+def diff2lip_tfg_state_dict(params, cfg) -> State:
+    """The port's TFG tree (``models/gd_unet.py``) and its ``GDUNetConfig``
+    → diff2lip's TFGModel state dict, the inverse of
+    ``gd_unet.from_tfg_state_dict`` (a tree without ``audio`` gives no
+    audio encoder)."""
+    from ..models.gd_unet import _audio_plan, _plan
+
+    out: State = {}
+
+    def block(prefix, desc, p):
+        if desc["kind"] == "conv":
+            _conv(out, f"{prefix}.0", p["conv"])
+        elif desc["kind"] == "down":
+            _conv(out, f"{prefix}.0.op", p["down"])
+        else:
+            _tfg_res(out, f"{prefix}.0", p["res"])
+            j = 1
+            if "attn" in p:
+                _tfg_attn(out, f"{prefix}.{j}", p["attn"], cfg.num_heads)
+                j += 1
+            if "up" in p:
+                _conv(out, f"{prefix}.{j}.conv", p["up"])
+
+    inputs, _, outputs = _plan(cfg)
+    _linear(out, "time_embed.0", params["time_embed"]["lin1"])
+    _linear(out, "time_embed.2", params["time_embed"]["lin2"])
+    for i, (desc, p) in enumerate(zip(inputs, params["input"])):
+        block(f"input_blocks.{i}", desc, p)
+    _tfg_res(out, "middle_block.0", params["middle"]["res1"])
+    _tfg_attn(out, "middle_block.1", params["middle"]["attn"], cfg.num_heads)
+    _tfg_res(out, "middle_block.2", params["middle"]["res2"])
+    for i, (desc, p) in enumerate(zip(outputs, params["output"])):
+        block(f"output_blocks.{i}", desc, p)
+    _ln(out, "out.0", params["out"]["norm"])
+    _conv(out, "out.2", params["out"]["conv"])
+    if "audio" in params:
+        a = params["audio"]
+        _linear(out, "audio_encoder.time_embed.0", a["time_embed"]["lin1"])
+        _linear(out, "audio_encoder.time_embed.2", a["time_embed"]["lin2"])
+        _conv(out, "audio_encoder.input_block.0", a["in_conv"])
+        _ln(out, "audio_encoder.input_block.1", a["in_norm"])
+        for i, (desc, p) in enumerate(zip(_audio_plan(cfg)[0], a["blocks"])):
+            block(f"audio_encoder.encoder_blocks.{i}", desc, p)
+        _tfg_res(out, "audio_encoder.middle_block.0", a["mid_res"])
+        _ln(out, "audio_encoder_to_style.0", a["style_norm"])
+        _conv(out, "audio_encoder_to_style.3", a["style_conv"])
+    return out
+
+
+def write_diff2lip(path, params, cfg) -> Path:
+    """diff2lip's pickled checkpoint of a TFG tree at ``path`` (``e2e.pt``),
+    its keys ``module.``-prefixed as the published e2e checkpoint's
+    DDP-wrapped model saved them. → ``path``."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"module." + k: v for k, v in diff2lip_tfg_state_dict(params, cfg).items()}, path)
+    return path

@@ -504,6 +504,14 @@ def test_port_runs_without_jax_or_the_jax_package():
                                                     dtype=torch.float32)
         clip = np.random.default_rng(0).integers(0, 255, (3, 40, 48, 3), np.uint8)
         assert lip(clip, 25.0, np.zeros(3_000, np.float32), 24_000).shape == clip.shape
+        # the diff2lip family: one toy frame rendered
+        from expressive_speech_translation_tpu_torch.pipeline import diff2lip
+        d2l_cfg = diff2lip.Diff2LipConfig(image_size=16, model_channels=8, channel_mult=(1, 2),
+            attention_ds=(2,), heads=2, norm_groups=4, audio_model_channels=8,
+            audio_channel_mult=(1, 2), audio_init_spatial=16, diffusion_steps=8,
+            sampling_steps="ddim2")
+        d2l = diff2lip.Diff2LipPipeline(d2l_cfg, device="cpu")
+        assert d2l.generate(clip[:1], np.zeros(1_600, np.float32), 25.0).shape == clip[:1].shape
         assert resource_monitor.process_rss_bytes() > 0 and resource_monitor.device_memory_stats() == {}
         assert "werkzeug" not in sys.modules
         BLOCKED.discard("werkzeug")
