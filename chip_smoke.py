@@ -96,21 +96,48 @@ Phases, in order; any failure exits non-zero and prints no result:
               ``gd_unet_apply`` on 2 crops and the sampled crops of a
               ``ddim4`` batch of 2 on the card against ``device="cpu"``
               (DIFF2LIP_F32_RTOL); log-mel and the resblock never launched;
-9. batched  — the same engines behind the three micro-batchers
+9. services — the split deployment: whether requests, urllib3 and yt-dlp are
+              on the host (without requests the HTTP transport is not
+              driven and the clients run over ``WsgiTransport``); the port's
+              ``CosyVoiceService`` with the e2e phase's TTS engine as its
+              "default", served on a free localhost port, and
+              ``create_app`` in mode "remote" against its URL (the port's
+              ASR and NMT at reference scale on the card, the TTS a
+              ``CosyVoiceClient``), served too: the serve phase's 10 s
+              upload posted to /translate over HTTP (wall beside the
+              ``translate_speech`` inside it, the TTS call over the wire
+              beside the engine's direct ``synthesize`` of the same text and
+              reference, log-mel once and the resblock twice, the resblock
+              kernel checked at the request's shapes); ``MuseTalkClient`` to
+              ``MuseTalkService`` over the test VideoIO with the lipsync
+              phase's MuseTalk fn (25 frames against the 10 s dub, only the
+              jaws changed, log-mel once); ``SimilarityClient`` to
+              ``SimilarityService`` with the full-width ECAPA (the dub with
+              itself 1.0, with the upload; each the direct score within the
+              response's rounding); OpenVoice at its published width in f32
+              (``OpenVoiceConfig()``), its parameter count, emitted as
+              ``checkpoint.pth`` + ``config.json``, read back by
+              ``load_openvoice``, baked and reloaded, picked up from
+              ``EST_MODELS_DIR`` by ``OpenVoiceService`` (``OpenVoiceClient.
+              clone`` of 10 s against a 5 s reference: 22,050 Hz, the
+              length its geometry gives, seconds and RTF, no launch), and
+              its f32 ``convert_tone`` on the card against ``device="cpu"``
+              (OPENVOICE_F32_RTOL); the phase's peak memory;
+10. batched  — the same engines behind the three micro-batchers
               (``torch_engines(batch_*=True, max_batch=8)``), ``initialize()``,
               8 concurrent 10 s ``translate_speech`` requests from 8 threads:
               requests per second against the e2e phase's 10 s request served
               alone, the batches formed, peak memory; the resblock kernel must
               have launched at B > 1, and is checked and timed at the shapes
               the requests handed it;
-10. streaming — the e2e phase's engines (no second ``initialize()``),
+11. streaming — the e2e phase's engines (no second ``initialize()``),
               ``translate_speech_streaming`` of a 10 s and a 40 s request
               (two ASR windows), cloning on: time to the first audio event,
               wall, events and chunk lengths, the launch counters around each
               stream (log-mel once a window, resblock twice a streamed TTS
               chunk); the resblock kernel checked and timed at the (B, C, T)
               the stream handed it, in vocode's layout and the contiguous one;
-11. mtp     — the e2e phase's TTS config on one random tree with two MTP
+12. mtp     — the e2e phase's TTS config on one random tree with two MTP
               heads, bf16: ``synthesize`` of the 10 s request's text and voice
               prompt at ``mtp=1``, ``mtp=3`` (accept-all) and ``mtp=3,
               spec=True`` (stage seconds, speech tokens, backbone passes,
@@ -123,7 +150,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               weights against bf16 (logits within INT8_LOGIT_RTOL, both
               replayed as CUDA graphs in turns at B = 1 and 8) and one 10 s
               request on ``torch_engines(quantize=True)``;
-12. official — the official CosyVoice2 chain at its full width
+13. official — the official CosyVoice2 chain at its full width
               (``OfficialTtsConfig()``: Qwen2-0.5B LM with 6,561 speech tokens,
               the 512-wide 6 + 4 block conformer, the 256-channel estimator of
               14 units × 4 transformer blocks, 10 Euler steps with CFG, HiFT
@@ -143,7 +170,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               inferred), and the HiFT source of one 10 s bf16-representable
               f0 track with the engine's bf16 HiFT parameters against their
               f32 copies (the port integrates the phase in f32);
-13. checkpoints — seeded random Whisper-medium, NLLB-200-distilled-600M,
+14. checkpoints — seeded random Whisper-medium, NLLB-200-distilled-600M,
               ECAPA (1,024 channels) and the official CosyVoice2 triple, f32,
               written by ``obs/checkpoint_emitters.py`` in their published
               formats (``model.safetensors``, ``pytorch_model.bin``,
@@ -169,7 +196,7 @@ Phases, in order; any failure exits non-zero and prints no result:
               ``load_converted`` (equal), and 8 frames rendered by
               ``Diff2LipPipeline.from_models_dir`` from the bake, each step's
               seconds and GB/s;
-14. the kernels line, the card line, and last the result line.
+15. the kernels line, the card line, and last the result line.
 
 The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
 greedy call.
@@ -1378,6 +1405,7 @@ def _http_server(app):
         except urllib.error.HTTPError as e:
             return e.code, e.read(), None
 
+    request.url = base
     try:
         yield request
     finally:
@@ -2037,6 +2065,7 @@ def lipsync_phase(dev, report, card, backend, e2e):
     lipsync["launches"] = {k: render["launches"][k] + route["video"]["launches"][k]
                            + route.get("flac", {"launches": {k: 0}})["launches"][k]
                            for k in LAUNCH_COUNTERS}
+    _KEPT["lipsync_fn"] = fn          # the services phase's MuseTalk service renders with it
     del fn
     gc.collect()
     torch.cuda.empty_cache()
@@ -2240,6 +2269,450 @@ def diff2lip_phase(dev, report, card):
     print(f"  launches {result['launches']}; diff2lip phase {result['seconds']:.1f} s", flush=True)
     report["diff2lip"] = result
     return result
+
+
+SERVICES_OV_SOURCE_S = 10.0     # OpenVoice: the clone's 16 kHz source
+SERVICES_OV_REFERENCE_S = 5.0   # and its reference
+SERVICES_OV_CHECK_S = 2.0       # the f32 card-against-CPU check's source
+OPENVOICE_F32_RTOL = 1e-4       # convert_tone f32 on the card against device="cpu": max |diff| / peak
+OPENVOICE_OUT_GAIN = 500.0      # the random tree's output conv scaled: a waveform, not a whisper
+SERVICES_MUSETALK_FRAMES = 25
+SERVICES_NMT_TOKENS = 48        # the remote app's NMT budget: its letters fill whatever it is given
+SERVICES_SIMILARITY_ATOL = 5e-5 + 1e-6   # the response rounds the score to 4 decimals
+
+
+def _host_packages() -> dict:
+    """Whether the split deployment's optional host packages are here."""
+    import importlib.util
+
+    return {"requests": importlib.util.find_spec("requests") is not None,
+            "urllib3": importlib.util.find_spec("urllib3") is not None,
+            "yt-dlp": shutil.which("yt-dlp")}
+
+
+@contextlib.contextmanager
+def _service_transport(app, http: bool):
+    """A client transport to ``app``: ``HttpTransport`` to it served by
+    werkzeug on localhost (``http``), else a ``WsgiTransport``."""
+    from expressive_speech_translation_tpu_torch.serve import clients
+
+    if not http:
+        yield clients.WsgiTransport(app)
+        return
+    with _http_server(app) as request:
+        yield clients.HttpTransport(request.url)
+
+
+def services_remote_route(dev, card, backend, e2e, upload, tmp, http: bool) -> dict:
+    """The split deployment: the port's CosyVoiceService, its "default" the
+    e2e phase's TTS engine, served on localhost; ``create_app`` in mode
+    "remote" against its URL (``HttpTransport`` when requests imports, else
+    patched to a ``WsgiTransport`` of the service), served too; the upload
+    posted to /translate over HTTP, the counters at 0 just before. The TTS
+    call over the wire is timed beside the engine's direct ``synthesize`` of
+    the same text and reference."""
+    from expressive_speech_translation_tpu_torch.core.config import load_config
+    from expressive_speech_translation_tpu_torch.media.wavio import read_wav_bytes, wav_bytes
+    from expressive_speech_translation_tpu_torch.serve import clients
+    from expressive_speech_translation_tpu_torch.serve import model_services as ms
+    from expressive_speech_translation_tpu_torch.serve.app import create_app
+
+    tts = backend.engines.tts
+    service = ms.CosyVoiceService({"default": lambda: tts}, device=dev)
+    out = {}
+    with _http_server(service) as tts_http:
+        overrides = {"engines.mode": "remote", "engines.scale": "reference",
+                     "endpoints.cosyvoice_url": tts_http.url,
+                     "endpoints.health_backoff_seconds": 0.0, "temp_dir": tmp}
+        http_transport = clients.HttpTransport
+        if not http:
+            clients.HttpTransport = lambda url: clients.WsgiTransport(service)
+        try:
+            t0 = time.perf_counter()
+            app = create_app(config=load_config(env={}, **overrides), device=dev)
+            remote = app.manager.get_backend()          # initialize(): the TTS over the wire
+            torch.cuda.synchronize()
+            out["build_s"] = time.perf_counter() - t0
+        finally:
+            clients.HttpTransport = http_transport
+        engines = remote.engines
+        # the CosyVoice service refuses an empty text with a 400, as the
+        # reference's does, and the random NMT's 256k vocabulary almost never
+        # decodes to a byte: its a-z rows are scaled, as the checkpoints phase
+        # scales them, so that the translation has letters to speak
+        engines.nmt.params["embed"][[4 + b for b in b"abcdefghijklmnopqrstuvwxyz"]] *= \
+            NMT_LETTER_SCALE
+        engines.nmt.max_new_tokens = SERVICES_NMT_TOKENS
+        placement = remote.placement_info()
+        if not (type(engines.tts) is clients.CosyVoiceClient and placement["asr"] == [0]
+                and placement["nmt"] == [0] and placement["tts"] == []):
+            raise AssertionError(f"remote app: TTS {type(engines.tts).__name__}, placement "
+                                 f"{placement}")
+        print(f"  remote app built and initialised in {out['build_s']:.1f} s (the port's ASR and "
+              f"NMT at reference scale on the card, TTS {type(engines.tts).__name__} of "
+              f"{tts_http.url} over {'HttpTransport' if http else 'WsgiTransport'}), placement "
+              f"{placement}", flush=True)
+        wav = wav_bytes(upload, FRONTEND_UPLOAD_SR)
+        translated, tts_timed, tts_calls, shapes = [], [], [], []
+        with _http_server(app) as request:
+            torch.cuda.synchronize()
+            calls_before = tts._call_count
+            _reset_launches()
+            with _timing_calls(remote, "translate_speech", translated), \
+                    _timing_calls(engines.tts, "synthesize", tts_timed), \
+                    _recording_calls(engines.tts, "synthesize", tts_calls,
+                                     lambda args, kwargs, out: (args, kwargs, out)), \
+                    _recording_resblock_shapes(shapes):
+                t0 = time.perf_counter()
+                status, body, _ = request("/translate", {"target_language": "fra",
+                                                         "source_language": "eng"},
+                                          {"file": (wav, "upload.wav")})
+                wall = time.perf_counter() - t0
+            launches = _read_launches()
+            health = json.loads(request("/health/model")[1])
+    if status != 200:
+        raise AssertionError(f"remote /translate answered {status}: {body[:300]!r}")
+    body = json.loads(body)
+    audio = _decoded_wav(body["audio"])
+    if not body["transcripts"]["target"]:
+        raise AssertionError("remote /translate: an empty translation")
+    if not (len(audio) >= int(SERVE_SECONDS * 16_000) and np.isfinite(audio).all()):
+        raise AssertionError(f"remote /translate: audio {audio.shape}")
+    if not (health["placement"] == placement and health["healthy"] is True):
+        raise AssertionError(f"remote /health/model: {health}")
+    narrow = _narrow_stages(backend)
+    if launches["log_mel_frames"] != 1 or launches["fused_resblock_stage"] != narrow:
+        raise AssertionError(f"remote /translate launched {launches}, not log-mel 1 and "
+                             f"resblock {narrow}")
+    if len(tts_calls) != 1:
+        raise AssertionError(f"remote /translate made {len(tts_calls)} TTS calls")
+    (wire_s, _), (args, kwargs, wire_out) = tts_timed[0], tts_calls[0]
+    # the direct call takes the wire's draws (the engine's noise is indexed by
+    # its call count) and the reference as the service read it (PCM16)
+    ref = kwargs.get("reference_audio_16k")
+    if ref is not None:
+        kwargs = {**kwargs, "reference_audio_16k": (
+            np.trunc(np.clip(ref, -1.0, 1.0) * 32767.0) / 32768.0).astype(np.float32)}
+    tts._call_count = calls_before
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = tts.synthesize(*args, **kwargs)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    n = min(len(direct), len(wire_out))
+    wire_err = float(np.abs(np.clip(direct[:n], -1, 1) - wire_out[:n]).max(initial=0.0))
+    native = next(r for r in e2e["requests"] if r["audio_s"] == SERVE_SECONDS)
+    out.update(status=status, wall_s=wall, translate_s=translated[0][0], launches=launches,
+               tts_wire_s=wire_s, tts_direct_s=direct_s, tts_wire_samples=int(len(wire_out)),
+               tts_direct_samples=int(len(direct)), tts_wire_max_abs_diff=wire_err,
+               target_chars=len(args[0]),
+               placement=placement, weights=body["weights"],
+               resblock_request=time_request_resblock(dev, shapes, card, "the remote request"))
+    print(f"  remote /translate ({SERVE_SECONDS:.0f} s 44.1 kHz stereo upload, HTTP): status "
+          f"{status}, wall {wall:.3f} s, translate_speech {out['translate_s']:.3f} s inside; the "
+          f"TTS call over the wire {wire_s:.3f} s ({len(wire_out)} samples) against the engine's "
+          f"direct synthesize of the same {len(args[0])} characters and reference {direct_s:.3f} s "
+          f"({len(direct)} samples, the wire's draws and PCM16 reference; max |diff| "
+          f"{wire_err:.2e}, a PCM16 step {1 / 32767:.2e}); launches "
+          f"{launches}; the e2e phase's in-process {SERVE_SECONDS:.0f} s request "
+          f"{native['wall_s']:.3f} s  [{card}]", flush=True)
+    del app, remote, engines
+    return out
+
+
+def services_musetalk(dev, card, dub, http: bool, tmp) -> dict:
+    """``MuseTalkClient.lipsync`` to ``MuseTalkService`` over the serve
+    phase's test VideoIO with the lipsync phase's MuseTalk fn: 25 frontend
+    frames against the 10 s dub; the rendered frame count, only the jaws
+    changed, log-mel once."""
+    from expressive_speech_translation_tpu_torch.pipeline import musetalk_pipeline as mtp
+    from expressive_speech_translation_tpu_torch.serve import clients
+    from expressive_speech_translation_tpu_torch.serve import model_services as ms
+
+    fn = _KEPT.pop("lipsync_fn")
+    frames = np.stack(frontend_frames()[:SERVICES_MUSETALK_FRAMES])
+    rendered, boxes = [], []
+
+    def render(f, fps, audio, sr):
+        rendered.append(fn(f, fps, audio, sr))
+        return rendered[-1]
+
+    vio = LipsyncVideoIO(np.zeros(16_000, np.float32), 16_000, list(frames), render)
+    vin, vout = os.path.join(tmp, "clip.mp4"), os.path.join(tmp, "lipsynced.mp4")
+    with open(vin, "wb") as f:
+        f.write(b"\x00\x00\x00\x18ftypisom\x00\x00\x02\x00isomiso2" + bytes(4096))
+    with _service_transport(ms.MuseTalkService(vio), http) as transport:
+        client = clients.MuseTalkClient(transport, retries=1, retry_delay_s=0)
+        if not client.check_health():
+            raise AssertionError("MuseTalk service unhealthy")
+        torch.cuda.synchronize()
+        _reset_launches()
+        with _timing_calls(mtp, "per_frame_face_boxes", boxes):
+            t0 = time.perf_counter()
+            client.lipsync(vin, dub, 16_000, vout)
+            wall = time.perf_counter() - t0
+        launches = _read_launches()
+    del fn
+    with open(vout, "rb") as f:
+        pcm, info = _read_rndr(f.read())
+    if not (len(rendered) == 1 and info["frames"] == SERVICES_MUSETALK_FRAMES
+            and info["changed"] == SERVICES_MUSETALK_FRAMES and len(pcm) == len(dub)):
+        raise AssertionError(f"MuseTalk service: rendered {info}, {len(pcm)} samples")
+    if launches["log_mel_frames"] != 1 or launches["fused_resblock_stage"] != 0:
+        raise AssertionError(f"MuseTalk service launched {launches}, not log-mel 1")
+    box = [mtp.clamp_box(b, frames.shape[1], frames.shape[2]) for b in boxes[0][1]]
+    output = check_lipsync_output(frames, rendered[0], box)
+    print(f"  MuseTalkClient.lipsync of {SERVICES_MUSETALK_FRAMES} frames against the "
+          f"{len(dub) / 16_000:.1f} s dub: {wall:.3f} s, {info['frames']} frames rendered, only "
+          f"the jaws changed (mean {output['jaw_mean_abs_change'][1]:.2f} levels); launches "
+          f"{launches}  [{card}]", flush=True)
+    return {"wall_s": wall, "frames": info["frames"], "launches": launches, "output": output}
+
+
+def services_similarity(dev, card, dub, upload16, http: bool) -> dict:
+    """``SimilarityClient.compare`` to ``SimilarityService`` with the
+    full-width ECAPA (1,024 channels) on the card: the dub with itself (1.0)
+    and with the upload, each equal to a direct ``speaker_similarity`` on the
+    same tree of the audio as the WAV upload quantises it, within the
+    response's 4-decimal rounding."""
+    from expressive_speech_translation_tpu_torch.evals.acoustic_metrics import speaker_similarity
+    from expressive_speech_translation_tpu_torch.models import ecapa
+    from expressive_speech_translation_tpu_torch.serve import clients
+    from expressive_speech_translation_tpu_torch.serve import model_services as ms
+
+    cfg = ecapa.EcapaConfig()
+    tree = ecapa.init_ecapa(13, cfg, dev)
+
+    def score(a, b):
+        return speaker_similarity(a, b, params=tree, cfg=cfg, device=dev)
+
+    quantised = [np.trunc(np.clip(x, -1.0, 1.0) * 32767.0) / 32768.0 for x in (dub, upload16)]
+    out = {"channels": cfg.channels}
+    with _service_transport(ms.SimilarityService(score, device=dev), http) as transport:
+        client = clients.SimilarityClient(transport, retries=1, retry_delay_s=0)
+        for name, other, q_other in (("self", dub, quantised[0]),
+                                     ("upload", upload16, quantised[1])):
+            t0 = time.perf_counter()
+            remote = client.compare(dub, other)
+            wall = time.perf_counter() - t0
+            direct = score(quantised[0], q_other)
+            if abs(remote - direct) > SERVICES_SIMILARITY_ATOL:
+                raise AssertionError(f"similarity {name}: {remote} over the service, {direct} "
+                                     "directly")
+            out[name] = {"score": remote, "direct": direct, "wall_s": wall}
+    if out["self"]["score"] != 1.0:
+        raise AssertionError(f"the dub against itself scores {out['self']['score']}")
+    print(f"  SimilarityClient.compare, ECAPA {cfg.channels} channels: the dub with itself "
+          f"{out['self']['score']} ({out['self']['wall_s']:.3f} s), with the upload "
+          f"{out['upload']['score']} (direct {out['upload']['direct']:.6f}, "
+          f"{out['upload']['wall_s']:.3f} s)  [{card}]", flush=True)
+    return out
+
+
+def _ov_tree_check(got, want, path="openvoice") -> list:
+    """The loaded tree against the emitted one: equal, or for a weight-normed
+    conv within the fold's rounding (an f32 ulp). → [(path, elements that
+    differ, their largest |diff| / |w|)]."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"OpenVoice round trip: keys differ at {path}")
+        return [r for k in want for r in _ov_tree_check(got[k], want[k], f"{path}.{k}")]
+    if isinstance(want, list):
+        return [r for i, (g, w) in enumerate(zip(got, want))
+                for r in _ov_tree_check(g, w, f"{path}[{i}]")]
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"OpenVoice round trip: {path} {got.shape} {got.dtype}")
+    diff = got != want
+    if not diff.any():
+        return []
+    rel = float(((got - want).abs() / want.abs())[diff].max())
+    if rel > 2.0 ** -23:
+        raise AssertionError(f"OpenVoice round trip: {path} differs by {rel} relative")
+    return [(path, int(diff.sum()), rel)]
+
+
+def services_openvoice(dev, card, tmp, http: bool) -> dict:
+    """OpenVoice at its published width (``OpenVoiceConfig()``), f32, seeded
+    random weights (the flow's zero-initialised posts drawn too, so the flow
+    carries the speaker, and the output conv scaled by OPENVOICE_OUT_GAIN so
+    the random generator's waveform spans the audio range): emitted as ``checkpoint.pth`` + ``config.json``,
+    read back by ``load_openvoice``, baked by ``bake_models(openvoice=...)``
+    and reloaded; ``OpenVoiceService`` picks the bake up from
+    ``EST_MODELS_DIR``; ``OpenVoiceClient.clone`` of a 10 s 16 kHz source
+    against a 5 s reference (seconds, RTF, length, no launch); the card's f32
+    ``convert_tone`` against ``device="cpu"`` on the same tree."""
+    from expressive_speech_translation_tpu_torch.models import loaders
+    from expressive_speech_translation_tpu_torch.models import openvoice as ov
+    from expressive_speech_translation_tpu_torch.obs import checkpoint_emitters as em
+    from expressive_speech_translation_tpu_torch.serve import clients
+    from expressive_speech_translation_tpu_torch.serve import model_services as ms
+
+    cfg = ov.OpenVoiceConfig()
+    params = ov.init_openvoice(17, cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(18)
+    for layer in params["flow"]:
+        layer["post"]["kernel"].normal_(0.0, 0.02, generator=g)
+    params["dec"]["conv_post"]["kernel"].mul_(OPENVOICE_OUT_GAIN)
+    n_params = _tree_bytes(params) // 4                  # f32
+    print(f"  OpenVoice v2 converter at its published width: inter/hidden {cfg.inter_channels}, "
+          f"SE {cfg.se_dim}, HiFi-GAN {cfg.upsample_initial} x{cfg.upsample_rates}, "
+          f"{cfg.post_wn_layers}-layer posterior WN, {cfg.n_flows} flows; "
+          f"{n_params / 1e6:.2f} M parameters, f32", flush=True)
+    t0 = time.perf_counter()
+    src = em.write_openvoice(os.path.join(tmp, "converter"), params, cfg)
+    emit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, loaded_cfg = loaders.load_openvoice(src, device=dev)
+    load_s = time.perf_counter() - t0
+    if loaded_cfg != cfg:
+        raise AssertionError(f"load_openvoice read {loaded_cfg}")
+    folded = _ov_tree_check(loaded, params)
+    t0 = time.perf_counter()
+    loaders.bake_models(os.path.join(tmp, "bake"), openvoice=str(src), device=dev)
+    bake_s = time.perf_counter() - t0
+    baked, _ = loaders.load_converted(os.path.join(tmp, "bake", "openvoice"), ov.OpenVoiceConfig,
+                                      dev)
+    _tensors_equal(baked, loaded, "bake openvoice")
+    print(f"  checkpoint.pth ({os.path.getsize(os.path.join(src, 'checkpoint.pth')) / 2**20:.1f} "
+          f"MiB) emitted in {emit_s:.2f} s, read back by load_openvoice in {load_s:.2f} s (config "
+          f"equal; plain tensors equal, {len(folded)} weight-normed ones within the fold's "
+          f"rounding, {sum(n for _, n, _ in folded)} elements an ulp off), baked in "
+          f"{bake_s:.2f} s and reloaded equal", flush=True)
+
+    records = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    catch = Catch()
+    log = logging.getLogger(ms.__name__)
+    level = log.level
+    log.setLevel(logging.INFO)
+    log.addHandler(catch)
+    models_dir = os.environ.get("EST_MODELS_DIR")
+    os.environ["EST_MODELS_DIR"] = os.path.join(tmp, "bake")
+    source = _speechlike(SERVICES_OV_SOURCE_S, seed=71)
+    reference = _speechlike(SERVICES_OV_REFERENCE_S, seed=72)
+    try:
+        service = ms.OpenVoiceService(device=dev)
+        with _service_transport(service, http) as transport:
+            client = clients.OpenVoiceClient(transport, retries=1, retry_delay_s=0)
+            status = client.status()
+            torch.cuda.synchronize()
+            _reset_launches()
+            runs = []
+            for _ in range(2):                     # the first loads the bake
+                t0 = time.perf_counter()
+                out, sr = client.clone(source, 16_000, reference, 16_000)
+                runs.append(time.perf_counter() - t0)
+            launches = _read_launches()
+    finally:
+        log.removeHandler(catch)
+        log.setLevel(level)
+        if models_dir is None:
+            os.environ.pop("EST_MODELS_DIR")
+        else:
+            os.environ["EST_MODELS_DIR"] = models_dir
+    if not any("baked converter" in r for r in records):
+        raise AssertionError(f"OpenVoiceService did not log the baked converter: {records}")
+    _tensors_equal(service._params, baked, "service openvoice")
+    n22 = -(-len(source) * 22_050 // 16_000)
+    frames = (n22 + 2 * ((cfg.n_fft - cfg.hop) // 2) - cfg.n_fft) // cfg.hop + 1
+    want_len = frames * int(np.prod(cfg.upsample_rates))
+    if not (sr == 22_050 and len(out) == want_len and np.isfinite(out).all()
+            and np.abs(out).max() > 0 and status["native_sample_rate"] == 22_050):
+        raise AssertionError(f"OpenVoice clone: {sr} Hz, {len(out)} samples (want {want_len})")
+    if any(launches.values()):
+        raise AssertionError(f"OpenVoice launched {launches}: it runs no kernel of the port")
+    print(f"  OpenVoiceService (the bake from EST_MODELS_DIR, 'baked converter' logged): "
+          f"OpenVoiceClient.clone of {SERVICES_OV_SOURCE_S:.0f} s at 16 kHz against a "
+          f"{SERVICES_OV_REFERENCE_S:.0f} s reference -> {len(out)} samples at {sr} Hz "
+          f"({frames} frames x {int(np.prod(cfg.upsample_rates))}); {runs[0]:.3f} s with the "
+          f"bake's load, then {runs[1]:.3f} s, RTF {runs[1] / SERVICES_OV_SOURCE_S:.4f}; "
+          f"launches {launches}  [{card}]", flush=True)
+    check = openvoice_f32_check(loaded, cfg, dev, card)
+    return {"params": n_params, "emit_s": emit_s, "load_s": load_s, "bake_s": bake_s,
+            "folded": folded, "clone_s": runs, "rtf": runs[1] / SERVICES_OV_SOURCE_S,
+            "out_samples": len(out), "launches": launches, "f32_check": check}
+
+
+def openvoice_f32_check(params, cfg, dev, card) -> dict:
+    """``extract_se`` and ``convert_tone`` in f32 of a 2 s source against a
+    5 s reference, on the card and with ``device="cpu"`` on a host copy of
+    the same tree: the largest difference relative to the output's peak,
+    held to OPENVOICE_F32_RTOL."""
+    from expressive_speech_translation_tpu_torch.models import openvoice as ov
+    from expressive_speech_translation_tpu_torch.ops.resample import resample
+
+    src = torch.from_numpy(_speechlike(SERVICES_OV_CHECK_S, seed=73))
+    ref = torch.from_numpy(_speechlike(SERVICES_OV_REFERENCE_S, seed=74))
+    src22, ref22 = (resample(x, 16_000, 22_050)[None] for x in (src, ref))
+    outs, secs = {}, {}
+    for name, device, tree in (("card", dev, params), ("cpu", torch.device("cpu"),
+                                                       _tree_to(params, "cpu"))):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            s, r = src22.to(device), ref22.to(device)
+            se_s = ov.extract_se(tree, cfg, ov.spectrogram_22k(s, cfg))
+            se_t = ov.extract_se(tree, cfg, ov.spectrogram_22k(r, cfg))
+            outs[name] = ov.convert_tone(tree, cfg, s, se_s, se_t).cpu()
+        secs[name] = time.perf_counter() - t0
+    peak = float(outs["cpu"].abs().max())
+    err = float((outs["card"] - outs["cpu"]).abs().max())
+    if not (peak > 0 and err <= OPENVOICE_F32_RTOL * peak):
+        raise AssertionError(f"OpenVoice f32 card against CPU: {err} > {OPENVOICE_F32_RTOL} * "
+                             f"{peak}")
+    print(f"  OpenVoice f32 convert_tone of {SERVICES_OV_CHECK_S:.0f} s, card against "
+          f"device=\"cpu\": max |diff| {err:.3e} at a peak of {peak:.4f} "
+          f"({err / peak:.2e} of it; limit {OPENVOICE_F32_RTOL:g}); card {secs['card']:.3f} s, "
+          f"CPU {secs['cpu']:.3f} s  [{card}]", flush=True)
+    return {"max_abs_err": err, "peak": peak, "card_s": secs["card"], "cpu_s": secs["cpu"]}
+
+
+def services_phase(dev, report, card, backend, e2e):
+    """The split deployment on the card: the remote route (the port's
+    CosyVoiceService over the e2e TTS engine, ``create_app(mode="remote")``,
+    /translate over HTTP: log-mel 1, resblock 2), then the MuseTalk,
+    similarity and OpenVoice services through their clients, and the
+    OpenVoice emit / load / bake round trip at its published width."""
+    from expressive_speech_translation_tpu_torch.ops.resample import resample
+
+    host = _host_packages()
+    http = host["requests"]
+    print("== services: host packages: " + ", ".join(
+        f"{k} {'present' if v else 'missing'}" for k, v in host.items())
+          + ("" if http else "; requests is missing, so the HTTP transport is not driven: the "
+             "remote app's TTS client and the services' clients run over WsgiTransport (the "
+             "app itself is still served over HTTP)"), flush=True)
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    upload = _stereo_upload(SERVE_SECONDS, FRONTEND_UPLOAD_SR, 47)
+    upload16 = resample(torch.from_numpy(upload.mean(0)).to(dev), FRONTEND_UPLOAD_SR,
+                        16_000).cpu().numpy()
+    dub = _KEPT["dub"]
+    out = {"host": {k: bool(v) for k, v in host.items()}}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["remote"] = services_remote_route(dev, card, backend, e2e, upload, tmp, http)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["musetalk"] = services_musetalk(dev, card, dub, http, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["similarity"] = services_similarity(dev, card, dub, upload16, http)
+        out["openvoice"] = services_openvoice(dev, card, tmp, http)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_gib_above_resident"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    out["launches"] = {k: out["remote"]["launches"][k] + out["musetalk"]["launches"][k]
+                       + out["openvoice"]["launches"][k] for k in LAUNCH_COUNTERS}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  peak {out['peak_gib_above_resident']:.2f} GiB above what was resident; launches "
+          f"{out['launches']}; services phase {out['seconds']:.1f} s  [{card}]", flush=True)
+    report["services"] = out
+    return out
 
 
 BATCH_REQUESTS = 8
@@ -3611,32 +4084,34 @@ def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
-def _launches(name, e2e, front, serve, lipsync, diff2lip, batched, stream, mtp, official,
-              ckpt) -> dict:
+def _launches(name, e2e, front, serve, lipsync, diff2lip, services, batched, stream, mtp,
+              official, ckpt) -> dict:
     """A kernel's launch count on each path driven: the three single
     requests, the detection of the 10 s request, the frontend's upload and
     video request, the serve phase's routes, the lip-sync render and its
-    routes, the diff2lip phase, the batched requests, the two streamed
+    routes, the diff2lip phase, the services phase (the remote route, the
+    MuseTalk and OpenVoice services), the batched requests, the two streamed
     requests, the mtp phase's TTS runs, the official chain's 10 s request,
     the 10 s request served from the bake."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
             "frontend": front["launches"][name], "serve": serve["launches"][name],
             "lipsync": lipsync["launches"][name], "diff2lip": diff2lip["launches"][name],
+            "services": services["launches"][name],
             "batched": batched["launches"][name], "streaming": stream["launches"][name],
             "mtp": mtp["launches"][name], "official": official["launches"][name],
             "checkpoints": ckpt["launches"][name]}
 
 
-def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff2lip, batched,
-                  stream, mtp, official, ckpt):
+def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff2lip, services,
+                  batched, stream, mtp, official, ckpt):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
     timed = next(r for r in rows if "ms" in r)
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
-            "launches_by_path": _launches(name, e2e, front, serve, lipsync, diff2lip, batched,
-                                          stream, mtp, official, ckpt),
+            "launches_by_path": _launches(name, e2e, front, serve, lipsync, diff2lip, services,
+                                          batched, stream, mtp, official, ckpt),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -3645,7 +4120,7 @@ def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff
 
 
 def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, serve, lipsync,
-                 diff2lip, batched, stream, mtp, official, ckpt):
+                 diff2lip, services, batched, stream, mtp, official, ckpt):
     """One entry per kernel. ``launches`` counts the three single requests;
     ``launches_by_path`` adds the detection, the batched requests and the
     streamed ones.
@@ -3666,7 +4141,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "replaces": f"{REFERENCE}/ops/pallas_mel.py:79",
          "launches": e2e["launches"]["log_mel_frames"],
          "launches_by_path": _launches("log_mel_frames", e2e, front, serve, lipsync, diff2lip,
-                                       batched, stream, mtp, official, ckpt),
+                                       services, batched, stream, mtp, official, ckpt),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -3676,7 +4151,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "replaces": f"{REFERENCE}/ops/pallas_vocoder.py:113",
          "launches": e2e["launches"]["fused_resblock_stage"],
          "launches_by_path": _launches("fused_resblock_stage", e2e, front, serve, lipsync,
-                                       diff2lip, batched, stream, mtp, official, ckpt),
+                                       diff2lip, services, batched, stream, mtp, official, ckpt),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -3690,11 +4165,14 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "stream_plain_ms": sum(r["graph_plain_ms"] for r in streamed),
          "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
-                      front, serve, lipsync, diff2lip, batched, stream, mtp, official, ckpt),
+                      front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
+                      ckpt),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
-                      front, serve, lipsync, diff2lip, batched, stream, mtp, official, ckpt),
+                      front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
+                      ckpt),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
-                      front, serve, lipsync, diff2lip, batched, stream, mtp, official, ckpt),
+                      front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
+                      ckpt),
     ]
 
 
@@ -3739,6 +4217,7 @@ def main() -> int:
     serve = serve_phase(dev, report, card, backend, e2e, front)
     lipsync = lipsync_phase(dev, report, card, backend, e2e)
     diff2lip = diff2lip_phase(dev, report, card)
+    services = services_phase(dev, report, card, backend, e2e)
     batched = batched_phase(dev, report, card, e2e)
     stream = streaming_phase(dev, report, card, backend, e2e)
     mtp = mtp_phase(dev, report, card, backend, e2e)
@@ -3750,7 +4229,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, front, serve, lipsync, diff2lip,
-                                              batched, stream, mtp, official, ckpt)}))
+                                              services, batched, stream, mtp, official, ckpt)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -121,8 +121,9 @@ class EngineConfig:
     ``mode`` keeps the JAX package's field and values: "jax" (the port's
     own engines, ``torch_engines``; random weights unless EST_MODELS_DIR or
     explicit params supply real ones), "fake" (deterministic test doubles) or
-    "remote" (not ported: ROADMAP Queue 1 item 13); empty = the caller's
-    default (``serve/app.py`` ``create_app``).
+    "remote" (the split deployment: the port's ASR and NMT in-process, the
+    TTS over HTTP from ``endpoints.cosyvoice_url``, ``serve/clients.py``);
+    empty = the caller's default (``serve/app.py`` ``create_app``).
     """
 
     mode: str = ""                       # "" (auto) | "jax" | "fake" | "remote"

@@ -6,13 +6,13 @@ The port of the JAX package's ``models/loaders.py``, with torch alone:
   the network): safetensors through the port's own reader
   (``safetensors_io``), pickled ``.pt`` / ``.bin`` through ``torch.load``;
 - ``load_whisper`` / ``load_nllb`` / ``load_ecapa`` / ``load_qwen2_backbone``,
-  ``load_cosyvoice_{llm,flow,hift}``, ``load_musetalk`` and ``load_diff2lip``
-  compose it with each model's converter, the dims read from
+  ``load_cosyvoice_{llm,flow,hift}``, ``load_musetalk``, ``load_diff2lip`` and
+  ``load_openvoice`` compose it with each model's converter, the dims read from
   ``config.json`` or the tensors;
 - the bake: :func:`bake_models` (and the CLI, :func:`main`) converts
   checkpoints once into stage directories (``asr/``, ``nmt/``, ``ecapa/``,
   ``speech_tokenizer/``, ``tts_llm/``, ``tts_flow/``, ``tts_hift/``,
-  ``musetalk/``, ``musetalk_whisper/``, ``diff2lip/``), each
+  ``musetalk/``, ``musetalk_whisper/``, ``diff2lip/``, ``openvoice/``), each
   a ``config.json`` (the JAX package's schema, ``dataclasses.asdict`` of the
   config) and a ``params.safetensors`` holding the port's tree flattened to
   ``.``-joined key paths, list indices as numbers. The JAX package bakes
@@ -21,7 +21,8 @@ The port of the JAX package's ``models/loaders.py``, with torch alone:
 
       python -m expressive_speech_translation_tpu_torch.models.loaders \\
           --asr DIR --nmt DIR --tts DIR --ecapa DIR [--musetalk DIR]
-          [--musetalk-whisper DIR] [--diff2lip CKPT] --out DIR [--device cpu]
+          [--musetalk-whisper DIR] [--diff2lip CKPT] [--openvoice DIR] --out DIR
+          [--device cpu]
 """
 
 from __future__ import annotations
@@ -333,6 +334,45 @@ def load_diff2lip(path: PathLike, cfg=None, device=None):
     return gd_unet.from_tfg_state_dict(load_state_dict(p), cfg.unet, device), cfg
 
 
+def load_openvoice(path: PathLike, cfg=None, device=None):
+    """OpenVoice v2's converter directory (``checkpoints_v2/converter``:
+    ``config.json`` + ``checkpoint.pth``; openvoice_api.py:39-69 validates
+    gin_channels=256 from exactly this config) or the checkpoint file →
+    (params on ``device``, OpenVoiceConfig read from ``config.json`` unless
+    ``cfg`` is given)."""
+    from . import openvoice as ov
+
+    p = Path(path)
+    ckpt = p if p.is_file() else next(
+        (f for f in (p / "checkpoint.pth", p / "converter.pth", p / "model.pth") if f.exists()),
+        None)
+    if ckpt is None:
+        raise WeightsNotFoundError(f"no OpenVoice converter checkpoint under {p} "
+                                   "(looked for checkpoint.pth/converter.pth/model.pth)")
+    cfg_file = (p if p.is_dir() else p.parent) / "config.json"
+    if cfg is None and cfg_file.exists():
+        spec = json.loads(cfg_file.read_text())
+        m, d = spec.get("model", {}), spec.get("data", {})
+        cfg = ov.OpenVoiceConfig(
+            sample_rate=d.get("sampling_rate", 22_050),
+            n_fft=d.get("filter_length", 1024),
+            hop=d.get("hop_length", 256),
+            n_spec=d.get("filter_length", 1024) // 2 + 1,
+            inter_channels=m.get("inter_channels", 192),
+            hidden=m.get("hidden_channels", 192),
+            se_dim=m.get("gin_channels", 256),
+            zero_g=m.get("zero_g", True),
+            resblock_kernels=tuple(m.get("resblock_kernel_sizes", (3, 7, 11))),
+            resblock_dilations=tuple(tuple(x) for x in m.get(
+                "resblock_dilation_sizes", ((1, 3, 5),) * 3)),
+            upsample_rates=tuple(m.get("upsample_rates", (8, 8, 2, 2))),
+            upsample_kernels=tuple(m.get("upsample_kernel_sizes", (16, 16, 4, 4))),
+            upsample_initial=m.get("upsample_initial_channel", 512),
+        )
+    cfg = cfg or ov.OpenVoiceConfig()
+    return ov.from_openvoice_state_dict(load_state_dict(ckpt), cfg, device), cfg
+
+
 # ------------------------------------------------------------------ the bake
 
 
@@ -449,7 +489,7 @@ def load_official_tts(models_root: PathLike, device=None, dtype=None):
             com.OfficialTtsConfig(lm=lm_cfg, flow=flow_cfg, hift=hift_cfg))
 
 
-_NOT_PORTED = ("openvoice", "seamless")
+_NOT_PORTED = ("seamless",)
 
 
 def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[str] = None,
@@ -462,12 +502,13 @@ def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[
     ``asr/`` (HF Whisper), ``nmt/`` (HF NLLB), ``ecapa/`` (speechbrain),
     ``musetalk/`` (the MuseTalk release layout, :func:`load_musetalk`),
     ``musetalk_whisper/`` (HF whisper-tiny, MuseTalk's audio condition),
-    ``diff2lip/`` (a TFGModel checkpoint, :func:`load_diff2lip`) and from a
-    CosyVoice2 directory ``tts_llm/``, ``tts_flow/``, ``tts_hift/``
-    (whichever of ``llm.pt`` / ``model.pt``, ``flow.pt``, ``hift.pt`` it
-    holds). The trees are converted on ``device``. The JAX package's other
-    families (OpenVoice, Seamless) are not ported."""
-    asked = [name for name, path in zip(_NOT_PORTED, (openvoice, seamless)) if path]
+    ``diff2lip/`` (a TFGModel checkpoint, :func:`load_diff2lip`), ``openvoice/``
+    (OpenVoice v2's converter, :func:`load_openvoice`) and from a CosyVoice2
+    directory ``tts_llm/``, ``tts_flow/``, ``tts_hift/`` (whichever of
+    ``llm.pt`` / ``model.pt``, ``flow.pt``, ``hift.pt`` it holds). The trees
+    are converted on ``device``. The JAX package's other family (Seamless)
+    is not ported."""
+    asked = [name for name, path in zip(_NOT_PORTED, (seamless,)) if path]
     if asked:
         raise NotImplementedError(f"baking {', '.join(asked)} is not ported yet: ROADMAP.md "
                                   "Queue 1 item 13 (the alternate backends, training)")
@@ -483,6 +524,9 @@ def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[
     if diff2lip:
         save_converted(*load_diff2lip(diff2lip, device=device), out / "diff2lip")
         log.info("baked diff2lip %s -> %s", diff2lip, out / "diff2lip")
+    if openvoice:
+        save_converted(*load_openvoice(openvoice, device=device), out / "openvoice")
+        log.info("baked OpenVoice %s -> %s", openvoice, out / "openvoice")
     if ecapa:
         save_converted(*load_ecapa(ecapa, device=device), out / "ecapa")
         log.info("baked ECAPA %s -> %s", ecapa, out / "ecapa")
@@ -515,7 +559,7 @@ def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[
 def main(argv=None) -> int:
     """Bake checkpoints for the port:
     python -m expressive_speech_translation_tpu_torch.models.loaders
-    --asr DIR --nmt DIR --tts DIR --ecapa DIR [--diff2lip CKPT] --out DIR"""
+    --asr DIR --nmt DIR --tts DIR --ecapa DIR [--diff2lip CKPT] [--openvoice DIR] --out DIR"""
     import argparse
 
     ap = argparse.ArgumentParser(description=main.__doc__)
@@ -526,6 +570,7 @@ def main(argv=None) -> int:
     ap.add_argument("--musetalk", help="MuseTalk release dir (sd-vae-ft-mse/ + musetalk/)")
     ap.add_argument("--musetalk-whisper", help="HF whisper-tiny dir (MuseTalk's audio condition)")
     ap.add_argument("--diff2lip", help="diff2lip TFG checkpoint (file, or dir with e2e.pt etc.)")
+    ap.add_argument("--openvoice", help="OpenVoice v2 converter dir (config.json + checkpoint.pth)")
     for name in _NOT_PORTED:
         ap.add_argument(f"--{name.replace('_', '-')}", help="not ported (ROADMAP Queue 1 item 13)")
     ap.add_argument("--out", required=True, help="output root for the stage directories")
@@ -534,7 +579,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     bake_models(args.out, asr=args.asr, nmt=args.nmt, tts=args.tts, ecapa=args.ecapa,
                 musetalk=args.musetalk, musetalk_whisper=args.musetalk_whisper,
-                diff2lip=args.diff2lip, device=args.device,
+                diff2lip=args.diff2lip, openvoice=args.openvoice, device=args.device,
                 **{name: getattr(args, name) for name in _NOT_PORTED})
     return 0
 

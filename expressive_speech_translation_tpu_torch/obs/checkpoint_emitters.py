@@ -18,7 +18,12 @@ published widths in the published formats and loads them back through
   ``musetalk/pytorch_model.bin`` with ``musetalk.json``);
 - :func:`diff2lip_tfg_state_dict` and :func:`write_diff2lip`: diff2lip's
   pickled TFGModel (``e2e.pt``), the attention's qkv re-interleaved
-  head-major as the legacy checkpoints hold it.
+  head-major as the legacy checkpoints hold it;
+- :func:`openvoice_state_dict`, :func:`openvoice_config` and
+  :func:`write_openvoice`: OpenVoice v2's converter directory
+  (``checkpoint.pth`` holding ``{"model": state}`` in SynthesizerTrn naming,
+  ``weight_g`` / ``weight_v`` pairs where OpenVoice applies weight norm, and
+  ``config.json``).
 
 Tied weights are one tensor under each of their names, as ``state_dict()``
 gives them; every other value is a contiguous copy on the host.
@@ -30,6 +35,7 @@ import json
 from pathlib import Path
 from typing import Dict
 
+import numpy as np
 import torch
 
 State = Dict[str, torch.Tensor]
@@ -404,3 +410,84 @@ def write_diff2lip(path, params, cfg) -> Path:
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save({"module." + k: v for k, v in diff2lip_tfg_state_dict(params, cfg).items()}, path)
     return path
+
+
+def _weight_norm(out: State, name: str, p) -> None:
+    """A weight-normed conv: ``weight_v`` the folded weight, ``weight_g``
+    its norm over every axis but the first (torch's ``weight_norm(dim=0)``),
+    reckoned in numpy f32 as the converters fold it, so that g·v/‖v‖ gives
+    the weight back within the fold's rounding (a product and a quotient)."""
+    v = _host(p["kernel"])
+    vn = v.float().numpy()
+    norm = np.sqrt((vn ** 2).sum(axis=tuple(range(1, vn.ndim)), keepdims=True))
+    out[f"{name}.weight_g"] = torch.from_numpy(norm).to(v.dtype)
+    out[f"{name}.weight_v"] = v
+    if "bias" in p:
+        out[f"{name}.bias"] = _host(p["bias"])
+
+
+def openvoice_state_dict(params, cfg) -> State:
+    """The port's OpenVoice tree → the converter's SynthesizerTrn state dict:
+    weight norm on the WN layers, the resblocks, the upsamples and the
+    reference encoder's convs, as OpenVoice applies it; the flow's Flips
+    take the odd indices."""
+    out: State = {}
+
+    def wn(base, p):
+        _weight_norm(out, f"{base}.cond_layer", p["cond"])
+        for i, (c_in, c_rs) in enumerate(zip(p["in"], p["res_skip"])):
+            _weight_norm(out, f"{base}.in_layers.{i}", c_in)
+            _weight_norm(out, f"{base}.res_skip_layers.{i}", c_rs)
+
+    q = params["enc_q"]
+    _conv(out, "enc_q.pre", q["pre"])
+    wn("enc_q.enc", q["wn"])
+    _conv(out, "enc_q.proj", q["proj"])
+    for i, layer in enumerate(params["flow"]):
+        _conv(out, f"flow.flows.{2 * i}.pre", layer["pre"])
+        wn(f"flow.flows.{2 * i}.enc", layer["wn"])
+        _conv(out, f"flow.flows.{2 * i}.post", layer["post"])
+    d = params["dec"]
+    _conv(out, "dec.conv_pre", d["conv_pre"])
+    _conv(out, "dec.cond", d["cond"])
+    for i, up in enumerate(d["ups"]):
+        _weight_norm(out, f"dec.ups.{i}", up)
+    for r, block in enumerate(d["resblocks"]):
+        for which in ("convs1", "convs2"):
+            for j, c in enumerate(block[which]):
+                _weight_norm(out, f"dec.resblocks.{r}.{which}.{j}", c)
+    out["dec.conv_post.weight"] = _host(d["conv_post"]["kernel"])
+    ref = params["ref_enc"]
+    for i, c in enumerate(ref["convs"]):
+        _weight_norm(out, f"ref_enc.convs.{i}", c)
+    for ours, theirs in (("wi", "ih"), ("wh", "hh")):
+        out[f"ref_enc.gru.weight_{theirs}_l0"] = _host(ref["gru"][ours]["kernel"].T)
+        out[f"ref_enc.gru.bias_{theirs}_l0"] = _host(ref["gru"][ours]["bias"])
+    _linear(out, "ref_enc.proj", ref["proj"])
+    return out
+
+
+def openvoice_config(cfg) -> dict:
+    """The converter's ``config.json`` (the keys ``load_openvoice`` reads)."""
+    return {"_version_": "v2",
+            "data": {"sampling_rate": cfg.sample_rate, "filter_length": cfg.n_fft,
+                     "hop_length": cfg.hop, "win_length": cfg.n_fft, "n_speakers": 0},
+            "model": {"zero_g": cfg.zero_g, "inter_channels": cfg.inter_channels,
+                      "hidden_channels": cfg.hidden, "resblock": "1",
+                      "resblock_kernel_sizes": list(cfg.resblock_kernels),
+                      "resblock_dilation_sizes": [list(d) for d in cfg.resblock_dilations],
+                      "upsample_rates": list(cfg.upsample_rates),
+                      "upsample_initial_channel": cfg.upsample_initial,
+                      "upsample_kernel_sizes": list(cfg.upsample_kernels),
+                      "gin_channels": cfg.se_dim}}
+
+
+def write_openvoice(root, params, cfg) -> Path:
+    """OpenVoice v2's converter directory under ``root``: ``checkpoint.pth``
+    (``{"model": state}``, as OpenVoice saves it) and ``config.json``.
+    → ``root``."""
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": openvoice_state_dict(params, cfg)}, root / "checkpoint.pth")
+    (root / "config.json").write_text(json.dumps(openvoice_config(cfg), indent=2))
+    return root

@@ -21,7 +21,8 @@ content-type gate on POSTs, one error handler that answers every
 :class:`ESTError` with its status and payload, shutdown hooks, and a hard
 fail at start-up when the default backend does not initialise.
 
-This is the only module of the port that imports werkzeug.
+This is the only module of the port that imports werkzeug at module level
+(the model services and the clients import it where they use it).
 
     EST_ENGINES__MODE=jax python -m expressive_speech_translation_tpu_torch.serve.app
 """
@@ -50,7 +51,7 @@ from ..media.wavio import read_wav_bytes, wav_bytes
 from ..obs.logging_setup import new_request_id, setup_logging
 from ..pipeline.audio_processor import AudioProcessor
 from ..pipeline.backend import TranslationManager
-from .audio_link import _no_fetcher, process_audio_url
+from .audio_link import process_audio_url
 from .limiter import RateLimiter
 from .podcasts import PodcastStore
 from .resource_monitor import check_resources, device_memory_stats, process_rss_bytes
@@ -87,9 +88,13 @@ class App:
                            audio_processor=self.audio_processor)
             if video_io is not None else None
         )
-        # the URL downloader (yt-dlp, direct download) waits for ROADMAP
-        # Queue 1 item 13; until then a URL request answers 400
-        self.url_fetcher = url_fetcher or _no_fetcher
+        if url_fetcher is None:
+            # yt-dlp when installed, the direct media download otherwise
+            # (audio_link_routes.py:83-180's role; serve/media_fetcher.py)
+            from .media_fetcher import default_fetcher
+
+            url_fetcher = default_fetcher
+        self.url_fetcher = url_fetcher
         self.podcasts = PodcastStore(Path(self.config.temp_dir) / "podcasts")
         self.started_at = time.time()
         self.url_map = Map([
@@ -453,7 +458,11 @@ def create_app(
     over the engines ``config.engines.mode`` names ("" takes
     ``default_engine_mode``, "fake" here so that an embedded app stays
     hermetic; the server's entry point passes "jax"): "jax" is the port's
-    own engines (``torch_engines``) on ``device``, "fake" the fakes.
+    own engines (``torch_engines``) on ``device``, "remote" the reference's
+    split deployment (the port's ASR and NMT on ``device``, the TTS a
+    :class:`~.clients.CosyVoiceClient` of ``endpoints.cosyvoice_url``,
+    health-checked and warmed up before the app is returned), "fake" the
+    fakes.
     ``device`` (the card unless ``device="cpu"``) also places the app's
     audio processing."""
     config = config or AppConfig()
@@ -479,9 +488,25 @@ def create_app(
                 batch_wait_ms=config.serve.tts_batch_wait_ms,
             )
         elif mode == "remote":
-            raise NotImplementedError(
-                "engine mode 'remote' is not ported yet: ROADMAP.md Queue 1 item 13 "
-                "(serve/clients.py)")
+            # the reference's split deployment: ASR and NMT in-process, TTS
+            # through the CosyVoice container's contract (cascaded_backend.py:455-475)
+            from ..pipeline.torch_engines import torch_engines
+            from .clients import HttpTransport, remote_engines
+
+            local = torch_engines(
+                scale=config.engines.scale,
+                device=device,
+                quantize=config.engines.quantize,
+                asr_context_buckets=tuple(config.engines.asr_context_buckets),
+                tts_mtp=config.engines.tts_mtp,
+                tts_spec=config.engines.tts_spec,
+            )
+            engines = remote_engines(
+                HttpTransport(config.endpoints.cosyvoice_url),
+                asr=local.asr, nmt=local.nmt,
+                retries=config.endpoints.health_retries,
+                retry_delay_s=config.endpoints.health_backoff_seconds,
+            )
         elif mode == "fake":
             from ..pipeline.engines import fake_engines
 

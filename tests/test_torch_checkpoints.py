@@ -393,9 +393,10 @@ def test_the_bake_cli_and_the_families_it_does_not_port(ckpts, tmp_path):
     assert tld.main(["--asr", str(root / "whisper"), "--out", str(tmp_path),
                      "--device", CPU]) == 0
     assert (tmp_path / "asr" / "params.safetensors").exists()
-    for flag in ("--openvoice", "--seamless"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-            tld.main([flag, str(root), "--out", str(tmp_path / "x")])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        tld.main(["--seamless", str(root), "--out", str(tmp_path / "x")])
+    with pytest.raises(tld.WeightsNotFoundError, match="OpenVoice"):      # ported: no checkpoint
+        tld.main(["--openvoice", str(root), "--out", str(tmp_path / "x"), "--device", CPU])
     assert not (tmp_path / "x").exists()
 
 

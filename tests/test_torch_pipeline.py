@@ -513,15 +513,41 @@ def test_port_runs_without_jax_or_the_jax_package():
         d2l = diff2lip.Diff2LipPipeline(d2l_cfg, device="cpu")
         assert d2l.generate(clip[:1], np.zeros(1_600, np.float32), 25.0).shape == clip[:1].shape
         assert resource_monitor.process_rss_bytes() > 0 and resource_monitor.device_memory_stats() == {}
+        # the split deployment: OpenVoice, speaker similarity, the services,
+        # their clients and the URL fetcher import without werkzeug
+        from expressive_speech_translation_tpu_torch import evals
+        from expressive_speech_translation_tpu_torch.evals import acoustic_metrics
+        from expressive_speech_translation_tpu_torch.models import openvoice
+        from expressive_speech_translation_tpu_torch.serve import (
+            clients, media_fetcher, model_services)
+        ov_cfg = openvoice.OpenVoiceConfig(n_fft=128, hop=32, n_spec=65, inter_channels=4,
+            hidden=8, se_dim=8, n_flows=1, flow_wn_layers=1, post_wn_layers=1,
+            upsample_initial=8, upsample_rates=(2, 2), upsample_kernels=(4, 4),
+            resblock_kernels=(3,), resblock_dilations=((1,),), ref_filters=(2, 2))
+        ov = openvoice.init_openvoice(0, ov_cfg, "cpu")
+        wav = torch.from_numpy(x[None, :4_000])
+        se = openvoice.extract_se(ov, ov_cfg, openvoice.spectrogram_22k(wav, ov_cfg))
+        assert openvoice.convert_tone(ov, ov_cfg, wav, se, se).shape == (1, 125 * 4)
+        ecfg = ecapa.EcapaConfig(channels=16, mfa_out=48, bottleneck=8)
+        assert -1 <= acoustic_metrics.speaker_similarity(x, x[::-1].copy(), cfg=ecfg,
+                                                          device="cpu") <= 1
+        assert clients._parse_wav_bytes(clients._wav_bytes(x, 16_000))[1] == 16_000
+        try:
+            media_fetcher._resolve_public_host("http://10.0.0.1/a.wav")
+        except errors.MediaError as e:
+            assert "non-public" in str(e)
         assert "werkzeug" not in sys.modules
         BLOCKED.discard("werkzeug")
         from expressive_speech_translation_tpu_torch.serve import app
         from werkzeug.test import Client
         r = Client(app.create_app(device="cpu")).get("/available-backends")
         assert r.status_code == 200 and r.get_json()["weights"] == {"cascaded": "fake"}
+        tts = clients.CosyVoiceClient(clients.WsgiTransport(
+            model_services.CosyVoiceService(device="cpu")), retries=1, retry_delay_s=0)
+        assert tts.check_health() and tts.synthesize("hello").size > 0
         bad = [m for m in sys.modules if m.split(".")[0] in (
             "jax", "expressive_speech_translation_tpu", "safetensors", "transformers",
-            "tokenizers", "yaml", "psutil")]
+            "tokenizers", "yaml", "psutil", "requests")]
         bad += [m for m in set(sys.modules) - with_torch
                 if m.split(".")[0] in ("urllib3", "certifi")]
         print("FORBIDDEN", bad)

@@ -528,11 +528,9 @@ def _configs(tmp_path, **overrides):
 
 def _clients(tmp_path, video_io=None, url_fetcher=None, overrides=None):
     """(JAX client, port client) over fake engines, the port's on the CPU.
-    JAX's app takes its own ``_no_fetcher`` when none is given: its default
-    downloader is not ported (ROADMAP Queue 1 item 13)."""
+    With no fetcher given, each app takes its own default fetcher."""
     jcfg, tcfg = _configs(tmp_path, **(overrides or {}))
-    jax_app = japp.create_app(config=jcfg, video_io=video_io,
-                              url_fetcher=url_fetcher or jaudio_link._no_fetcher)
+    jax_app = japp.create_app(config=jcfg, video_io=video_io, url_fetcher=url_fetcher)
     port_app = tapp.create_app(config=tcfg, video_io=video_io, url_fetcher=url_fetcher,
                                device="cpu")
     return Client(jax_app), Client(port_app)
@@ -950,8 +948,9 @@ def test_engine_modes(tmp_path, monkeypatch):
     """Mode "jax" serves the port's own engines: one /translate on toy CPU
     engines (tiny configs, short decode budgets) answers 200 with random
     weights and the decode strings of the configuration; "fake" serves the
-    fakes, "remote" names its ROADMAP item, anything else is refused as in
-    JAX."""
+    fakes, "remote" the port's ASR and NMT with the TTS over the CosyVoice
+    service's contract (``HttpTransport`` patched to a ``WsgiTransport`` of
+    the port's service), anything else is refused as in JAX."""
     from expressive_speech_translation_tpu_torch.pipeline import torch_engines as te
 
     seen = {}
@@ -978,9 +977,13 @@ def test_engine_modes(tmp_path, monkeypatch):
 
     _, tcfg = _configs(tmp_path, **{"engines.mode": "fake"})
     assert tapp.create_app(config=tcfg, device="cpu").manager.get_backend().weights_info() == "fake"
-    _, tcfg = _configs(tmp_path, **{"engines.mode": "remote"})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tapp.create_app(config=tcfg, device="cpu")
+    from expressive_speech_translation_tpu_torch.serve import clients, model_services
+    monkeypatch.setattr(clients, "HttpTransport", lambda url: clients.WsgiTransport(
+        model_services.CosyVoiceService(device="cpu")))
+    _, tcfg = _configs(tmp_path, **{"engines.mode": "remote", "engines.scale": "toy",
+                                    "endpoints.health_backoff_seconds": 0.0})
+    engines = tapp.create_app(config=tcfg, device="cpu").manager.get_backend().engines
+    assert type(engines.tts) is clients.CosyVoiceClient and engines.asr.max_new_tokens == 8
     with pytest.raises(ValueError, match="unknown engine mode"):
         tapp.create_app(config=tconfig.AppConfig(engines=tconfig.EngineConfig(mode="bogus")),
                         device="cpu")
