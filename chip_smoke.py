@@ -196,7 +196,30 @@ Phases, in order; any failure exits non-zero and prints no result:
               ``load_converted`` (equal), and 8 frames rendered by
               ``Diff2LipPipeline.from_models_dir`` from the bake, each step's
               seconds and GB/s;
-15. the kernels line, the card line, and last the result line.
+15. alternate — the alternate backends: SeamlessM4T-v2 at its published
+              width (``SeamlessConfig.v2_large()``), f32, seeded random
+              weights, its parameter count; written by ``write_seamless`` as
+              sharded safetensors with their index, ``config.json`` and a
+              ``generation_config.json`` of language maps (free disk checked
+              first), read back by ``load_seamless`` / ``load_seamless_aux``
+              (seconds, GB/s, config, maps and every tensor equal), baked by
+              ``bake_models(seamless=...)``; in f32 ``encode_speech`` of 2 s
+              and ``code_hifigan`` of 50 units on the card against
+              ``device="cpu"`` (ALT_F32_RTOL); ``SeamlessBackend.
+              from_models_dir()`` under EST_MODELS_DIR (weights "loaded"),
+              ``initialize()`` (the bf16 cast) and a 10 s ``translate_speech``
+              eng → fra at 5 beams and 64 text tokens, twice (seconds, RTF,
+              samples equal to the vocoder's length and within the 2 ×
+              max_units × hop horizon, |audio| ≤ 1, no launch of either
+              kernel); ``ESPnetBackend`` with the e2e phase's Whisper-medium
+              as its ASR and the default VITS: a 10 s request twice, log-mel
+              once and the resblock never a request, 16 kHz output of the
+              VITS's resampled samples; the three backends on one
+              ``TranslationManager`` behind ``create_app`` over HTTP on
+              localhost: ``/available-backends`` (Seamless "loaded", ESPnet
+              "random") and ``/translate`` with ``backend=seamless``; the
+              phase's peak memory and seconds;
+16. the kernels line, the card line, and last the result line.
 
 The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
 greedy call.
@@ -4080,30 +4103,353 @@ def checkpoints_phase(dev, report, card, e2e):
     return ckpt
 
 
+ALT_SECONDS = 10.0            # the request each alternate backend serves
+ALT_BEAMS = 5                 # SeamlessBackend's default (translate_speech.py's num_beams)
+ALT_TEXT_TOKENS = 64          # SeamlessBackend's default text budget
+ALT_F32_SECONDS = 2.0         # the f32 card-against-CPU check of the speech encoder
+ALT_F32_UNITS = 50            # and of the code HiFi-GAN
+ALT_F32_RTOL = 1e-4           # f32 on the card against device="cpu": max |diff| / peak
+ALT_DISK_MARGIN = 2e9
+SEAMLESS_OUT_GAIN = 2e4       # the random vocoder's output conv scaled: its wave peaks near 1e-5
+# The language maps written into the emitted generation_config.json: NLLB-200's
+# token ids of eng_Latn / fra_Latn (inside Seamless's 256,102-row vocabulary)
+# and two vocoder language rows; a real checkpoint's file gives its own
+SEAMLESS_LANG_IDS = {"eng": 256_047, "fra": 256_057}
+SEAMLESS_VOCODER_LANG_IDS = {"eng": 0, "fra": 1}
+
+
+def _seamless_config():
+    """SeamlessM4T-v2-large's published widths (the rehearsal on the CPU
+    patches this to the toy config)."""
+    from expressive_speech_translation_tpu_torch.models import seamless as sm
+
+    return sm.SeamlessConfig.v2_large()
+
+
+def alternate_checkpoint(tmp, dev, card) -> tuple:
+    """Seamless at its published width, f32, seeded random weights (the
+    vocoder's output conv scaled by SEAMLESS_OUT_GAIN, so the random
+    waveform spans the audio range rather than ~1e-5): emitted
+    by ``write_seamless`` as sharded safetensors with their index,
+    ``config.json`` and ``generation_config.json`` (free disk checked
+    first), read back by ``load_seamless`` / ``load_seamless_aux`` (config,
+    maps and every tensor equal), baked by ``bake_models(seamless=...)``,
+    each timed with its GB/s; then the f32 check on the same tree. → (the
+    figures, the bake's root)."""
+    from expressive_speech_translation_tpu_torch.models import loaders
+    from expressive_speech_translation_tpu_torch.models import seamless as sm
+    from expressive_speech_translation_tpu_torch.obs import checkpoint_emitters as em
+
+    cfg = _seamless_config()
+    params = sm.init_seamless(19, cfg, dev)
+    params["vocoder"]["hifi"]["conv_post"]["kernel"].mul_(SEAMLESS_OUT_GAIN)
+    nbytes = _tree_bytes(params)
+    n_params = nbytes // 4
+    need = 2 * nbytes + ALT_DISK_MARGIN
+    free = shutil.disk_usage(tmp).free
+    print(f"  SeamlessM4T-v2 at its published width (hidden {cfg.hidden}, conformer "
+          f"{cfg.speech_layers} layers, text decoder {cfg.decoder_layers} x vocab "
+          f"{cfg.vocab_size}, t2u {cfg.t2u_encoder_layers}+{cfg.t2u_decoder_layers}, code HiFi-GAN "
+          f"{cfg.upsample_initial_channel} x{cfg.upsample_rates}): {n_params / 1e9:.3f} B "
+          f"parameters, {nbytes / 1e9:.3f} GB in f32; {free / 1e9:.1f} GB free at {tmp}, "
+          f"{need / 1e9:.1f} GB needed", flush=True)
+    if free < need:
+        raise AssertionError(f"alternate phase: {free / 1e9:.1f} GB free at {tmp}, "
+                             f"{need / 1e9:.1f} GB needed")
+    tables = sum(_tree_bytes(t) for t in (params["text_decoder"]["pos"],
+                                          params["t2u"]["decoder"]["pos"]))
+    src = os.path.join(tmp, "seamless-m4t-v2-large")
+    _, emit = _timed("write_seamless (sharded safetensors + index, config, generation config)",
+                     lambda: em.write_seamless(src, params, cfg,
+                                               text_lang_ids=SEAMLESS_LANG_IDS,
+                                               vocoder_lang_ids=SEAMLESS_VOCODER_LANG_IDS),
+                     nbytes - tables, card)                  # the sinusoid tables stay out
+    with open(os.path.join(src, "model.safetensors.index.json")) as f:
+        shards = json.load(f)
+    (loaded, loaded_cfg), load = _timed("load_seamless", lambda: loaders.load_seamless(
+        src, device=dev), _dir_bytes(src), card)
+    if loaded_cfg != cfg:
+        raise AssertionError(f"load_seamless read {loaded_cfg}")
+    _tensors_equal(loaded, params, "load_seamless")
+    aux = loaders.load_seamless_aux(src)
+    if aux != {"text_decoder_lang_to_code_id": SEAMLESS_LANG_IDS,
+               "vocoder_lang_code_to_id": SEAMLESS_VOCODER_LANG_IDS}:
+        raise AssertionError(f"load_seamless_aux read {aux}")
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    bake = os.path.join(tmp, "bake")
+    _, baked = _timed("bake_models(seamless=...)", lambda: loaders.bake_models(
+        bake, seamless=src, device=dev), nbytes, card)
+    stage = os.path.join(bake, "seamless")
+    if sorted(os.listdir(stage)) != ["config.json", "generation_maps.json", "params.safetensors"]:
+        raise AssertionError(f"the seamless bake holds {sorted(os.listdir(stage))}")
+    print(f"  {len(set(shards['weight_map'].values()))} shards, {_dir_bytes(src) / 1e9:.3f} GB "
+          f"emitted; load_seamless equal (config, maps, every tensor); the bake's "
+          f"params.safetensors {os.path.getsize(os.path.join(stage, 'params.safetensors')) / 1e9:.3f}"
+          f" GB", flush=True)
+    shutil.rmtree(src)
+    check = alternate_f32_check(params, cfg, dev, card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n_params, "gb": nbytes / 1e9, "emit": emit, "load": load, "bake": baked,
+            "shards": len(set(shards["weight_map"].values())), "f32_check": check}, bake
+
+
+def alternate_f32_check(params, cfg, dev, card) -> dict:
+    """In f32 on the card against ``device="cpu"`` (a host copy of the
+    subtree each needs): ``encode_speech`` of 2 s of features and
+    ``code_hifigan`` of 50 units, each held to ALT_F32_RTOL of its peak."""
+    from expressive_speech_translation_tpu_torch.models import seamless as sm
+    from expressive_speech_translation_tpu_torch.pipeline.alternate_backends import (
+        bandpass_80_7500, seamless_features)
+
+    x = bandpass_80_7500(_speechlike(ALT_F32_SECONDS, seed=81))
+    feats, mask = seamless_features(x, device=dev)
+    units = np.random.default_rng(82).integers(0, cfg.unit_vocab_vocoder, (1, ALT_F32_UNITS))
+    runs = {
+        "encode_speech": (lambda tree, d: sm.encode_speech(
+            tree, cfg, torch.from_numpy(feats).to(d), torch.from_numpy(mask).to(d))[0],
+            "speech_encoder"),
+        "code_hifigan": (lambda tree, d: sm.code_hifigan(
+            tree, cfg, torch.from_numpy(units).to(d), 0, SEAMLESS_VOCODER_LANG_IDS["fra"],
+            max_frames=2 * ALT_F32_UNITS)[0], "vocoder"),
+    }
+    out = {}
+    for name, (fn, part) in runs.items():
+        got, secs = {}, {}
+        for where, device, tree in (("card", dev, {part: params[part]}),
+                                    ("cpu", torch.device("cpu"),
+                                     {part: _tree_to(params[part], "cpu")})):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                got[where] = fn(tree, device).float().cpu()
+            secs[where] = time.perf_counter() - t0
+        peak = float(got["cpu"].abs().max())
+        err = float((got["card"] - got["cpu"]).abs().max())
+        if not (peak > 0 and err <= ALT_F32_RTOL * peak):
+            raise AssertionError(f"Seamless {name} f32 card against CPU: {err} > "
+                                 f"{ALT_F32_RTOL} * {peak}")
+        print(f"  Seamless {name} f32 ({tuple(got['card'].shape)}), card against device=\"cpu\": "
+              f"max |diff| {err:.3e} at a peak of {peak:.4f} ({err / peak:.2e} of it; limit "
+              f"{ALT_F32_RTOL:g}); card {secs['card']:.3f} s, CPU {secs['cpu']:.3f} s  [{card}]",
+              flush=True)
+        out[name] = {"max_abs_err": err, "peak": peak, "card_s": secs["card"],
+                     "cpu_s": secs["cpu"]}
+    return out
+
+
+def alternate_seamless(bake, dev, card) -> tuple:
+    """``SeamlessBackend.from_models_dir()`` under EST_MODELS_DIR (weights
+    "loaded"), ``initialize()`` (the bf16 cast), and the 10 s request eng →
+    fra at 5 beams and 64 text tokens, twice: seconds, RTF, samples against
+    the vocoder's length and the horizon (2 × max_units × hop), |audio| ≤ 1,
+    no launch of either kernel."""
+    from expressive_speech_translation_tpu_torch.models import seamless as sm
+    from expressive_speech_translation_tpu_torch.pipeline.alternate_backends import (
+        SeamlessBackend)
+
+    models_dir = os.environ.get("EST_MODELS_DIR")
+    os.environ["EST_MODELS_DIR"] = bake
+    try:
+        t0 = time.perf_counter()
+        backend = SeamlessBackend.from_models_dir(device=dev, num_beams=ALT_BEAMS,
+                                                  max_text_tokens=ALT_TEXT_TOKENS)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        if models_dir is None:
+            os.environ.pop("EST_MODELS_DIR")
+        else:
+            os.environ["EST_MODELS_DIR"] = models_dir
+    if backend.weights_info() != "loaded" or backend._lang_ids("fra") != (
+            SEAMLESS_LANG_IDS["fra"], SEAMLESS_VOCODER_LANG_IDS["fra"]):
+        raise AssertionError(f"SeamlessBackend.from_models_dir: {backend.weights_info()}, "
+                             f"{backend._lang_ids('fra')}")
+    t0 = time.perf_counter()
+    backend.initialize()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    horizon = backend.max_units * 2 * backend.cfg.hop_total
+    x = _speechlike(ALT_SECONDS, seed=83)
+    runs, record = [], []
+    _reset_launches()
+    # each request's waveform width and vocoder lengths, which the backend trims to
+    with _recording_calls(sm, "speech_from_text", record, lambda a, kw, out: {
+            "width": int(out[0].shape[1]), "lengths": out[1].tolist(),
+            "units": int(out[2]["unit_lengths"][0])}):
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = backend.translate_speech(x, "eng", "fra")
+            runs.append(time.perf_counter() - t0)
+            audio = out["audio"]
+            want = min(record[-1]["lengths"][0], record[-1]["width"])
+            if not (audio.ndim == 2 and audio.shape[0] == 1 and audio.shape[1] == want
+                    and 0 < want <= horizon and np.isfinite(audio).all()
+                    and np.abs(audio).max() <= 1.0):
+                raise AssertionError(f"Seamless request: {audio.shape}, vocoder length "
+                                     f"{record[-1]}, horizon {horizon}")
+    launches = _read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"SeamlessBackend launched {launches}: no kernel lies on its path")
+    print(f"  SeamlessBackend.from_models_dir (weights {backend.weights_info()!r}) {load_s:.2f} s, "
+          f"initialize (bf16 cast) {init_s:.2f} s; the {ALT_SECONDS:.0f} s request eng -> fra at "
+          f"{ALT_BEAMS} beams, {ALT_TEXT_TOKENS} text tokens: {runs[0]:.3f} s, then {runs[1]:.3f} s "
+          f"(RTF {runs[1] / ALT_SECONDS:.4f}); {audio.shape[1]} samples at 16 kHz (the vocoder's "
+          f"length, {record[-1]['units']} units; horizon {horizon}), peak "
+          f"{np.abs(audio).max():.4f}; launches {launches}  [{card}]", flush=True)
+    return backend, {"load_s": load_s, "initialize_s": init_s, "runs_s": runs,
+                     "rtf": runs[1] / ALT_SECONDS, "samples": int(audio.shape[1]),
+                     "peak": float(np.abs(audio).max()),
+                     "units": record[-1]["units"], "horizon": horizon, "launches": launches,
+                     "target_chars": len(out["transcripts"]["target"])}
+
+
+def alternate_espnet(asr, dev, card) -> tuple:
+    """``ESPnetBackend`` with the e2e phase's Whisper-medium engine as its
+    ASR and the default VITS a language: the 10 s request twice (the first
+    builds the VITS), log-mel launched once a request and the resblock never;
+    16 kHz output of the VITS's 22,050 Hz samples resampled."""
+    from expressive_speech_translation_tpu_torch.pipeline.alternate_backends import ESPnetBackend
+
+    backend = ESPnetBackend(asr_factory=lambda lang: asr, device=dev)
+    backend.initialize()
+    x = _speechlike(ALT_SECONDS, seed=84)
+    runs, launches = [], []
+    for _ in range(2):
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = backend.translate_speech(x, "eng", "fra")
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        launches.append(_read_launches())
+    tts = backend._tts_models["fra"]
+    n22 = len(tts.synthesize(out["transcripts"]["target"]))
+    want = -(-n22 * 16_000 // tts.sample_rate)
+    audio = out["audio"]
+    if not (audio.shape == (1, want) and np.isfinite(audio).all()):
+        raise AssertionError(f"ESPnet request: {audio.shape}, want (1, {want})")
+    for got in launches:
+        if got["log_mel_frames"] != 1 or got["fused_resblock_stage"] != 0:
+            raise AssertionError(f"ESPnet request launched {got}: log-mel once, resblock never")
+    print(f"  ESPnetBackend (the e2e Whisper-medium as ASR, VitsTTSModel('fra') at "
+          f"{tts.sample_rate} Hz, weights {backend.weights_info()!r}): the {ALT_SECONDS:.0f} s "
+          f"request {runs[0]:.3f} s with the VITS build, then {runs[1]:.3f} s (RTF "
+          f"{runs[1] / ALT_SECONDS:.4f}); text {len(out['transcripts']['source'])} chars; "
+          f"{n22} samples at 22,050 Hz -> {audio.shape[1]} at 16 kHz; launches {launches[-1]}"
+          f"  [{card}]", flush=True)
+    return backend, {"runs_s": runs, "rtf": runs[1] / ALT_SECONDS, "samples": int(audio.shape[1]),
+                     "samples_22k": n22, "launches": launches[-1]}
+
+
+def alternate_routes(cascaded, seamless, espnet, dev, tmp, card) -> dict:
+    """The three backends on one ``TranslationManager`` (the e2e cascade the
+    default) served by ``create_app(manager=...)`` over HTTP on localhost:
+    ``/available-backends`` (Seamless "loaded", ESPnet "random") and
+    ``/translate`` of the 10 s upload with ``backend=seamless``."""
+    import werkzeug  # noqa: F401 — the card's machine has it; the route is served over HTTP
+
+    from expressive_speech_translation_tpu_torch.core.config import AppConfig
+    from expressive_speech_translation_tpu_torch.media.wavio import wav_bytes
+    from expressive_speech_translation_tpu_torch.pipeline.backend import TranslationManager
+    from expressive_speech_translation_tpu_torch.serve.app import create_app
+
+    manager = TranslationManager()
+    manager.register_backend("cascaded", cascaded, is_default=True)
+    manager.register_backend("seamless", seamless)
+    manager.register_backend("espnet", espnet)
+    app = create_app(manager, AppConfig(temp_dir=tmp), device=dev)
+    wav = wav_bytes(_speechlike(ALT_SECONDS, seed=85), 16_000)
+    with _http_server(app) as request:
+        status, body, _ = request("/available-backends")
+        listed = json.loads(body)
+        if status != 200 or listed["weights"].get("seamless") != "loaded" \
+                or listed["weights"].get("espnet") != "random":
+            raise AssertionError(f"/available-backends: {status} {listed}")
+        _reset_launches()
+        t0 = time.perf_counter()
+        status, body, _ = request("/translate", {"target_language": "fra",
+                                                 "source_language": "eng",
+                                                 "backend": "seamless"},
+                                  {"file": (wav, "upload.wav")})
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+    if status != 200:
+        raise AssertionError(f"/translate backend=seamless: {status} {body[:300]!r}")
+    answer = json.loads(body)
+    audio = _decoded_wav(answer["audio"])
+    horizon = seamless.max_units * 2 * seamless.cfg.hop_total
+    if not (answer["weights"] == "loaded" and 0 < audio.size <= horizon
+            and np.isfinite(audio).all()) or any(launches.values()):
+        raise AssertionError(f"/translate backend=seamless: weights {answer['weights']}, "
+                             f"{audio.size} samples, launches {launches}")
+    print(f"  over HTTP: /available-backends {listed['backends']}, weights {listed['weights']}; "
+          f"/translate backend=seamless of a {ALT_SECONDS:.0f} s "
+          f"upload {wall:.3f} s, {audio.size} samples, weights {answer['weights']!r}, launches "
+          f"{launches}  [{card}]", flush=True)
+    return {"wall_s": wall, "samples": int(audio.size), "weights": listed["weights"],
+            "launches": launches}
+
+
+def alternate_phase(dev, report, card, backend):
+    """SeamlessM4T-v2 at its published width through the emitter, the loader
+    and the bake, served by ``SeamlessBackend`` from EST_MODELS_DIR; the
+    ESPnet backend over the e2e phase's ASR and the default VITS; both on a
+    ``TranslationManager`` behind ``create_app`` over HTTP. The ESPnet
+    request's launches are the phase's."""
+    print("== alternate: SeamlessM4T-v2-large (emitted, loaded, baked, served), ESPnet "
+          "(Whisper-medium + VITS), /translate backend=seamless over HTTP", flush=True)
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="est_alternate_")
+    try:
+        alt, bake = alternate_checkpoint(tmp, dev, card)
+        seamless, alt["seamless"] = alternate_seamless(bake, dev, card)
+        shutil.rmtree(bake)
+        espnet, alt["espnet"] = alternate_espnet(backend.engines.asr, dev, card)
+        alt["route"] = alternate_routes(backend, seamless, espnet, dev, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del seamless, espnet
+    gc.collect()
+    torch.cuda.empty_cache()
+    alt["launches"] = alt["espnet"]["launches"]
+    alt["peak_gib_above_resident"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    alt["seconds"] = time.perf_counter() - t_phase
+    print(f"  peak {alt['peak_gib_above_resident']:.2f} GiB above what was resident; alternate "
+          f"phase {alt['seconds']:.1f} s  [{card}]", flush=True)
+    report["alternate"] = alt
+    return alt
+
+
 def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
 def _launches(name, e2e, front, serve, lipsync, diff2lip, services, batched, stream, mtp,
-              official, ckpt) -> dict:
+              official, ckpt, alt) -> dict:
     """A kernel's launch count on each path driven: the three single
     requests, the detection of the 10 s request, the frontend's upload and
     video request, the serve phase's routes, the lip-sync render and its
     routes, the diff2lip phase, the services phase (the remote route, the
     MuseTalk and OpenVoice services), the batched requests, the two streamed
     requests, the mtp phase's TTS runs, the official chain's 10 s request,
-    the 10 s request served from the bake."""
+    the 10 s request served from the bake, the alternate phase's ESPnet
+    request (Seamless launches none)."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
             "frontend": front["launches"][name], "serve": serve["launches"][name],
             "lipsync": lipsync["launches"][name], "diff2lip": diff2lip["launches"][name],
             "services": services["launches"][name],
             "batched": batched["launches"][name], "streaming": stream["launches"][name],
             "mtp": mtp["launches"][name], "official": official["launches"][name],
-            "checkpoints": ckpt["launches"][name]}
+            "checkpoints": ckpt["launches"][name], "alternate": alt["launches"][name]}
 
 
 def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff2lip, services,
-                  batched, stream, mtp, official, ckpt):
+                  batched, stream, mtp, official, ckpt, alt):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
@@ -4111,7 +4457,7 @@ def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
             "launches_by_path": _launches(name, e2e, front, serve, lipsync, diff2lip, services,
-                                          batched, stream, mtp, official, ckpt),
+                                          batched, stream, mtp, official, ckpt, alt),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -4120,7 +4466,7 @@ def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff
 
 
 def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, serve, lipsync,
-                 diff2lip, services, batched, stream, mtp, official, ckpt):
+                 diff2lip, services, batched, stream, mtp, official, ckpt, alt):
     """One entry per kernel. ``launches`` counts the three single requests;
     ``launches_by_path`` adds the detection, the batched requests and the
     streamed ones.
@@ -4141,7 +4487,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "replaces": f"{REFERENCE}/ops/pallas_mel.py:79",
          "launches": e2e["launches"]["log_mel_frames"],
          "launches_by_path": _launches("log_mel_frames", e2e, front, serve, lipsync, diff2lip,
-                                       services, batched, stream, mtp, official, ckpt),
+                                       services, batched, stream, mtp, official, ckpt, alt),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -4151,7 +4497,8 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "replaces": f"{REFERENCE}/ops/pallas_vocoder.py:113",
          "launches": e2e["launches"]["fused_resblock_stage"],
          "launches_by_path": _launches("fused_resblock_stage", e2e, front, serve, lipsync,
-                                       diff2lip, services, batched, stream, mtp, official, ckpt),
+                                       diff2lip, services, batched, stream, mtp, official, ckpt,
+                                       alt),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -4166,13 +4513,13 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
                       front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
-                      ckpt),
+                      ckpt, alt),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
                       front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
-                      ckpt),
+                      ckpt, alt),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
                       front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
-                      ckpt),
+                      ckpt, alt),
     ]
 
 
@@ -4223,13 +4570,15 @@ def main() -> int:
     mtp = mtp_phase(dev, report, card, backend, e2e)
     official = official_phase(dev, report, card, e2e)
     ckpt = checkpoints_phase(dev, report, card, e2e)
+    alt = alternate_phase(dev, report, card, backend)
     report["seconds"] = time.perf_counter() - t_start
     print(f"== done in {report['seconds']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, front, serve, lipsync, diff2lip,
-                                              services, batched, stream, mtp, official, ckpt)}))
+                                              services, batched, stream, mtp, official, ckpt,
+                                              alt)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

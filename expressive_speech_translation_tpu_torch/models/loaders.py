@@ -6,13 +6,15 @@ The port of the JAX package's ``models/loaders.py``, with torch alone:
   the network): safetensors through the port's own reader
   (``safetensors_io``), pickled ``.pt`` / ``.bin`` through ``torch.load``;
 - ``load_whisper`` / ``load_nllb`` / ``load_ecapa`` / ``load_qwen2_backbone``,
-  ``load_cosyvoice_{llm,flow,hift}``, ``load_musetalk``, ``load_diff2lip`` and
-  ``load_openvoice`` compose it with each model's converter, the dims read from
-  ``config.json`` or the tensors;
+  ``load_cosyvoice_{llm,flow,hift}``, ``load_musetalk``, ``load_diff2lip``,
+  ``load_openvoice`` and ``load_seamless`` compose it with each model's
+  converter, the dims read from ``config.json`` or the tensors
+  (``load_seamless_aux`` reads Seamless's generation maps);
 - the bake: :func:`bake_models` (and the CLI, :func:`main`) converts
   checkpoints once into stage directories (``asr/``, ``nmt/``, ``ecapa/``,
   ``speech_tokenizer/``, ``tts_llm/``, ``tts_flow/``, ``tts_hift/``,
-  ``musetalk/``, ``musetalk_whisper/``, ``diff2lip/``, ``openvoice/``), each
+  ``musetalk/``, ``musetalk_whisper/``, ``diff2lip/``, ``openvoice/``,
+  ``seamless/``), each
   a ``config.json`` (the JAX package's schema, ``dataclasses.asdict`` of the
   config) and a ``params.safetensors`` holding the port's tree flattened to
   ``.``-joined key paths, list indices as numbers. The JAX package bakes
@@ -21,8 +23,8 @@ The port of the JAX package's ``models/loaders.py``, with torch alone:
 
       python -m expressive_speech_translation_tpu_torch.models.loaders \\
           --asr DIR --nmt DIR --tts DIR --ecapa DIR [--musetalk DIR]
-          [--musetalk-whisper DIR] [--diff2lip CKPT] [--openvoice DIR] --out DIR
-          [--device cpu]
+          [--musetalk-whisper DIR] [--diff2lip CKPT] [--openvoice DIR]
+          [--seamless DIR] --out DIR [--device cpu]
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import shutil
 import typing
 from pathlib import Path
 from typing import Any, Dict, Optional, Union
@@ -373,6 +376,85 @@ def load_openvoice(path: PathLike, cfg=None, device=None):
     return ov.from_openvoice_state_dict(load_state_dict(ckpt), cfg, device), cfg
 
 
+def load_seamless(path: PathLike, cfg=None, device=None):
+    """A local HF ``facebook/seamless-m4t-v2-large`` directory (sharded
+    safetensors through their index) or a ``SeamlessM4Tv2ForSpeechToSpeech``
+    checkpoint file → (params on ``device``, SeamlessConfig read from
+    ``config.json``'s HF keys unless ``cfg`` is given)."""
+    from . import seamless as sm
+
+    p = Path(path)
+    if cfg is None and p.is_dir() and (p / "config.json").exists():
+        hf = json.loads((p / "config.json").read_text())
+        cfg = sm.SeamlessConfig(
+            hidden=hf["hidden_size"],
+            vocab_size=hf["vocab_size"],
+            speech_layers=hf["speech_encoder_layers"],
+            speech_heads=hf["speech_encoder_attention_heads"],
+            speech_ffn=hf["speech_encoder_intermediate_size"],
+            depthwise_kernel=hf.get("conv_depthwise_kernel_size", 31),
+            left_max_pos=hf.get("left_max_position_embeddings", 64),
+            right_max_pos=hf.get("right_max_position_embeddings", 8),
+            chunk_size=hf.get("speech_encoder_chunk_size"),
+            left_chunk_num=hf.get("speech_encoder_left_chunk_num", 128),
+            adaptor_kernel=hf.get("adaptor_kernel_size", 8),
+            adaptor_stride=hf.get("adaptor_stride", 8),
+            adapter_layers=hf.get("num_adapter_layers", 1),
+            decoder_layers=hf["decoder_layers"],
+            decoder_heads=hf["decoder_attention_heads"],
+            decoder_ffn=hf["decoder_ffn_dim"],
+            max_positions=hf.get("max_position_embeddings", 4096),
+            pad_token=hf.get("pad_token_id", 0),
+            bos_token=hf.get("bos_token_id", 2),
+            eos_token=hf.get("eos_token_id", 3),
+            decoder_start_token=hf.get("decoder_start_token_id", 3),
+            t2u_vocab=hf["t2u_vocab_size"],
+            t2u_encoder_layers=hf["t2u_encoder_layers"],
+            t2u_decoder_layers=hf["t2u_decoder_layers"],
+            t2u_ffn=hf["t2u_decoder_ffn_dim"],
+            t2u_heads=hf["t2u_decoder_attention_heads"],
+            char_vocab=hf["char_vocab_size"],
+            t2u_pad=hf.get("t2u_pad_token_id", 1),
+            t2u_eos=hf.get("t2u_eos_token_id", 2),
+            var_embed_dim=hf.get("t2u_variance_predictor_embed_dim", 1024),
+            var_hidden_dim=hf.get("t2u_variance_predictor_hidden_dim", 256),
+            var_kernel=hf.get("t2u_variance_predictor_kernel_size", 3),
+            unit_vocab_vocoder=hf["unit_hifi_gan_vocab_size"],
+            unit_embed_dim=hf.get("unit_embed_dim", 1280),
+            lang_embed_dim=hf.get("lang_embed_dim", 256),
+            spkr_embed_dim=hf.get("spkr_embed_dim", 256),
+            num_langs=hf.get("vocoder_num_langs", 36),
+            num_spkrs=hf.get("vocoder_num_spkrs", 200),
+            vocoder_offset=hf.get("vocoder_offset", 4),
+            upsample_rates=tuple(hf.get("upsample_rates", (5, 4, 4, 2, 2))),
+            upsample_kernels=tuple(hf.get("upsample_kernel_sizes", (11, 8, 8, 4, 4))),
+            upsample_initial_channel=hf.get("upsample_initial_channel", 512),
+            resblock_kernels=tuple(hf.get("resblock_kernel_sizes", (3, 7, 11))),
+            resblock_dilations=tuple(tuple(d) for d in hf.get(
+                "resblock_dilation_sizes", ((1, 3, 5),) * 3)),
+            leaky_slope=hf.get("leaky_relu_slope", 0.1),
+            sample_rate_out=hf.get("sampling_rate", 16_000),
+        )
+    cfg = cfg or sm.SeamlessConfig.v2_large()
+    return sm.from_hf_state_dict(load_state_dict(p), cfg, device), cfg
+
+
+def load_seamless_aux(path: PathLike) -> Dict[str, Any]:
+    """The generation-config maps the S2ST glue needs (the target-language
+    token maps and the subword / char maps for the t2u alignment, the keys
+    ForSpeechToSpeech.generate reads) from ``generation_config.json`` beside
+    the checkpoint; {} when it is absent, and the backend falls back to byte
+    maps."""
+    p = Path(path)
+    f = (p if p.is_dir() else p.parent) / "generation_config.json"
+    if not f.exists():
+        return {}
+    raw = json.loads(f.read_text())
+    return {k: raw[k] for k in ("text_decoder_lang_to_code_id", "t2u_lang_code_to_id",
+                                "vocoder_lang_code_to_id", "id_to_text", "char_to_id")
+            if k in raw}
+
+
 # ------------------------------------------------------------------ the bake
 
 
@@ -489,9 +571,6 @@ def load_official_tts(models_root: PathLike, device=None, dtype=None):
             com.OfficialTtsConfig(lm=lm_cfg, flow=flow_cfg, hift=hift_cfg))
 
 
-_NOT_PORTED = ("seamless",)
-
-
 def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[str] = None,
                 tts: Optional[str] = None, ecapa: Optional[str] = None,
                 musetalk: Optional[str] = None, musetalk_whisper: Optional[str] = None,
@@ -503,15 +582,12 @@ def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[
     ``musetalk/`` (the MuseTalk release layout, :func:`load_musetalk`),
     ``musetalk_whisper/`` (HF whisper-tiny, MuseTalk's audio condition),
     ``diff2lip/`` (a TFGModel checkpoint, :func:`load_diff2lip`), ``openvoice/``
-    (OpenVoice v2's converter, :func:`load_openvoice`) and from a CosyVoice2
-    directory ``tts_llm/``, ``tts_flow/``, ``tts_hift/`` (whichever of
-    ``llm.pt`` / ``model.pt``, ``flow.pt``, ``hift.pt`` it holds). The trees
-    are converted on ``device``. The JAX package's other family (Seamless)
-    is not ported."""
-    asked = [name for name, path in zip(_NOT_PORTED, (seamless,)) if path]
-    if asked:
-        raise NotImplementedError(f"baking {', '.join(asked)} is not ported yet: ROADMAP.md "
-                                  "Queue 1 item 13 (the alternate backends, training)")
+    (OpenVoice v2's converter, :func:`load_openvoice`), ``seamless/`` (HF
+    SeamlessM4T-v2, :func:`load_seamless`; beside the stage's files its
+    ``generation_maps.json`` and, where the source has one, a copy of its
+    ``tokenizer.json``) and from a CosyVoice2 directory ``tts_llm/``,
+    ``tts_flow/``, ``tts_hift/`` (whichever of ``llm.pt`` / ``model.pt``,
+    ``flow.pt``, ``hift.pt`` it holds). The trees are converted on ``device``."""
     out = Path(out_root)
     if musetalk:
         save_converted(*load_musetalk(musetalk, device=device), out / "musetalk")
@@ -530,6 +606,18 @@ def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[
     if ecapa:
         save_converted(*load_ecapa(ecapa, device=device), out / "ecapa")
         log.info("baked ECAPA %s -> %s", ecapa, out / "ecapa")
+    if seamless:
+        save_converted(*load_seamless(seamless, device=device), out / "seamless")
+        aux = load_seamless_aux(seamless)
+        if aux:
+            (out / "seamless" / "generation_maps.json").write_text(
+                json.dumps(aux, ensure_ascii=False))
+        src = Path(seamless)
+        tok = (src if src.is_dir() else src.parent) / "tokenizer.json"
+        if tok.exists():   # SeamlessBackend.from_models_dir picks it up
+            shutil.copyfile(tok, out / "seamless" / "tokenizer.json")
+        log.info("baked Seamless %s -> %s (aux maps: %s)", seamless, out / "seamless",
+                 sorted(aux) or "none")
     if asr:
         save_converted(*load_whisper(asr, device=device), out / "asr")
         log.info("baked ASR %s -> %s", asr, out / "asr")
@@ -559,7 +647,8 @@ def bake_models(out_root: PathLike, *, asr: Optional[str] = None, nmt: Optional[
 def main(argv=None) -> int:
     """Bake checkpoints for the port:
     python -m expressive_speech_translation_tpu_torch.models.loaders
-    --asr DIR --nmt DIR --tts DIR --ecapa DIR [--diff2lip CKPT] [--openvoice DIR] --out DIR"""
+    --asr DIR --nmt DIR --tts DIR --ecapa DIR [--diff2lip CKPT] [--openvoice DIR]
+    [--seamless DIR] --out DIR"""
     import argparse
 
     ap = argparse.ArgumentParser(description=main.__doc__)
@@ -571,16 +660,16 @@ def main(argv=None) -> int:
     ap.add_argument("--musetalk-whisper", help="HF whisper-tiny dir (MuseTalk's audio condition)")
     ap.add_argument("--diff2lip", help="diff2lip TFG checkpoint (file, or dir with e2e.pt etc.)")
     ap.add_argument("--openvoice", help="OpenVoice v2 converter dir (config.json + checkpoint.pth)")
-    for name in _NOT_PORTED:
-        ap.add_argument(f"--{name.replace('_', '-')}", help="not ported (ROADMAP Queue 1 item 13)")
+    ap.add_argument("--seamless", help="HF SeamlessM4T-v2 dir (config.json, safetensors, "
+                                       "generation_config.json)")
     ap.add_argument("--out", required=True, help="output root for the stage directories")
     ap.add_argument("--device", help="where the trees are converted (default: the card; "
                                      "'cpu' on a machine without one)")
     args = ap.parse_args(argv)
     bake_models(args.out, asr=args.asr, nmt=args.nmt, tts=args.tts, ecapa=args.ecapa,
                 musetalk=args.musetalk, musetalk_whisper=args.musetalk_whisper,
-                diff2lip=args.diff2lip, openvoice=args.openvoice, device=args.device,
-                **{name: getattr(args, name) for name in _NOT_PORTED})
+                diff2lip=args.diff2lip, openvoice=args.openvoice, seamless=args.seamless,
+                device=args.device)
     return 0
 
 

@@ -23,10 +23,16 @@ published widths in the published formats and loads them back through
   :func:`write_openvoice`: OpenVoice v2's converter directory
   (``checkpoint.pth`` holding ``{"model": state}`` in SynthesizerTrn naming,
   ``weight_g`` / ``weight_v`` pairs where OpenVoice applies weight norm, and
-  ``config.json``).
+  ``config.json``);
+- :func:`seamless_hf_state_dict`, :func:`seamless_hf_config` and
+  :func:`write_seamless`: HF ``SeamlessM4Tv2ForSpeechToSpeech`` as sharded
+  safetensors with their index, ``config.json`` and a
+  ``generation_config.json`` holding the language maps.
 
 Tied weights are one tensor under each of their names, as ``state_dict()``
-gives them; every other value is a contiguous copy on the host.
+gives them (Seamless's shared embedding is written once, as
+``save_pretrained`` writes a sharded checkpoint's tied weights); every other
+value is a contiguous copy on the host.
 """
 
 from __future__ import annotations
@@ -490,4 +496,200 @@ def write_openvoice(root, params, cfg) -> Path:
     root.mkdir(parents=True, exist_ok=True)
     torch.save({"model": openvoice_state_dict(params, cfg)}, root / "checkpoint.pth")
     (root / "config.json").write_text(json.dumps(openvoice_config(cfg), indent=2))
+    return root
+
+
+def seamless_hf_state_dict(params, cfg) -> State:
+    """The port's Seamless tree → ``SeamlessM4Tv2ForSpeechToSpeech``'s
+    state dict: conv weights in torch's layouts as the tree holds them, the
+    shared embedding once (``save_pretrained`` stores tied weights once), no
+    sinusoid tables (buffers the checkpoint does not hold)."""
+    out: State = {}
+
+    def linear(name, p):
+        _linear(out, name, p)
+
+    def conv(name, p):
+        out[f"{name}.weight"] = _host(p["kernel"])
+        if "bias" in p:
+            out[f"{name}.bias"] = _host(p["bias"])
+
+    def ffn(name, p):
+        linear(f"{name}.intermediate_dense", p["fc1"])
+        linear(f"{name}.output_dense", p["fc2"])
+
+    def attn(name, p, names):
+        for ours, hf in zip(("q", "k", "v", "o"), names):
+            linear(f"{name}.{hf}", p[ours])
+
+    conformer = ("linear_q", "linear_k", "linear_v", "linear_out")
+    bart = ("q_proj", "k_proj", "v_proj", "out_proj")
+
+    def vp(name, p):
+        conv(f"{name}.conv1", p["conv1"])
+        _ln(out, f"{name}.ln1", p["ln1"])
+        conv(f"{name}.conv2", p["conv2"])
+        _ln(out, f"{name}.ln2", p["ln2"])
+        linear(f"{name}.proj", p["proj"])
+
+    def mlp_block(base, p):
+        linear(f"{base}.ffn.fc1", p["mlp"]["fc1"])
+        linear(f"{base}.ffn.fc2", p["mlp"]["fc2"])
+        _ln(out, f"{base}.ffn_layer_norm", p["mlp_ln"])
+        attn(f"{base}.self_attn", p["self_attn"], bart)
+        _ln(out, f"{base}.self_attn_layer_norm", p["self_attn_ln"])
+
+    se = "speech_encoder"
+    enc = params[se]
+    _ln(out, f"{se}.feature_projection.layer_norm", enc["fp"]["ln"])
+    linear(f"{se}.feature_projection.projection", enc["fp"]["proj"])
+    for i, p in enumerate(enc["layers"]):
+        base = f"{se}.encoder.layers.{i}"
+        for ln_name, ours in (("ffn1_layer_norm", "ffn1_ln"), ("self_attn_layer_norm", "attn_ln"),
+                              ("conv_module.layer_norm", "conv_ln"),
+                              ("conv_module.depthwise_layer_norm", "dw_ln"),
+                              ("ffn2_layer_norm", "ffn2_ln"), ("final_layer_norm", "final_ln")):
+            _ln(out, f"{base}.{ln_name}", p[ours])
+        ffn(f"{base}.ffn1", p["ffn1"])
+        ffn(f"{base}.ffn2", p["ffn2"])
+        attn(f"{base}.self_attn", p["attn"], conformer)
+        out[f"{base}.self_attn.distance_embedding.weight"] = _host(p["dist_embed"])
+        for hf, ours in (("pointwise_conv1", "pw1"), ("depthwise_conv", "dw"),
+                         ("pointwise_conv2", "pw2")):
+            conv(f"{base}.conv_module.{hf}", p[ours])
+    _ln(out, f"{se}.encoder.layer_norm", enc["ln"])
+    ffn(f"{se}.intermediate_ffn", enc["intermediate_ffn"])
+    for i, p in enumerate(enc["adapter"]):
+        base = f"{se}.adapter.layers.{i}"
+        for ln_name, ours in (("residual_layer_norm", "residual_ln"),
+                              ("self_attn_layer_norm", "attn_ln"), ("ffn_layer_norm", "ffn_ln")):
+            _ln(out, f"{base}.{ln_name}", p[ours])
+        conv(f"{base}.residual_conv", p["residual_conv"])
+        conv(f"{base}.self_attn_conv", p["attn_conv"])
+        attn(f"{base}.self_attn", p["attn"], conformer)
+        ffn(f"{base}.ffn", p["ffn"])
+    _ln(out, f"{se}.inner_layer_norm", enc["inner_ln"])
+
+    out["shared.weight"] = _host(params["shared"])
+    dec = params["text_decoder"]
+    for i, p in enumerate(dec["layers"]):
+        base = f"text_decoder.layers.{i}"
+        mlp_block(base, p)
+        attn(f"{base}.cross_attention", p["cross_attn"], bart)
+        _ln(out, f"{base}.cross_attention_layer_norm", p["cross_attn_ln"])
+    _ln(out, "text_decoder.layer_norm", dec["ln"])
+
+    t2u = "t2u_model.model"
+    for i, p in enumerate(params["t2u"]["encoder"]["layers"]):
+        mlp_block(f"{t2u}.encoder.layers.{i}", p)
+    _ln(out, f"{t2u}.encoder.layer_norm", params["t2u"]["encoder"]["ln"])
+    d = params["t2u"]["decoder"]
+    out[f"{t2u}.decoder.embed_tokens.weight"] = _host(d["embed"])
+    out[f"{t2u}.decoder.embed_char.weight"] = _host(d["embed_char"])
+    out[f"{t2u}.decoder.pos_emb_alpha"] = _host(d["pos_alpha"])
+    out[f"{t2u}.decoder.pos_emb_alpha_char"] = _host(d["pos_alpha_char"])
+    vp(f"{t2u}.decoder.duration_predictor", d["dur"])
+    for i, p in enumerate(d["layers"]):
+        base = f"{t2u}.decoder.layers.{i}"
+        attn(f"{base}.self_attn", p["attn"], bart)
+        _ln(out, f"{base}.self_attn_layer_norm", p["attn_ln"])
+        conv(f"{base}.conv1", p["conv1"])
+        conv(f"{base}.conv2", p["conv2"])
+        _ln(out, f"{base}.conv_layer_norm", p["conv_ln"])
+    _ln(out, f"{t2u}.decoder.layer_norm", d["ln"])
+
+    voc = params["vocoder"]
+    vp("vocoder.dur_predictor", voc["dur"])
+    out["vocoder.unit_embedding.weight"] = _host(voc["unit_embed"])
+    out["vocoder.speaker_embedding.weight"] = _host(voc["spkr_embed"])
+    out["vocoder.language_embedding.weight"] = _host(voc["lang_embed"])
+    hifi = voc["hifi"]
+    conv("vocoder.hifi_gan.conv_pre", hifi["conv_pre"])
+    conv("vocoder.hifi_gan.conv_post", hifi["conv_post"])
+    n_k = len(cfg.resblock_kernels)
+    for i, (up, stage) in enumerate(zip(hifi["ups"], hifi["res"])):
+        conv(f"vocoder.hifi_gan.upsampler.{i}", up)
+        for j, block in enumerate(stage):
+            for k, unit in enumerate(block):
+                conv(f"vocoder.hifi_gan.resblocks.{i * n_k + j}.convs1.{k}", unit["c1"])
+                conv(f"vocoder.hifi_gan.resblocks.{i * n_k + j}.convs2.{k}", unit["c2"])
+    return out
+
+
+def seamless_hf_config(cfg) -> dict:
+    """``config.json`` of an HF SeamlessM4T-v2 checkpoint of ``cfg``'s dims
+    (the keys ``load_seamless`` reads, the t2u encoder's beside the decoder's)."""
+    return {"model_type": "seamless_m4t_v2", "architectures": ["SeamlessM4Tv2Model"],
+            "hidden_size": cfg.hidden, "vocab_size": cfg.vocab_size,
+            "feature_projection_input_dim": cfg.feat_dim,
+            "speech_encoder_layers": cfg.speech_layers,
+            "speech_encoder_attention_heads": cfg.speech_heads,
+            "speech_encoder_intermediate_size": cfg.speech_ffn,
+            "conv_depthwise_kernel_size": cfg.depthwise_kernel,
+            "left_max_position_embeddings": cfg.left_max_pos,
+            "right_max_position_embeddings": cfg.right_max_pos,
+            "speech_encoder_chunk_size": cfg.chunk_size,
+            "speech_encoder_left_chunk_num": cfg.left_chunk_num,
+            "adaptor_kernel_size": cfg.adaptor_kernel, "adaptor_stride": cfg.adaptor_stride,
+            "num_adapter_layers": cfg.adapter_layers,
+            "decoder_layers": cfg.decoder_layers, "decoder_attention_heads": cfg.decoder_heads,
+            "decoder_ffn_dim": cfg.decoder_ffn, "max_position_embeddings": cfg.max_positions,
+            "pad_token_id": cfg.pad_token, "bos_token_id": cfg.bos_token,
+            "eos_token_id": cfg.eos_token, "decoder_start_token_id": cfg.decoder_start_token,
+            "t2u_vocab_size": cfg.t2u_vocab, "t2u_encoder_layers": cfg.t2u_encoder_layers,
+            "t2u_decoder_layers": cfg.t2u_decoder_layers,
+            "t2u_encoder_ffn_dim": cfg.t2u_ffn, "t2u_decoder_ffn_dim": cfg.t2u_ffn,
+            "t2u_encoder_attention_heads": cfg.t2u_heads,
+            "t2u_decoder_attention_heads": cfg.t2u_heads,
+            "char_vocab_size": cfg.char_vocab, "t2u_pad_token_id": cfg.t2u_pad,
+            "t2u_eos_token_id": cfg.t2u_eos,
+            "t2u_variance_predictor_embed_dim": cfg.var_embed_dim,
+            "t2u_variance_predictor_hidden_dim": cfg.var_hidden_dim,
+            "t2u_variance_predictor_kernel_size": cfg.var_kernel,
+            "unit_hifi_gan_vocab_size": cfg.unit_vocab_vocoder,
+            "unit_embed_dim": cfg.unit_embed_dim, "lang_embed_dim": cfg.lang_embed_dim,
+            "spkr_embed_dim": cfg.spkr_embed_dim, "vocoder_num_langs": cfg.num_langs,
+            "vocoder_num_spkrs": cfg.num_spkrs, "vocoder_offset": cfg.vocoder_offset,
+            "upsample_rates": list(cfg.upsample_rates),
+            "upsample_kernel_sizes": list(cfg.upsample_kernels),
+            "upsample_initial_channel": cfg.upsample_initial_channel,
+            "resblock_kernel_sizes": list(cfg.resblock_kernels),
+            "resblock_dilation_sizes": [list(d) for d in cfg.resblock_dilations],
+            "leaky_relu_slope": cfg.leaky_slope, "sampling_rate": cfg.sample_rate_out,
+            "torch_dtype": "float32"}
+
+
+def write_seamless(root, params, cfg, *, text_lang_ids, vocoder_lang_ids,
+                   shard_bytes: int = 5 * 2**30) -> Path:
+    """An HF SeamlessM4T-v2 directory under ``root``: the state dict as
+    safetensors shards of at most ``shard_bytes`` (``model-0000i-of-0000n.
+    safetensors``, names in sorted order) with ``model.safetensors.index.
+    json``, ``config.json``, and ``generation_config.json`` holding the two
+    language maps (``text_decoder_lang_to_code_id``, ``vocoder_lang_code_to_id``)
+    and no subword maps, so the byte maps serve. → ``root``."""
+    from ..models.safetensors_io import write_safetensors
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    state = seamless_hf_state_dict(params, cfg)
+    shards, size = [[]], 0
+    for name in sorted(state):
+        nbytes = state[name].numel() * state[name].element_size()
+        if shards[-1] and size + nbytes > shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].append(name)
+        size += nbytes
+    weight_map = {}
+    for i, names in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        write_safetensors({n: state[n] for n in names}, root / fname, metadata={"format": "pt"})
+        weight_map.update({n: fname for n in names})
+    total = sum(t.numel() * t.element_size() for t in state.values())
+    (root / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}, indent=2))
+    (root / "config.json").write_text(json.dumps(seamless_hf_config(cfg), indent=2))
+    (root / "generation_config.json").write_text(json.dumps(
+        {"text_decoder_lang_to_code_id": dict(text_lang_ids),
+         "vocoder_lang_code_to_id": dict(vocoder_lang_ids)}, indent=2))
     return root

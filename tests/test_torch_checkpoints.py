@@ -393,8 +393,12 @@ def test_the_bake_cli_and_the_families_it_does_not_port(ckpts, tmp_path):
     assert tld.main(["--asr", str(root / "whisper"), "--out", str(tmp_path),
                      "--device", CPU]) == 0
     assert (tmp_path / "asr" / "params.safetensors").exists()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        tld.main(["--seamless", str(root), "--out", str(tmp_path / "x")])
+    from expressive_speech_translation_tpu_torch.models import seamless as tsm   # ported: bakes
+    scfg = tsm.SeamlessConfig.toy()
+    src = em.write_seamless(tmp_path / "seamless-src", tsm.init_seamless(0, scfg, CPU), scfg,
+                            text_lang_ids={"fra": 300}, vocoder_lang_ids={"fra": 1})
+    assert tld.main(["--seamless", str(src), "--out", str(tmp_path / "s"), "--device", CPU]) == 0
+    assert (tmp_path / "s" / "seamless" / "params.safetensors").exists()
     with pytest.raises(tld.WeightsNotFoundError, match="OpenVoice"):      # ported: no checkpoint
         tld.main(["--openvoice", str(root), "--out", str(tmp_path / "x"), "--device", CPU])
     assert not (tmp_path / "x").exists()

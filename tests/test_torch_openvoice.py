@@ -288,8 +288,13 @@ def test_emitter_config_bake_and_loaders_round_trip(tmp_path):
     assert tld.main(["--openvoice", str(src), "--out", str(tmp_path / "cli"),
                      "--device", CPU]) == 0
     assert (tmp_path / "cli" / "openvoice" / "params.safetensors").exists()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tld.bake_models(tmp_path / "x", seamless=str(src))
+    from expressive_speech_translation_tpu_torch.models import seamless as tsm   # ported: bakes
+    scfg = tsm.SeamlessConfig.toy()
+    seamless_src = em.write_seamless(tmp_path / "seamless-src", tsm.init_seamless(0, scfg, CPU),
+                                     scfg, text_lang_ids={"fra": 300},
+                                     vocoder_lang_ids={"fra": 1})
+    tld.bake_models(tmp_path / "x", seamless=str(seamless_src), device=CPU)
+    assert (tmp_path / "x" / "seamless" / "params.safetensors").exists()
 
 
 def test_init_openvoice_follows_the_jax_tree():

@@ -407,6 +407,7 @@ def test_port_runs_without_jax_or_the_jax_package():
     imported them nor the optional ``safetensors`` / ``transformers`` /
     ``tokenizers``, nor ``urllib3`` / ``certifi`` past what torch imports
     (this test process has them all: tests/conftest.py imports jax); the
+    alternate backends (Seamless, VITS, ESPnet) translate a toy request; the
     new modules import no ``scipy``
     or ``yaml`` at module level. Every serving module but ``serve/app.py``
     imports with werkzeug blocked too; then ``serve/app.py`` imports and
@@ -536,6 +537,17 @@ def test_port_runs_without_jax_or_the_jax_package():
             media_fetcher._resolve_public_host("http://10.0.0.1/a.wav")
         except errors.MediaError as e:
             assert "non-public" in str(e)
+        # the alternate backends: Seamless, VITS and the ESPnet backend
+        from expressive_speech_translation_tpu_torch.models import seamless, vits_tts
+        from expressive_speech_translation_tpu_torch.pipeline import alternate_backends as ab
+        sb = ab.SeamlessBackend(device="cpu", num_beams=2, max_text_tokens=4, max_chars=8,
+                                max_units=8)
+        sb.initialize()
+        assert sb.translate_speech(x[:8_000], "eng", "fra")["audio"].shape[1] <= 8 * 2 * 16
+        eb = ab.ESPnetBackend(asr_factory=lambda lang: eng.asr, device="cpu",
+            tts_factory=lambda lang: vits_tts.VitsTTSModel(lang, device="cpu", max_frames=16))
+        assert eb.translate_speech(x[:8_000], "eng", "fra")["audio"].ndim == 2
+        assert ab.ModelManager(loader=dict).get_model_components() == {}
         assert "werkzeug" not in sys.modules
         BLOCKED.discard("werkzeug")
         from expressive_speech_translation_tpu_torch.serve import app
