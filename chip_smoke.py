@@ -219,7 +219,27 @@ Phases, in order; any failure exits non-zero and prints no result:
               localhost: ``/available-backends`` (Seamless "loaded", ESPnet
               "random") and ``/translate`` with ``backend=seamless``; the
               phase's peak memory and seconds;
-16. the kernels line, the card line, and last the result line.
+16. tools   — the tools a user runs besides the server, on the e2e phase's
+              backend where they take one: ``cli.main(["translate", in.wav,
+              out.wav, "--target-lang", "fra"])`` (the CLI's default engines,
+              toy ``torch_engines()`` on the card: its JSON, stage xRT and the
+              launches it made, log-mel at least once); ``run_verify_quality``
+              of configs 1, 2, 3 and 5 over the e2e engines with speech-like
+              WAV fixtures, the ECAPA ``SpeakerScorer`` from an ``ecapa/``
+              stage the phase bakes (a seeded full-width tree) and the
+              published-width OpenVoice tone converter on a seeded tree
+              (every config ``"ran": true``, each config's seconds and
+              launches, the report's mode and verdict); the NLLB
+              ``SemanticScorer`` over the e2e NLLB-600M tree (``sonar_score``
+              and ``bert_score_f1`` of two sentences in bf16, and in f32 on
+              the card against ``device="cpu"``, SEMANTIC_ATOL); ``cli.main
+              (["embed", ...])`` from the baked stage; ``create_manifest`` →
+              ``batch.runner.main([..., "--manifest", csv, "--row", "1"])``;
+              then ``cli.main(["doctor"])``, every check ok but
+              ``native_media_shim`` where the machine has no libav (its log-mel
+              check against the plain version is not counted); the phase's
+              peak memory and seconds;
+17. the kernels line, the card line, and last the result line.
 
 The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
 greedy call.
@@ -4425,12 +4445,263 @@ def alternate_phase(dev, report, card, backend):
     return alt
 
 
+TOOLS_SECONDS = 10.0            # the translate / harvard fixture; short_audio is half of it
+TOOLS_CONFIGS = (1, 2, 3, 5)    # config 4 needs the libav shim, which the card's machine lacks
+SEMANTIC_ATOL = 1e-4            # f32 scores on the card against device="cpu"
+SEMANTIC_TEXTS = ("The weather is fine today, and the station is not far from here.",
+                  "Today the weather is good and the station is close by.")
+
+
+def _cli(argv, dev, main=None) -> tuple:
+    """(exit code, stdout) of ``main(argv)`` (the CLI's by default);
+    ``--device cpu`` is added only for a CPU rehearsal, so on the card the
+    entry point runs as a user runs it."""
+    from expressive_speech_translation_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = (main or cli.main)([*argv, *([] if dev.type == "cuda" else ["--device", "cpu"])])
+    return rc, buf.getvalue()
+
+
+def tools_translate(tmp, dev, card) -> dict:
+    """``est-torch translate`` with its default engines (toy ``torch_engines()``
+    on the card): the JSON it prints, its stage xRT and its launches."""
+    from expressive_speech_translation_tpu_torch.media.wavio import read_wav, write_wav
+
+    src, dst = os.path.join(tmp, "translate_in.wav"), os.path.join(tmp, "translate_out.wav")
+    write_wav(src, _speechlike(TOOLS_SECONDS, seed=61), 16_000)
+    before = _read_launches()
+    t0 = time.perf_counter()
+    rc, out = _cli(["translate", src, dst, "--target-lang", "fra"], dev)
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in _read_launches().items()}
+    body = json.loads(out)
+    audio, sr = read_wav(dst)
+    if rc != 0 or sr != 16_000 or audio.size < 16_000 * TOOLS_SECONDS or \
+            not np.isfinite(audio).all() or set(body) != {"output", "transcripts", "stage_xrt"}:
+        raise AssertionError(f"est-torch translate: rc {rc}, {body}, audio {audio.shape} @ {sr}")
+    if launches["log_mel_frames"] < 1:
+        raise AssertionError(f"est-torch translate launched no log-mel kernel: {launches}")
+    print(f"  est-torch translate ({TOOLS_SECONDS:.0f} s, default engines: toy torch_engines on "
+          f"the card): rc {rc}, wall {wall:.2f} s (engines built and warmed inside), stage xRT "
+          f"{body['stage_xrt']}, launches {launches}  [{card}]", flush=True)
+    return {"wall_s": wall, "stage_xrt": body["stage_xrt"], "launches": launches,
+            "transcripts": body["transcripts"]}
+
+
+def _timed_runners(vq, seconds: dict, launches: dict):
+    """verify_quality's config runners wrapped to record each one's seconds
+    (card synced) and launches; → the originals, to put back."""
+    original = dict(vq._RUNNERS)
+
+    def wrap(n, fn):
+        def run(ctx):
+            before = _read_launches()
+            t0 = time.perf_counter()
+            try:
+                return fn(ctx)
+            finally:
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                seconds[n] = time.perf_counter() - t0
+                launches[n] = {k: v - before[k] for k, v in _read_launches().items()}
+        return run
+
+    for n, fn in original.items():
+        vq._RUNNERS[n] = wrap(n, fn)
+    return original
+
+
+def tools_verify_quality(backend, bake, tmp, dev, card) -> dict:
+    """``run_verify_quality`` of configs 1, 2, 3 and 5 over the e2e engines:
+    every config must run; structure-only, as the weights are random."""
+    from expressive_speech_translation_tpu_torch.evals import verify_quality as vq
+    from expressive_speech_translation_tpu_torch.media.wavio import write_wav
+
+    fixtures = {"harvard": os.path.join(tmp, "harvard.wav"),
+                "short_audio": os.path.join(tmp, "short.wav")}
+    write_wav(fixtures["harvard"], _speechlike(TOOLS_SECONDS, seed=62), 16_000)
+    write_wav(fixtures["short_audio"], _speechlike(TOOLS_SECONDS / 2, seed=63), 16_000)
+    scorer = vq.SpeakerScorer.from_models_dir(bake, device=dev)
+    if not scorer.available:
+        raise AssertionError(f"no ECAPA scorer from the bake at {bake}")
+    seconds, launches = {}, {}
+    original = _timed_runners(vq, seconds, launches)
+    before = _read_launches()
+    t0 = time.perf_counter()
+    try:
+        report = vq.run_verify_quality(out_dir=os.path.join(tmp, "vq"), configs=TOOLS_CONFIGS,
+                                       engines=backend.engines, scorer=scorer,
+                                       fixtures=fixtures, device=dev)
+    finally:
+        vq._RUNNERS.update(original)
+    wall = time.perf_counter() - t0
+    total = {k: v - before[k] for k, v in _read_launches().items()}
+    for key, c in report["configs"].items():
+        n = int(key.split("_")[0])
+        print(f"    config {key}: ran {c['ran']}, {seconds[n]:.2f} s, launches {launches[n]}"
+              + (f", error {c['error']}" if not c["ran"] else
+                 f", gates {c['gates']}, spk_sim_delta mode "
+                 f"{c['metrics'].get('spk_sim_mode', '-')}"), flush=True)
+    if not all(c["ran"] for c in report["configs"].values()) or \
+            report["overall"] != "structure-only":
+        raise AssertionError(f"verify-quality: {json.dumps(report)[:2000]}")
+    print(f"  verify-quality configs {TOOLS_CONFIGS}: mode {report['mode']}, overall "
+          f"{report['overall']}, weights {report['weights']}, scorer {report['speaker_scorer']}, "
+          f"{wall:.2f} s (initialize() inside), launches {total}  [{card}]", flush=True)
+    return {"mode": report["mode"], "overall": report["overall"], "wall_s": wall,
+            "config_s": seconds, "config_launches": launches, "launches": total,
+            "report_elapsed_s": report["elapsed_s"]}
+
+
+def tools_semantic(backend, dev, card) -> dict:
+    """``SemanticScorer`` over the e2e NLLB-600M encoder: the bf16 tree as
+    served, then an f32 copy on the card against the same on the CPU."""
+    from expressive_speech_translation_tpu_torch.evals.semantic import SemanticScorer
+    from expressive_speech_translation_tpu_torch.models.common import cast_floats
+
+    nmt = backend.engines.nmt
+    enc = {k: nmt.params[k] for k in ("embed", "pos", "encoder")}
+    a, b = SEMANTIC_TEXTS
+    out = {}
+    for label, params, device in (("bf16", enc, dev),
+                                  ("f32", cast_floats(enc, torch.float32), dev),
+                                  ("f32_cpu", None, torch.device("cpu"))):
+        if params is None:
+            params = _tree_to(cast_floats(enc, torch.float32), "cpu")
+        scorer = SemanticScorer(params=params, cfg=nmt.cfg, tokenizer=nmt.tokenizer,
+                                device=device)
+        t0 = time.perf_counter()
+        sonar, bert = scorer.sonar_score(a, b), scorer.bert_score_f1(a, b)
+        out[label] = {"sonar": sonar, "bert_f1": bert, "seconds": time.perf_counter() - t0}
+        del params, scorer
+    diff = max(abs(out["f32"][k] - out["f32_cpu"][k]) for k in ("sonar", "bert_f1"))
+    out["f32_card_vs_cpu"] = diff
+    for label in ("bf16", "f32", "f32_cpu"):
+        r = out[label]
+        if not (np.isfinite(r["sonar"]) and -1 <= r["sonar"] <= 1 and 0 < r["bert_f1"] <= 1):
+            raise AssertionError(f"semantic scorer {label}: {r}")
+    if not diff <= SEMANTIC_ATOL:
+        raise AssertionError(f"semantic scorer f32 on the card off the CPU by {diff:.3g}")
+    print("  semantic scorer (NLLB-600M encoder): "
+          + "; ".join(f"{k} sonar {v['sonar']:.6f} bert_f1 {v['bert_f1']:.6f} in "
+                      f"{v['seconds'] * 1e3:.1f} ms" for k, v in out.items() if k != "f32_card_vs_cpu")
+          + f"; f32 card vs cpu max |Δ| {diff:.3g}  [{card}]", flush=True)
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def tools_embed(bake, tmp, dev, card) -> dict:
+    """``est-torch embed`` of a 10 s WAV with the baked ECAPA stage."""
+    from expressive_speech_translation_tpu_torch.media.wavio import write_wav
+
+    src, dst = os.path.join(tmp, "embed_in.wav"), os.path.join(tmp, "embed.npy")
+    write_wav(src, _speechlike(TOOLS_SECONDS, seed=64), 16_000)
+    t0 = time.perf_counter()
+    rc, out = _cli(["embed", src, dst, "--weights", bake], dev)
+    wall = time.perf_counter() - t0
+    body, emb = json.loads(out), np.load(dst)
+    if rc != 0 or body != {"output": dst, "dim": 192, "weightless": False} or \
+            emb.shape != (192,) or not np.isfinite(emb).all():
+        raise AssertionError(f"est-torch embed: rc {rc}, {body}, {emb.shape}")
+    print(f"  est-torch embed (baked ECAPA, 10 s): {body}, |e| {np.linalg.norm(emb):.4f}, "
+          f"{wall:.2f} s  [{card}]", flush=True)
+    return {"wall_s": wall, "dim": body["dim"]}
+
+
+def tools_batch(tmp, dev, card) -> dict:
+    """``create_manifest`` of one speech-like WAV, then the SLURM runner's
+    entry point on its row 1 (its default backend: the fakes, the front end
+    on the card)."""
+    from expressive_speech_translation_tpu_torch.batch import manifest, runner
+    from expressive_speech_translation_tpu_torch.media.wavio import write_wav
+
+    data, out_dir = os.path.join(tmp, "dataset"), os.path.join(tmp, "batch_out")
+    os.makedirs(data)
+    write_wav(os.path.join(data, "row.wav"), _speechlike(TOOLS_SECONDS / 2, seed=65), 16_000)
+    rows = manifest.create_manifest({"speech": data}, os.path.join(tmp, "m.csv"), per_dataset=1)
+    t0 = time.perf_counter()
+    rc, out = _cli([out_dir, "--manifest", os.path.join(tmp, "m.csv"), "--row", "1"], dev,
+                   runner.main)
+    wall = time.perf_counter() - t0
+    job = rows[0]["job_id"]
+    result = json.loads(out)
+    if rc != 0 or result != {"job_id": job, "status": "ok"} or \
+            not os.path.exists(os.path.join(out_dir, f"{job}.wav")):
+        raise AssertionError(f"batch runner: rc {rc}, {result}, {os.listdir(out_dir)}")
+    print(f"  manifest -> runner row 1: {result}, {wall:.2f} s  [{card}]", flush=True)
+    return {"wall_s": wall, "status": result["status"]}
+
+
+def tools_doctor(dev, card) -> dict:
+    """``est-torch doctor``: every check ok but the media shim where the
+    machine has no libav; its log-mel check is one launch against the plain
+    version, read apart from the tools' path."""
+    before = _read_launches()
+    rc, out = _cli(["doctor"], dev)
+    launches = {k: v - before[k] for k, v in _read_launches().items()}
+    body = json.loads(out)
+    bad = sorted(n for n, c in body["checks"].items() if not c["ok"])
+    for n, c in body["checks"].items():
+        print(f"    doctor {n}: {'ok' if c['ok'] else 'NOT OK'}: {c['detail']}", flush=True)
+    if bad not in ([], ["native_media_shim"]) or rc != (0 if not bad else 1):
+        raise AssertionError(f"est-torch doctor: rc {rc}, failing {bad}")
+    print(f"  est-torch doctor: rc {rc}, not ok: {bad or 'none'}, launches {launches}  [{card}]",
+          flush=True)
+    return {"rc": rc, "not_ok": bad, "launches": launches}
+
+
+def tools_phase(dev, report, card, backend):
+    """The tools besides the server, on the card: ``est-torch translate``,
+    verify-quality configs 1, 2, 3 and 5 over the e2e engines, the semantic
+    scorer, ``embed``, the manifest and batch runner, then ``doctor``. The
+    launches of translate, verify-quality and the runner are the phase's."""
+    from expressive_speech_translation_tpu_torch.models import ecapa
+    from expressive_speech_translation_tpu_torch.models.loaders import save_converted
+
+    print("== tools: est-torch translate / embed / doctor, verify-quality configs "
+          f"{TOOLS_CONFIGS} at reference width, the NLLB semantic scorer, manifest -> batch "
+          "runner", flush=True)
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="est_tools_")
+    out = {}
+    try:
+        bake = os.path.join(tmp, "bake")
+        ecfg = ecapa.EcapaConfig()
+        save_converted(ecapa.init_ecapa(8, ecfg, dev), ecfg, os.path.join(bake, "ecapa"))
+        _reset_launches()
+        out["translate"] = tools_translate(tmp, dev, card)
+        out["verify_quality"] = tools_verify_quality(backend, bake, tmp, dev, card)
+        out["batch"] = tools_batch(tmp, dev, card)
+        out["launches"] = _read_launches()
+        out["semantic"] = tools_semantic(backend, dev, card)
+        out["embed"] = tools_embed(bake, tmp, dev, card)
+        out["doctor"] = tools_doctor(dev, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_gib_above_resident"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  launches (translate, verify-quality, runner) {out['launches']}; peak "
+          f"{out['peak_gib_above_resident']:.2f} GiB above what was resident; tools phase "
+          f"{out['seconds']:.1f} s  [{card}]", flush=True)
+    report["tools"] = out
+    return out
+
+
 def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
 def _launches(name, e2e, front, serve, lipsync, diff2lip, services, batched, stream, mtp,
-              official, ckpt, alt) -> dict:
+              official, ckpt, alt, tools) -> dict:
     """A kernel's launch count on each path driven: the three single
     requests, the detection of the 10 s request, the frontend's upload and
     video request, the serve phase's routes, the lip-sync render and its
@@ -4438,18 +4709,20 @@ def _launches(name, e2e, front, serve, lipsync, diff2lip, services, batched, str
     MuseTalk and OpenVoice services), the batched requests, the two streamed
     requests, the mtp phase's TTS runs, the official chain's 10 s request,
     the 10 s request served from the bake, the alternate phase's ESPnet
-    request (Seamless launches none)."""
+    request (Seamless launches none), the tools phase's translate,
+    verify-quality and batch runner."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
             "frontend": front["launches"][name], "serve": serve["launches"][name],
             "lipsync": lipsync["launches"][name], "diff2lip": diff2lip["launches"][name],
             "services": services["launches"][name],
             "batched": batched["launches"][name], "streaming": stream["launches"][name],
             "mtp": mtp["launches"][name], "official": official["launches"][name],
-            "checkpoints": ckpt["launches"][name], "alternate": alt["launches"][name]}
+            "checkpoints": ckpt["launches"][name], "alternate": alt["launches"][name],
+            "tools": tools["launches"][name]}
 
 
 def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff2lip, services,
-                  batched, stream, mtp, official, ckpt, alt):
+                  batched, stream, mtp, official, ckpt, alt, tools):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
@@ -4457,7 +4730,7 @@ def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
             "launches_by_path": _launches(name, e2e, front, serve, lipsync, diff2lip, services,
-                                          batched, stream, mtp, official, ckpt, alt),
+                                          batched, stream, mtp, official, ckpt, alt, tools),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -4466,7 +4739,7 @@ def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff
 
 
 def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, serve, lipsync,
-                 diff2lip, services, batched, stream, mtp, official, ckpt, alt):
+                 diff2lip, services, batched, stream, mtp, official, ckpt, alt, tools):
     """One entry per kernel. ``launches`` counts the three single requests;
     ``launches_by_path`` adds the detection, the batched requests and the
     streamed ones.
@@ -4487,7 +4760,8 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "replaces": f"{REFERENCE}/ops/pallas_mel.py:79",
          "launches": e2e["launches"]["log_mel_frames"],
          "launches_by_path": _launches("log_mel_frames", e2e, front, serve, lipsync, diff2lip,
-                                       services, batched, stream, mtp, official, ckpt, alt),
+                                       services, batched, stream, mtp, official, ckpt, alt,
+                                       tools),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -4498,7 +4772,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "launches": e2e["launches"]["fused_resblock_stage"],
          "launches_by_path": _launches("fused_resblock_stage", e2e, front, serve, lipsync,
                                        diff2lip, services, batched, stream, mtp, official, ckpt,
-                                       alt),
+                                       alt, tools),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -4513,13 +4787,13 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
                       front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
-                      ckpt, alt),
+                      ckpt, alt, tools),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
                       front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
-                      ckpt, alt),
+                      ckpt, alt, tools),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
                       front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
-                      ckpt, alt),
+                      ckpt, alt, tools),
     ]
 
 
@@ -4571,6 +4845,7 @@ def main() -> int:
     official = official_phase(dev, report, card, e2e)
     ckpt = checkpoints_phase(dev, report, card, e2e)
     alt = alternate_phase(dev, report, card, backend)
+    tools = tools_phase(dev, report, card, backend)
     report["seconds"] = time.perf_counter() - t_start
     print(f"== done in {report['seconds']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -4578,7 +4853,7 @@ def main() -> int:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, front, serve, lipsync, diff2lip,
                                               services, batched, stream, mtp, official, ckpt,
-                                              alt)}))
+                                              alt, tools)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

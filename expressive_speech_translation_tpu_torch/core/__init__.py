@@ -1,1 +1,2 @@
-"""Device selection, error types and static-shape bucketing."""
+"""Device selection, error types, static-shape bucketing and the component
+registry."""

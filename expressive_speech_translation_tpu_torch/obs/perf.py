@@ -1,16 +1,22 @@
 """Per-stage wall time and real-time factor (copy of the JAX package's
-obs/perf.py ``StageTimer``, without its psutil dependency), and the card's
-clock for kernels: CUDA-event times, CUDA-graph replays, the card line."""
+obs/perf.py ``StageTimer``, without its psutil dependency), the
+``performance_logger`` decorator and ``profiler_trace`` (a torch.profiler
+trace where the JAX package takes a jax.profiler one), and the card's clock
+for kernels: CUDA-event times, CUDA-graph replays, the card line."""
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import logging
 import subprocess
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Iterator, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
+
+log = logging.getLogger(__name__)
 
 
 def rtf(processing_seconds: float, audio_seconds: float) -> float:
@@ -49,6 +55,41 @@ class StageTimer:
         total = self.total_seconds()
         out["total"] = {"seconds": total, "xrt": rtf(total, self.audio_seconds)}
         return out
+
+
+def performance_logger(func):
+    """Wall-time + RSS-delta logging decorator (parity: services/utils.py:54-81)."""
+    from ..serve.resource_monitor import process_rss_bytes
+
+    @functools.wraps(func)
+    def wrapper(*args, **kwargs):
+        rss_before = process_rss_bytes()
+        start = time.perf_counter()
+        try:
+            return func(*args, **kwargs)
+        finally:
+            elapsed = time.perf_counter() - start
+            log.info("%s took %.3fs (RSS delta %+.1f MB)",
+                     func.__qualname__, elapsed, (process_rss_bytes() - rss_before) / 1e6)
+
+    return wrapper
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]) -> Iterator[None]:
+    """Capture a torch.profiler trace of the enclosed block when ``log_dir``
+    is set: host activity, and the card's kernels where there is a card,
+    written as a Chrome trace (``*.pt.trace.json``) under ``log_dir``."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        yield
 
 
 def sync_time(fn: Callable[[], object], iters: int, warmup: int = 2) -> float:

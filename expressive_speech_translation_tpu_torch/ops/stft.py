@@ -30,6 +30,13 @@ def _dft_bases(n_fft: int, dtype_name: str = "float32") -> Tuple[np.ndarray, np.
     return np.cos(angle).astype(dtype), np.sin(angle).astype(dtype)
 
 
+def num_frames(n_samples: int, n_fft: int, hop: int, *, center: bool = True) -> int:
+    """Frames :func:`frame_signal` gives ``n_samples`` samples."""
+    if center:
+        return 1 + n_samples // hop
+    return 1 + max(0, (n_samples - n_fft)) // hop
+
+
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     """numpy ``mode="reflect"`` padding of the last axis of any-rank ``x``.
     ``F.pad`` reflects at most ``T - 1`` samples; numpy (and JAX) reflect

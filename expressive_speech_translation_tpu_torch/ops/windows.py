@@ -12,6 +12,13 @@ def hann(n: int, *, periodic: bool = True, dtype=np.float32) -> np.ndarray:
     return w[:n].astype(dtype)
 
 
+def hamming(n: int, *, periodic: bool = True, dtype=np.float32) -> np.ndarray:
+    """Hamming window. ``periodic=True`` matches torch.hamming_window's default."""
+    m = n + 1 if periodic else n
+    w = 0.54 - 0.46 * np.cos(2.0 * np.pi * np.arange(m) / max(m - 1, 1))
+    return w[:n].astype(dtype)
+
+
 def povey(n: int, dtype=np.float32) -> np.ndarray:
     """Kaldi's 'povey' window (hann ** 0.85), used by kaldi-style fbank."""
     w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / max(n - 1, 1))

@@ -402,7 +402,9 @@ def test_port_runs_without_jax_or_the_jax_package():
     tokenizers, the WAV codec, the audio front end, the visual mapping, the
     configuration, the serving stack, the media shim and MuseTalk among
     them), serves a bake, runs ``load_config()``, a request with video
-    frames and a lip-sync render, with jax, the JAX
+    frames and a lip-sync render, ``est-torch translate`` with fake engines
+    (the CLI, the batch runner and the evaluation modules imported), with
+    jax, the JAX
     package, ``yaml`` and ``psutil`` blocked from import, and must not have
     imported them nor the optional ``safetensors`` / ``transformers`` /
     ``tokenizers``, nor ``urllib3`` / ``certifi`` past what torch imports
@@ -548,6 +550,20 @@ def test_port_runs_without_jax_or_the_jax_package():
             tts_factory=lambda lang: vits_tts.VitsTTSModel(lang, device="cpu", max_frames=16))
         assert eb.translate_speech(x[:8_000], "eng", "fra")["audio"].ndim == 2
         assert ab.ModelManager(loader=dict).get_model_components() == {}
+        # the tools: the CLI, the batch runner and the evaluation battery
+        import contextlib, io, json
+        from expressive_speech_translation_tpu_torch import cli
+        from expressive_speech_translation_tpu_torch.batch import manifest, runner
+        from expressive_speech_translation_tpu_torch.core import registry
+        from expressive_speech_translation_tpu_torch.evals import (
+            analyze, semantic, ser, text_metrics, verify_quality, visual_metrics, visual_models)
+        wavio.write_wav(os.path.join(root, "in.wav"), x[:16_000], 16_000)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert cli.main(["translate", os.path.join(root, "in.wav"),
+                             os.path.join(root, "out.wav"), "--target-lang", "fra",
+                             "--engines", "fake", "--device", "cpu"]) == 0
+        assert json.loads(out.getvalue())["transcripts"]["target"].startswith("[fra_Latn]")
         assert "werkzeug" not in sys.modules
         BLOCKED.discard("werkzeug")
         from expressive_speech_translation_tpu_torch.serve import app
