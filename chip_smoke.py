@@ -239,7 +239,31 @@ Phases, in order; any failure exits non-zero and prints no result:
               ``native_media_shim`` where the machine has no libav (its log-mel
               check against the plain version is not counted); the phase's
               peak memory and seconds;
-17. the kernels line, the card line, and last the result line.
+17. train   — the SFT trainer (``train/``) on the published speech LM
+              (``SpeechLMConfig()``: Qwen2-0.5B, 6,564 speech rows), f32
+              parameters and AdamW moments, bf16 compute, accum_grad 4: a Kaldi
+              directory of 16 speech-like WAVs of 2-6 s written by wavio,
+              tokenized on the card by ``SpeechTokenizerFrontend.tokenize``
+              through ``load_kaldi_dir`` (no utterance may fall back to proxy
+              tokens), ``Executor.train`` over 2 epochs with CV and a
+              checkpoint at each epoch's end (keep 1; free disk checked
+              first): each step's loss, acc, grad_norm, seconds and tokens
+              (real and padded), the loss falling; the median step, tokens per
+              second, 6·N·tokens over the bf16 peak, peak memory, each save's
+              and the restore's seconds and GB/s; the restore held bit for bit
+              against the live state; the export (``run.export_tts_llm`` →
+              ``tts_llm/`` → ``load_converted``) served by the TTS engine
+              (published flow and vocoder, ``GeneratorNoise(7)``) token-exact
+              against the trained LM in memory, the resblock twice a request;
+              one f32 step of the LM at two layers on the card against the CPU
+              (TRAIN_F32_RTOL);
+18. diagnostics — ``AudioDiagnostics(device=card).analyze_translation`` of
+              the e2e phase's 10 s dub against its source (French, saved with
+              its figure where matplotlib is installed, which is printed) and
+              ``AudioDebugAnalyzer.compare``; every float of the report within
+              DIAG_RTOL of the same call on the CPU, the largest difference
+              and its key printed; no kernel launched;
+19. the kernels line, the card line, and last the result line.
 
 The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
 greedy call.
@@ -1863,11 +1887,12 @@ def lipsync_f32_check(fn, frames, boxes, dub16, dev, card) -> dict:
 
 
 def _tree_to(tree, device):
+    """A copy of the tree on ``device``, without autograd history."""
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_tree_to(v, device) for v in tree]
-    return tree.to(device)
+    return tree.detach().to(device, copy=True)
 
 
 class LipsyncVideoIO(SmokeVideoIO):
@@ -2325,12 +2350,14 @@ SERVICES_SIMILARITY_ATOL = 5e-5 + 1e-6   # the response rounds the score to 4 de
 
 
 def _host_packages() -> dict:
-    """Whether the split deployment's optional host packages are here."""
+    """Whether the optional host packages are here: the split deployment's,
+    and matplotlib for the diagnostics' figure."""
     import importlib.util
 
     return {"requests": importlib.util.find_spec("requests") is not None,
             "urllib3": importlib.util.find_spec("urllib3") is not None,
-            "yt-dlp": shutil.which("yt-dlp")}
+            "yt-dlp": shutil.which("yt-dlp"),
+            "matplotlib": importlib.util.find_spec("matplotlib") is not None}
 
 
 @contextlib.contextmanager
@@ -4696,12 +4723,451 @@ def tools_phase(dev, report, card, backend):
     return out
 
 
+TRAIN_UTTERANCES = 16
+TRAIN_SECONDS = (2.0, 6.0)      # the corpus's shortest and longest utterance
+TRAIN_SR = 24_000               # the speech tokenizer's rate: its WAVs need no resample
+TRAIN_LR = 1e-4                 # an overfit run (the published SFT lr is 1e-5)
+TRAIN_ACCUM = 4                 # greek_sft.yaml's accum_grad
+TRAIN_EPOCHS = 2
+TRAIN_MAX_FRAMES = 400          # a microbatch's padded speech tokens
+TRAIN_F32_LAYERS = 2            # the f32 card-against-CPU step: two layers at published widths
+TRAIN_F32_LR = 1e-5
+TRAIN_F32_RTOL = 1e-5           # loss, grad_norm; the gradient and an AdamW update of each
+                                # tensor's peak
+TRAIN_DISK_MARGIN = 2e9
+EXPORT_TEXT = "Kalimera sas, ti kanete simera?"
+DIAG_RTOL = 1e-4                # every float of the report on the card against device="cpu"
+
+
+def _train_utterance(seconds: float, index: int) -> np.ndarray:
+    """Speech-like audio at TRAIN_SR, its pitch and syllable rate set by ``index``."""
+    g = np.random.default_rng(100 + index)
+    t = np.arange(int(TRAIN_SR * seconds)) / TRAIN_SR
+    f0 = 110.0 + 12.0 * index
+    x = (0.4 * np.sin(2 * np.pi * f0 * t) + 0.2 * np.sin(2 * np.pi * 4 * f0 * t + 1.0)
+         + 0.02 * g.standard_normal(t.shape))
+    x *= 0.5 + 0.5 * np.sin(2 * np.pi * (2.5 + 0.2 * index) * t) ** 2
+    return x.astype(np.float32)
+
+
+def train_corpus(root: str) -> str:
+    """A Kaldi directory (wav.scp, text) of TRAIN_UTTERANCES WAVs written by
+    ``media/wavio.py``, TRAIN_SECONDS long at the ends. → its path."""
+    from expressive_speech_translation_tpu_torch.media.wavio import write_wav
+
+    data = os.path.join(root, "data")
+    os.makedirs(os.path.join(data, "clips"))
+    lo, hi = TRAIN_SECONDS
+    with open(os.path.join(data, "wav.scp"), "w") as scp, \
+            open(os.path.join(data, "text"), "w") as text:
+        for i in range(TRAIN_UTTERANCES):
+            wav = os.path.join(data, "clips", f"utt{i:02d}.wav")
+            write_wav(wav, _train_utterance(lo + (hi - lo) * i / (TRAIN_UTTERANCES - 1), i),
+                      TRAIN_SR)
+            scp.write(f"spk001_utt{i:02d} {wav}\n")
+            text.write(f"spk001_utt{i:02d} utterance {i} of the smoke corpus, "
+                       f"{'kalimera' if i % 2 else 'efharisto'} sas\n")
+    return data
+
+
+def _worst(got: dict, want: dict, scale) -> tuple:
+    """Over flat trees {path: tensor}: the largest max |got - want| over
+    ``scale(path, want's tensor)``, and its path."""
+    return max(((float((got[p].detach().cpu() - t.detach().cpu()).abs().max()) / scale(p, t), p)
+                for p, t in want.items()), default=(0.0, ""))
+
+
+def _peak(t) -> float:
+    return float(t.detach().abs().max()) or 1.0
+
+
+def train_f32_check(lm_cfg, samples, tc, dev, card) -> dict:
+    """One f32 ``build_step_fn`` step, accum 2, of the speech LM cut to
+    TRAIN_F32_LAYERS layers at its published widths, on the card against the
+    same step on the CPU from the same tree and batch. Gated at
+    TRAIN_F32_RTOL: loss and grad_norm, relative; the first microbatch's
+    gradient, of each tensor's peak (the key biases, whose exact gradient is
+    0, of the whole gradient's peak); and one AdamW update of the same
+    gradient on each device, of each tensor's peak. The two steps' updated
+    trees are held within 2 lr: AdamW divides by |g| + 1e-8, so an element
+    whose gradient is near that turns the gradient's rounding into up to ±lr."""
+    from expressive_speech_translation_tpu_torch.models import cosyvoice as cvm
+    from expressive_speech_translation_tpu_torch.models.common import Init
+    from expressive_speech_translation_tpu_torch.models.loaders import _flatten
+    from expressive_speech_translation_tpu_torch.train import executor, sft
+
+    cfg = dataclasses.replace(lm_cfg, backbone=dataclasses.replace(lm_cfg.backbone,
+                                                                   layers=TRAIN_F32_LAYERS))
+    host = cvm.init_speech_lm(Init(3, "cpu"), cfg)
+    batch = next(iter(executor.batches_from_samples(iter(samples), tc, accum=2, seed=tc.seed)))
+    runs = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        opt = sft.make_optimizer(TRAIN_F32_LR, grad_clip=tc.grad_clip)
+        state = sft.init_train_state(0, cfg, opt, params=_tree_to(host, device))
+        flat = _flatten(state.params, "", {})
+        first = sft.batch_to(sft.SFTBatch(*(x[0] for x in batch)), device)
+        loss, _ = sft.lm_loss(state.params, cfg, first, compute_dtype=torch.float32)
+        grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+        step = sft.build_step_fn(cfg, opt, accum_grad=2, compute_dtype=torch.float32)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        if name == "card":
+            torch.cuda.synchronize()
+        runs[name] = (_flatten(state.params, "", {}), grads,
+                      {k: float(v) for k, v in metrics.items()}, time.perf_counter() - t0)
+    (card_p, card_g, card_m, card_s), (cpu_p, cpu_g, cpu_m, cpu_s) = runs["card"], runs["cpu"]
+    updated = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        opt = sft.make_optimizer(TRAIN_F32_LR, grad_clip=tc.grad_clip)
+        state = sft.init_train_state(0, cfg, opt, params=_tree_to(host, device))
+        with torch.no_grad():
+            opt.update([g.to(device) for g in cpu_g.values()], state.opt_state, 0)
+        updated[name] = _flatten(state.params, "", {})
+    grad_peak = max(_peak(t) for t in cpu_g.values())
+    out = {"layers": TRAIN_F32_LAYERS, "rows": int(batch.text_tokens.shape[1]),
+           "card_s": card_s, "cpu_s": cpu_s, "card": card_m, "cpu": cpu_m,
+           **{f"{k}_rel": abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in ("loss", "grad_norm")},
+           "grad_rel_of_peak": _worst(card_g, {p: t for p, t in cpu_g.items()
+                                               if not p.endswith(".k.bias")},
+                                      lambda p, t: _peak(t)),
+           "key_bias_grad_of_peak": _worst(card_g, {p: t for p, t in cpu_g.items()
+                                                    if p.endswith(".k.bias")},
+                                           lambda p, t: grad_peak),
+           "adamw_rel_of_peak": _worst(updated["card"], updated["cpu"], lambda p, t: _peak(t)),
+           "step_over_lr": _worst(card_p, cpu_p, lambda p, t: TRAIN_F32_LR)}
+    gated = ("grad_rel_of_peak", "key_bias_grad_of_peak", "adamw_rel_of_peak")
+    print(f"  f32 step on the card against the CPU ({TRAIN_F32_LAYERS} layers at published "
+          f"widths, accum 2, lr {TRAIN_F32_LR:g}; gate {TRAIN_F32_RTOL:g}): loss rel "
+          f"{out['loss_rel']:.2e}, grad_norm rel {out['grad_norm_rel']:.2e}; gradient "
+          f"{out['grad_rel_of_peak'][0]:.2e} of a tensor's peak at {out['grad_rel_of_peak'][1]},"
+          f" key biases {out['key_bias_grad_of_peak'][0]:.2e} of the gradient's peak; AdamW on "
+          f"one gradient {out['adamw_rel_of_peak'][0]:.2e} of a tensor's peak at "
+          f"{out['adamw_rel_of_peak'][1]}; the steps' trees within "
+          f"{out['step_over_lr'][0]:.2e} lr at {out['step_over_lr'][1]} (gate 2 lr); card "
+          f"{card_s:.2f} s, CPU {cpu_s:.2f} s  [{card}]", flush=True)
+    if not (max(out["loss_rel"], out["grad_norm_rel"], *(out[k][0] for k in gated))
+            <= TRAIN_F32_RTOL and out["step_over_lr"][0] <= 2.0):
+        raise AssertionError(f"f32 train step: card against CPU {out}")
+    return out
+
+
+def train_export(state, lm_cfg, tmp, dev, card) -> dict:
+    """``run.export_tts_llm`` → ``tts_llm/`` → ``load_converted``, then one
+    TTS request through the port's engine (published flow and vocoder on a
+    seeded tree, bf16, ``GeneratorNoise(7)``, the budget pinned by the text
+    and ``seconds_per_char``) with the exported LM, and the same request
+    with the in-memory trained LM: token-exact; the kernels' launches over
+    both."""
+    from expressive_speech_translation_tpu_torch.models import cosyvoice as cvm
+    from expressive_speech_translation_tpu_torch.models.loaders import load_converted
+    from expressive_speech_translation_tpu_torch.pipeline.torch_engines import TorchCosyVoiceTts
+    from expressive_speech_translation_tpu_torch.train import run
+
+    t0 = time.perf_counter()
+    path = run.export_tts_llm(state.params, lm_cfg, os.path.join(tmp, "export"))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, loaded_cfg = load_converted(path, cvm.SpeechLMConfig, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if loaded_cfg != lm_cfg:
+        raise AssertionError(f"exported config {loaded_cfg} != {lm_cfg}")
+    cfg = cvm.CosyVoiceConfig(lm=lm_cfg)
+    small_lm = cvm.SpeechLMConfig(backbone=dataclasses.replace(lm_cfg.backbone, hidden=64,
+                                                               heads=4, kv_heads=2, layers=1,
+                                                               ffn_dim=128), text_vocab=8)
+    rest = cvm.init_cosyvoice(7, dataclasses.replace(cfg, lm=small_lm), dev)
+    tokens, waves = {}, {}
+    _reset_launches()
+    for name, lm in (("exported", loaded), ("in_memory", _tree_to(state.params, dev))):
+        tts = TorchCosyVoiceTts(cfg, {"lm": lm, "flow": rest["flow"], "vocoder": rest["vocoder"]},
+                                device=dev, noise=lambda i: cvm.GeneratorNoise(7, dev))
+        calls = []
+        with _recording_calls(cvm, "synthesize", calls, lambda a, k, out: out["speech_tokens"][
+                0, : int(out["token_lengths"][0])].cpu()):
+            t0 = time.perf_counter()
+            waves[name] = tts.synthesize(EXPORT_TEXT)
+            torch.cuda.synchronize()
+        tokens[name] = (calls[0], time.perf_counter() - t0)
+        del tts
+    launches = _read_launches()
+    same = torch.equal(tokens["exported"][0], tokens["in_memory"][0])
+    out = {"export_s": export_s, "export_gb": _dir_bytes(path) / 1e9, "load_s": load_s,
+           "tokens": int(tokens["exported"][0].numel()), "token_exact": same,
+           "audio_max_abs_diff": float(np.abs(waves["exported"] - waves["in_memory"]).max()),
+           "request_s": {k: v[1] for k, v in tokens.items()}, "launches": launches}
+    print(f"  export: tts_llm {out['export_gb']:.3f} GB written in {export_s:.2f} s, loaded in "
+          f"{load_s:.2f} s; a TTS request ({len(EXPORT_TEXT)} chars) with the exported LM and "
+          f"with the trained one in memory: {out['tokens']} speech tokens, token-exact {same}, "
+          f"audio max |diff| {out['audio_max_abs_diff']:.3g}, "
+          f"{out['request_s']['exported']:.2f} / {out['request_s']['in_memory']:.2f} s; "
+          f"launches {launches}  [{card}]", flush=True)
+    narrow = sum(1 for i in range(len(cfg.vocoder.upsample_rates))
+                 if cfg.vocoder.base_channels // 2 ** (i + 1) <= 128)
+    if not same or launches["fused_resblock_stage"] != 2 * narrow:
+        raise AssertionError(f"export round trip: {out}")
+    return out
+
+
+def train_phase(dev, report, card, lm_cfg=None):
+    """The SFT trainer on the published speech LM (``SpeechLMConfig()``:
+    Qwen2-0.5B, 6,564 speech rows), f32 parameters and AdamW moments, bf16
+    compute, accum_grad TRAIN_ACCUM: a Kaldi corpus of TRAIN_UTTERANCES WAVs,
+    tokenized on the card by ``SpeechTokenizerFrontend.tokenize`` through
+    ``load_kaldi_dir`` (no proxy tokens), ``Executor.train`` over
+    TRAIN_EPOCHS epochs with CV and a checkpoint at each epoch's end (keep
+    1), a restore held bit for bit, the export round trip, and the f32 step
+    on the card against the CPU."""
+    from expressive_speech_translation_tpu_torch.core.config import TrainConfig
+    from expressive_speech_translation_tpu_torch.media.wavio import read_wav
+    from expressive_speech_translation_tpu_torch.models import cosyvoice as cvm
+    from expressive_speech_translation_tpu_torch.models.loaders import _flatten
+    from expressive_speech_translation_tpu_torch.train import executor, run, sft
+
+    lm_cfg = lm_cfg or cvm.SpeechLMConfig()
+    print(f"== train: SFT of the published speech LM (hidden {lm_cfg.backbone.hidden}, "
+          f"{lm_cfg.backbone.layers} layers, text vocab {lm_cfg.text_vocab}), f32 parameters, "
+          f"bf16 compute, accum {TRAIN_ACCUM}, {TRAIN_EPOCHS} epochs over {TRAIN_UTTERANCES} "
+          "utterances", flush=True)
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="est_train_")
+    out = {}
+    try:
+        data = train_corpus(tmp)
+        fe = run.SpeechTokenizerFrontend(device=dev)
+        missed = []
+
+        def read_and_tokenize(path):
+            audio, sr = read_wav(path)
+            ids = fe.tokenize(audio) if sr == TRAIN_SR else None
+            if not ids:
+                missed.append(path)
+            return ids
+
+        t0 = time.perf_counter()
+        samples = run.load_kaldi_dir(data, tokenizer_frontend=read_and_tokenize)
+        torch.cuda.synchronize()
+        out["tokenize_s"] = time.perf_counter() - t0
+        if missed:
+            raise AssertionError(f"{len(missed)} utterances fell back to proxy tokens: {missed}")
+        lengths = [s["num_frames"] for s in samples]
+        print(f"  tokenized {len(samples)} utterances on the card in {out['tokenize_s']:.2f} s: "
+              f"{min(lengths)}-{max(lengths)} speech tokens, none a proxy  [{card}]", flush=True)
+
+        tc = TrainConfig(learning_rate=TRAIN_LR, accum_grad=TRAIN_ACCUM, max_epochs=TRAIN_EPOCHS,
+                         log_interval=1, save_per_step=10 ** 9, keep_checkpoints=1,
+                         max_frames_in_batch=TRAIN_MAX_FRAMES, shuffle_buffer=TRAIN_UTTERANCES,
+                         sort_buffer=8)
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        ex = executor.Executor(lm_cfg, tc, checkpoint_dir=ckpt_dir, device=dev)
+        state = ex.init_or_resume()
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in sft.tree_leaves(state.params))
+        ckpt_bytes = 3 * 4 * n_params
+        free = shutil.disk_usage(tmp).free
+        need = 2 * ckpt_bytes + 4 * n_params + TRAIN_DISK_MARGIN
+        print(f"  {n_params / 1e6:.1f} M parameters, initialised in "
+              f"{time.perf_counter() - t0:.2f} s; a checkpoint {ckpt_bytes / 1e9:.2f} GB, disk "
+              f"free {free / 1e9:.1f} GB, needed {need / 1e9:.1f} GB", flush=True)
+        if free < need:
+            raise AssertionError(f"not enough disk for the checkpoints: {free} < {need}")
+
+        steps, saves, rows = [], [], []
+        step_fn, save_fn = ex.train_step, ex.ckpt.save
+
+        def timed_step(st, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step_fn(st, batch)
+            torch.cuda.synchronize()
+            shape = batch.text_tokens.shape
+            steps.append({"seconds": time.perf_counter() - t0, "microbatches": shape[0],
+                          "rows": shape[1],
+                          "real_tokens": int(batch.text_mask.sum() + batch.speech_mask.sum())
+                          + 2 * shape[0] * shape[1],
+                          "padded_tokens": shape[0] * shape[1]
+                          * (2 + shape[2] + batch.speech_tokens.shape[2])})
+            return res
+
+        def timed_save(st, **kw):
+            t0 = time.perf_counter()
+            saved = save_fn(st, **kw)
+            if saved:
+                path = os.path.join(ckpt_dir, str(int(st.step)), "state.safetensors")
+                seconds = time.perf_counter() - t0
+                saves.append({"step": int(st.step), "seconds": seconds,
+                              "gb": os.path.getsize(path) / 1e9,
+                              "gb_per_s": os.path.getsize(path) / 1e9 / seconds})
+            return saved
+
+        ex.train_step, ex.ckpt.save = timed_step, timed_save
+        t0 = time.perf_counter()
+        state = ex.train(state, lambda e: executor.batches_from_samples(
+            iter(samples), tc, accum=TRAIN_ACCUM, seed=tc.seed + e),
+            cv_batches=lambda: executor.batches_from_samples(iter(samples[:8]), tc, accum=1,
+                                                             seed=0),
+            metric_sink=rows.append)
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        train_rows = [r for r in rows if r["phase"] == "train"]
+        cv_rows = [r for r in rows if r["phase"] == "cv"]
+        for r, s in zip(train_rows, steps):
+            print(f"  step {r['step']} (epoch {r['epoch']}, {s['microbatches']} x {s['rows']} "
+                  f"rows, {s['real_tokens']} / {s['padded_tokens']} tokens): loss "
+                  f"{r['loss']:.4f} acc {r['acc']:.4f} grad_norm {r['grad_norm']:.4f}, "
+                  f"{s['seconds']:.3f} s  [{card}]", flush=True)
+        for r in cv_rows:
+            print(f"  CV after epoch {r['epoch']} (step {r['step']}): loss {r['loss']:.4f} "
+                  f"acc {r['acc']:.4f}", flush=True)
+        losses = [r["loss"] for r in train_rows]
+        if len(steps) < 4 or len({r["epoch"] for r in train_rows}) < TRAIN_EPOCHS \
+                or not losses[-1] < losses[0] or len(cv_rows) < TRAIN_EPOCHS:
+            raise AssertionError(f"training: {len(steps)} steps, losses {losses}, "
+                                 f"{len(cv_rows)} CV points")
+        later = steps[1:]
+        step_s = float(np.median([s["seconds"] for s in later]))
+        seconds = sum(s["seconds"] for s in later)
+        real = sum(s["real_tokens"] for s in later) / seconds
+        padded = sum(s["padded_tokens"] for s in later) / seconds
+        out.update({
+            "parameters": n_params, "steps": steps, "rows": rows, "saves": saves,
+            "first_step_s": steps[0]["seconds"], "median_step_s": step_s,
+            "real_tokens_per_s": real, "padded_tokens_per_s": padded,
+            "mfu_real": 6 * n_params * real / PEAK_BF16,
+            "mfu_padded": 6 * n_params * padded / PEAK_BF16,
+            "peak_gib_training": (torch.cuda.max_memory_allocated() - base) / 2**30})
+        print(f"  {len(steps)} steps in {out['train_s']:.1f} s (CV and saves included): first "
+              f"{steps[0]['seconds']:.3f} s, median after it {step_s:.3f} s; tokens/s real "
+              f"{real:.0f}, padded {padded:.0f}; 6·N·tokens over the bf16 peak: "
+              f"{out['mfu_real']:.4f} real, {out['mfu_padded']:.4f} padded; peak "
+              f"{out['peak_gib_training']:.2f} GiB above what was resident  [{card}]", flush=True)
+        for s in saves:
+            print(f"  save step {s['step']}: {s['gb']:.3f} GB in {s['seconds']:.2f} s, "
+                  f"{s['gb_per_s']:.3f} GB/s  [{card}]", flush=True)
+        kept = ex.ckpt.all_steps()
+        if len(saves) > 2 or kept != [int(state.step)]:
+            raise AssertionError(f"checkpoints: saves {saves}, kept {kept}")
+
+        template = sft.init_train_state(tc.seed + 1, lm_cfg, ex.optimizer, device=dev)
+        path = os.path.join(ckpt_dir, str(kept[0]), "state.safetensors")
+        restored, out["restore"] = _timed("restore", lambda: ex.ckpt.restore(template),
+                                          os.path.getsize(path), card)
+        flat_live = _flatten(state.params, "", {})
+        flat_back = _flatten(restored.params, "", {})
+        opt_live, opt_back = state.opt_state.state, restored.opt_state.state
+        exact = restored.step == state.step and all(
+            torch.equal(flat_back[k], v)
+            and torch.equal(opt_back[flat_back[k]]["exp_avg"], opt_live[v]["exp_avg"])
+            and torch.equal(opt_back[flat_back[k]]["exp_avg_sq"], opt_live[v]["exp_avg_sq"])
+            for k, v in flat_live.items())
+        print(f"  restore of step {restored.step}: parameters and moments bit-exact {exact}",
+              flush=True)
+        if not exact:
+            raise AssertionError("restore is not bit-exact against the saved state")
+        out["restore"]["bit_exact"] = exact
+        del template, restored, flat_back, opt_back
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        out["export"] = train_export(state, lm_cfg, tmp, dev, card)
+        out["launches"] = out["export"]["launches"]
+        del state, ex, step_fn, save_fn, flat_live, opt_live
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["f32"] = train_f32_check(lm_cfg, samples, tc, dev, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak_gib_above_resident"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  train phase {out['seconds']:.1f} s, peak {out['peak_gib_above_resident']:.2f} GiB "
+          f"above what was resident  [{card}]", flush=True)
+    report["train"] = out
+    return out
+
+
+def _report_floats(got, want, path=""):
+    """(the largest relative difference of two reports' floats, its key);
+    raises where their structure or a non-float leaf differs."""
+    if isinstance(want, dict):
+        if list(got) != list(want):
+            raise AssertionError(f"{path}: keys {list(got)} != {list(want)}")
+        return max((_report_floats(got[k], want[k], f"{path}/{k}") for k in want),
+                   default=(0.0, path))
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"{path}: {len(got)} items != {len(want)}")
+        return max((_report_floats(a, b, f"{path}/{i}") for i, (a, b) in enumerate(zip(got, want))),
+                   default=(0.0, path))
+    if isinstance(want, (float, np.floating)):
+        if math.isnan(want) and math.isnan(got):
+            return 0.0, path
+        scale = max(abs(got), abs(want))
+        return (float(abs(got - want) / scale) if scale else 0.0), path
+    if got != want:
+        raise AssertionError(f"{path}: {got!r} != {want!r}")
+    return 0.0, path
+
+
+def diagnostics_phase(dev, report, card):
+    """``AudioDiagnostics(device=card).analyze_translation`` of the e2e phase's
+    10 s dub against its source (French, saved with its figure) and
+    ``AudioDebugAnalyzer.compare``; the report against the same call with
+    ``device="cpu"``, every float within DIAG_RTOL relative."""
+    from expressive_speech_translation_tpu_torch.pipeline.debug_analyzer import AudioDebugAnalyzer
+    from expressive_speech_translation_tpu_torch.pipeline.diagnostics import AudioDiagnostics
+
+    print("== diagnostics: AudioDiagnostics of the 10 s dub against its source on the card, "
+          "against the CPU", flush=True)
+    t_phase = time.perf_counter()
+    dub, source = _KEPT["dub"], _speechlike(10.0, seed=10)
+    tmp = tempfile.mkdtemp(prefix="est_diag_")
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        got = AudioDiagnostics(output_dir=tmp, device=dev).analyze_translation(
+            dub, source, language="fra", save=True)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = _read_launches()
+        t0 = time.perf_counter()
+        want = AudioDiagnostics(device="cpu").analyze_translation(dub, source, language="fra")
+        cpu_s = time.perf_counter() - t0
+        debug = AudioDebugAnalyzer().compare(source, dub)
+        png = [os.path.join(d, f) for d, _, fs in os.walk(tmp) for f in fs
+               if f == "diagnostics.png"]
+        saved_json = any(f == "diagnostics.json" for _, _, fs in os.walk(tmp) for f in fs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel, key = _report_floats(got, want)
+    matplotlib = _host_packages()["matplotlib"]
+    out = {"card_s": card_s, "cpu_s": cpu_s, "max_rel": rel, "max_rel_key": key,
+           "narrative_equal": got["narrative"] == want["narrative"], "matplotlib": matplotlib,
+           "png_written": bool(png), "json_written": saved_json, "launches": launches,
+           "quality": got["quality"], "debug": debug, "narrative": got["narrative"],
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  report on the card {card_s:.2f} s, on the CPU {cpu_s:.2f} s; largest relative "
+          f"difference {rel:.2e} at {key} (gate {DIAG_RTOL:g}); narrative equal "
+          f"{out['narrative_equal']}; matplotlib installed {matplotlib}, diagnostics.png "
+          f"written {bool(png)}; debug compare: duration delta {debug['duration_delta_s']:.3f} s; "
+          f"launches {launches}; phase {out['seconds']:.1f} s  [{card}]", flush=True)
+    if rel > DIAG_RTOL or not saved_json or (matplotlib and not png):
+        raise AssertionError(f"diagnostics on the card: {out}")
+    report["diagnostics"] = out
+    return out
+
+
 def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
 def _launches(name, e2e, front, serve, lipsync, diff2lip, services, batched, stream, mtp,
-              official, ckpt, alt, tools) -> dict:
+              official, ckpt, alt, tools, train, diag) -> dict:
     """A kernel's launch count on each path driven: the three single
     requests, the detection of the 10 s request, the frontend's upload and
     video request, the serve phase's routes, the lip-sync render and its
@@ -4710,7 +5176,8 @@ def _launches(name, e2e, front, serve, lipsync, diff2lip, services, batched, str
     requests, the mtp phase's TTS runs, the official chain's 10 s request,
     the 10 s request served from the bake, the alternate phase's ESPnet
     request (Seamless launches none), the tools phase's translate,
-    verify-quality and batch runner."""
+    verify-quality and batch runner, the train phase's export round trip
+    (training itself launches none) and the diagnostics report."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
             "frontend": front["launches"][name], "serve": serve["launches"][name],
             "lipsync": lipsync["launches"][name], "diff2lip": diff2lip["launches"][name],
@@ -4718,11 +5185,12 @@ def _launches(name, e2e, front, serve, lipsync, diff2lip, services, batched, str
             "batched": batched["launches"][name], "streaming": stream["launches"][name],
             "mtp": mtp["launches"][name], "official": official["launches"][name],
             "checkpoints": ckpt["launches"][name], "alternate": alt["launches"][name],
-            "tools": tools["launches"][name]}
+            "tools": tools["launches"][name], "train": train["launches"][name],
+            "diagnostics": diag["launches"][name]}
 
 
 def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff2lip, services,
-                  batched, stream, mtp, official, ckpt, alt, tools):
+                  batched, stream, mtp, official, ckpt, alt, tools, train, diag):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
@@ -4730,7 +5198,8 @@ def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff
     return {"name": name, "route": "cuda", "source": f"{PORT}/csrc/{source}",
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
             "launches_by_path": _launches(name, e2e, front, serve, lipsync, diff2lip, services,
-                                          batched, stream, mtp, official, ckpt, alt, tools),
+                                          batched, stream, mtp, official, ckpt, alt, tools,
+                                          train, diag),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -4739,7 +5208,8 @@ def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff
 
 
 def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, serve, lipsync,
-                 diff2lip, services, batched, stream, mtp, official, ckpt, alt, tools):
+                 diff2lip, services, batched, stream, mtp, official, ckpt, alt, tools, train,
+                 diag):
     """One entry per kernel. ``launches`` counts the three single requests;
     ``launches_by_path`` adds the detection, the batched requests and the
     streamed ones.
@@ -4761,7 +5231,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "launches": e2e["launches"]["log_mel_frames"],
          "launches_by_path": _launches("log_mel_frames", e2e, front, serve, lipsync, diff2lip,
                                        services, batched, stream, mtp, official, ckpt, alt,
-                                       tools),
+                                       tools, train, diag),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -4772,7 +5242,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "launches": e2e["launches"]["fused_resblock_stage"],
          "launches_by_path": _launches("fused_resblock_stage", e2e, front, serve, lipsync,
                                        diff2lip, services, batched, stream, mtp, official, ckpt,
-                                       alt, tools),
+                                       alt, tools, train, diag),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -4787,13 +5257,13 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
                       front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
-                      ckpt, alt, tools),
+                      ckpt, alt, tools, train, diag),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
                       front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
-                      ckpt, alt, tools),
+                      ckpt, alt, tools, train, diag),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
                       front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
-                      ckpt, alt, tools),
+                      ckpt, alt, tools, train, diag),
     ]
 
 
@@ -4846,6 +5316,8 @@ def main() -> int:
     ckpt = checkpoints_phase(dev, report, card, e2e)
     alt = alternate_phase(dev, report, card, backend)
     tools = tools_phase(dev, report, card, backend)
+    train = train_phase(dev, report, card)
+    diag = diagnostics_phase(dev, report, card)
     report["seconds"] = time.perf_counter() - t_start
     print(f"== done in {report['seconds']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -4853,7 +5325,7 @@ def main() -> int:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, front, serve, lipsync, diff2lip,
                                               services, batched, stream, mtp, official, ckpt,
-                                              alt, tools)}))
+                                              alt, tools, train, diag)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ generators over the Qwen2 backbone (single-token
 ``generate_speech_tokens_spec``; ``select_generator`` picks one); the DiT
 ``flow_estimator`` and ``tokens_to_mel`` (Euler steps, batched CFG); the
 HiFi-GAN ``vocode`` whose narrow stages run the fused resblock kernel
-(``ops/cuda_vocoder.py``); ``synthesize``; the chunked
+(``ops/cuda_vocoder.py``); the flow's training objective
+``flow_matching_loss``; ``synthesize``; the chunked
 ``synthesize_streaming`` (resumable LM ``lm_stream_start`` /
 ``lm_stream_chunk``, then ``flow_vocode_chunk`` a chunk; single-token, as
 in the JAX package); and ``quantize_speech_lm`` (int8 weights).
@@ -30,7 +31,7 @@ Layouts: dense kernels [in, out]; vocoder conv kernels torch's
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Protocol, Tuple
+from typing import Dict, NamedTuple, Optional, Protocol, Tuple
 
 import numpy as np
 import torch
@@ -541,6 +542,62 @@ def tokens_to_mel(params: Params, cfg: FlowConfig, noise: NoiseSource,
             v = flow_estimator(params, cfg, x, t, token_cond, spk_embedding, mel_cond, frame_mask)
         x = (x + dt * v).to(x.dtype)
     return x * frame_mask[..., None], frame_mask
+
+
+class FlowLossDraws(NamedTuple):
+    """The five random draws of one :func:`flow_matching_loss` call: the
+    flow's start ``x0`` [B, T, n_mels] ~ N(0, 1), and four [B] uniforms on
+    [0, 1): the flow time ``t``, the prompt coin ``prompt_u``, the prefix
+    fraction ``frac_u`` and the conditioning drop ``drop_u``."""
+
+    x0: torch.Tensor
+    t: torch.Tensor
+    prompt_u: torch.Tensor
+    frac_u: torch.Tensor
+    drop_u: torch.Tensor
+
+    @classmethod
+    def sample(cls, gen: torch.Generator, mel_shape: Tuple[int, ...], device) -> "FlowLossDraws":
+        b = mel_shape[0]
+        return cls(torch.randn(mel_shape, generator=gen, device=device),
+                   *(torch.rand((b,), generator=gen, device=device) for _ in range(4)))
+
+
+def flow_matching_loss(params: Params, cfg: FlowConfig, draws: FlowLossDraws, mel: torch.Tensor,
+                       speech_tokens: torch.Tensor, token_mask: torch.Tensor,
+                       spk_embedding: torch.Tensor) -> torch.Tensor:
+    """OT-CFM training loss E_t ||v(x_t, t) - (x_1 - (1 - sigma_min) x_0)||^2
+    over the valid frames, with the official flow training's conditioning:
+    per row, with p = 0.5, a prefix of at most 30 % of the valid frames of
+    the target mel is exposed as ``mel_cond``, and all conditioning drops on
+    rows whose ``drop_u`` < 0.2 (matcha's training_cfg_rate), so the
+    unconditional mode CFG extrapolates against is trained."""
+    b, t_frames, _ = mel.shape
+    x0 = draws.x0.to(mel.dtype)
+    t = draws.t.to(mel.dtype)
+    x_t = (1 - (1 - cfg.sigma_min) * t[:, None, None]) * x0 + t[:, None, None] * mel
+    target = mel - (1 - cfg.sigma_min) * x0
+
+    tok = params["token_embed"][speech_tokens.long()] * token_mask[..., None]
+    up = torch.repeat_interleave(tok, cfg.token_mel_ratio, dim=1)
+    up_mask = torch.repeat_interleave(token_mask, cfg.token_mel_ratio, dim=1)
+    # STFT framing can give a frame more or less than token_mel_ratio * T_tok
+    if up.shape[1] < t_frames:
+        up = F.pad(up, (0, 0, 0, t_frames - up.shape[1]))
+        up_mask = F.pad(up_mask, (0, t_frames - up_mask.shape[1]))
+    else:
+        up, up_mask = up[:, :t_frames], up_mask[:, :t_frames]
+
+    n_valid = up_mask.sum(dim=1)
+    use_prompt = draws.prompt_u < 0.5
+    prefix = (draws.frac_u * 0.3 * n_valid).to(torch.int32) * use_prompt.to(torch.int32)
+    pos = torch.arange(t_frames, device=mel.device)[None, :]
+    mel_cond = torch.where((pos < prefix[:, None])[..., None], mel, 0.0)
+    keep = (draws.drop_u >= 0.2).to(mel.dtype)
+    v = flow_estimator(params, cfg, x_t, t, up * keep[:, None, None], spk_embedding * keep[:, None],
+                       mel_cond * keep[:, None, None], up_mask)
+    sq = ((v - target) ** 2).sum(dim=-1) * up_mask
+    return sq.sum() / (up_mask.sum() * cfg.n_mels + 1e-8)
 
 
 # ================================================================== vocoder

@@ -2,7 +2,8 @@
 inside CosyVoice2's speech-token generator.
 
 The port of the JAX package's ``models/qwen2.py`` ``rope_table``,
-``prefill``, ``decode_step`` and ``decode_span``. KV caches are
+``forward`` (the full-sequence pass training runs), ``prefill``,
+``decode_step`` and ``decode_span``. KV caches are
 preallocated; the functions write into them in place. GQA K/V heads are
 repeated at compute time.
 """
@@ -149,6 +150,26 @@ def _attend(cfg: Qwen2Config, q, k, v, mask, dtype) -> torch.Tensor:
 
 def _mlp(layer: Params, h: torch.Tensor) -> torch.Tensor:
     return dense(layer["down"], torch.nn.functional.silu(dense(layer["gate"], h)) * dense(layer["up"], h))
+
+
+def forward(params: Params, cfg: Qwen2Config, x: torch.Tensor, *,
+            attn_mask: Optional[torch.Tensor] = None, pos_offset: int = 0) -> torch.Tensor:
+    """Full-sequence pass x [B, T, hidden] → final hidden states [B, T,
+    hidden], no cache. ``attn_mask`` [B, 1, T, T] (True = attend) defaults
+    to causal; RoPE positions start at ``pos_offset``."""
+    b, t, _ = x.shape
+    cos_t, sin_t = _rope_tensors(cfg, x.device)
+    cos, sin = cos_t[pos_offset: pos_offset + t], sin_t[pos_offset: pos_offset + t]
+    if attn_mask is None:
+        attn_mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()[None, None]
+    for layer in params["layers"]:
+        h = _rms(layer["input_ln"], x, cfg.norm_eps)
+        q = apply_rope(dense(layer["q"], h).reshape(b, t, cfg.heads, cfg.head_dim), cos, sin)
+        k = apply_rope(dense(layer["k"], h).reshape(b, t, cfg.kv_heads, cfg.head_dim), cos, sin)
+        v = dense(layer["v"], h).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+        x = x + dense(layer["o"], _attend(cfg, q, k, v, attn_mask, x.dtype))
+        x = x + _mlp(layer, _rms(layer["post_ln"], x, cfg.norm_eps))
+    return _rms(params["ln_f"], x, cfg.norm_eps)
 
 
 def init_kv_cache(cfg: Qwen2Config, batch: int, max_len: int, dtype, device):

@@ -403,7 +403,10 @@ def test_port_runs_without_jax_or_the_jax_package():
     configuration, the serving stack, the media shim and MuseTalk among
     them), serves a bake, runs ``load_config()``, a request with video
     frames and a lip-sync render, ``est-torch translate`` with fake engines
-    (the CLI, the batch runner and the evaluation modules imported), with
+    (the CLI, the batch runner and the evaluation modules imported), a
+    two-step SFT run with a checkpoint restored and a diagnostics report
+    (``train/``, ``obs/kvlogger.py``, ``pipeline/diagnostics/`` and
+    ``pipeline/debug_analyzer.py``, none importing matplotlib), with
     jax, the JAX
     package, ``yaml`` and ``psutil`` blocked from import, and must not have
     imported them nor the optional ``safetensors`` / ``transformers`` /
@@ -564,6 +567,30 @@ def test_port_runs_without_jax_or_the_jax_package():
                              os.path.join(root, "out.wav"), "--target-lang", "fra",
                              "--engines", "fake", "--device", "cpu"]) == 0
         assert json.loads(out.getvalue())["transcripts"]["target"].startswith("[fra_Latn]")
+        # training and the diagnostics
+        from expressive_speech_translation_tpu_torch import train
+        from expressive_speech_translation_tpu_torch.obs import kvlogger
+        from expressive_speech_translation_tpu_torch.pipeline import debug_analyzer, diagnostics
+        from expressive_speech_translation_tpu_torch.pipeline.diagnostics import (
+            languages, neural, phonetics, quality, spectral, temporal, visualize)
+        from expressive_speech_translation_tpu_torch.train import (
+            checkpoint, data, executor, plot, prepare_mcv, run, sft)
+        lm = cv.SpeechLMConfig(backbone=qwen2.Qwen2Config(hidden=32, layers=1, heads=2,
+            kv_heads=1, ffn_dim=64, max_positions=64), text_vocab=50, speech_token_size=20)
+        opt = sft.make_optimizer(1e-2)
+        state = sft.init_train_state(0, lm, opt, device="cpu")
+        step = sft.make_train_step(lm, opt, accum_grad=1)
+        ids = np.ones((1, 2, 4), np.int32)
+        batch = sft.SFTBatch(ids, ids > 0, ids, ids > 0)
+        for _ in range(2):
+            state, metrics = step(state, batch)
+        ckpt = checkpoint.CheckpointManager(os.path.join(root, "ckpt"), save_interval_steps=1)
+        assert ckpt.save(state, metrics=metrics)
+        assert ckpt.restore(sft.init_train_state(1, lm, opt, device="cpu")).step == 2
+        report = diagnostics.AudioDiagnostics(device="cpu").analyze_translation(
+            x[:16_000], x[:12_000], language="fra")
+        assert report["narrative"] and debug_analyzer.AudioDebugAnalyzer().compare(x, x)
+        assert "matplotlib" not in sys.modules
         assert "werkzeug" not in sys.modules
         BLOCKED.discard("werkzeug")
         from expressive_speech_translation_tpu_torch.serve import app
@@ -586,6 +613,49 @@ def test_port_runs_without_jax_or_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "FORBIDDEN []" in proc.stdout, proc.stdout
+
+
+@pytest.mark.cuda
+def test_a_train_step_and_a_diagnostics_report_on_the_card_agree_with_the_cpu():
+    """On a card: two f32 SFT steps of a toy LM (loss, grad_norm, the tree)
+    and a diagnostics report, each against the same call on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from expressive_speech_translation_tpu_torch.models.common import tree_from_numpy
+    from expressive_speech_translation_tpu_torch.pipeline.diagnostics import AudioDiagnostics
+    from expressive_speech_translation_tpu_torch.train import sft
+
+    lm = tcv.SpeechLMConfig(backbone=tq2.Qwen2Config(hidden=64, layers=2, heads=4, kv_heads=2,
+                                                     ffn_dim=128, max_positions=64),
+                            text_vocab=50, speech_token_size=20)
+    g = np.random.default_rng(0)
+    ids = g.integers(1, 20, (2, 3, 8)).astype(np.int32)
+    batch = sft.SFTBatch(ids, ids > 2, ids, ids > 1)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        opt = sft.make_optimizer(1e-5)
+        host = sft.init_train_state(0, lm, opt, device="cpu").params
+        state = sft.init_train_state(0, lm, opt, params=tree_from_numpy(
+            jax.tree.map(lambda t: t.detach().numpy(), host), dev))
+        step = sft.make_train_step(lm, opt, accum_grad=3, compute_dtype=torch.float32)
+        for _ in range(2):
+            state, m = step(state, batch)
+        runs.append((m, [p.detach().cpu() for p in sft.tree_leaves(state.params)]))
+    (m_cpu, p_cpu), (m_card, p_card) = runs
+    for k in ("loss", "grad_norm"):
+        assert float(m_card[k]) == pytest.approx(float(m_cpu[k]), rel=1e-5)
+    for a, b in zip(p_card, p_cpu):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 4e-5
+    x = np.sin(np.arange(32_000) / 9.0).astype(np.float32) * np.linspace(0, 1, 32_000,
+                                                                          dtype=np.float32)
+    card = AudioDiagnostics(device="cuda").analyze_translation(x, x[::-1].copy(),
+                                                               language="fra")
+    host = AudioDiagnostics(device="cpu").analyze_translation(x, x[::-1].copy(),
+                                                              language="fra")
+    assert card.keys() == host.keys() and card["narrative"] == host["narrative"]
+    for section in ("spectral", "quality"):
+        for k, v in host[section].items():
+            assert card[section][k] == pytest.approx(v, rel=1e-4, nan_ok=True), (section, k)
 
 
 def test_torch_engines_without_a_device_need_the_card():
