@@ -263,7 +263,18 @@ Phases, in order; any failure exits non-zero and prints no result:
               ``AudioDebugAnalyzer.compare``; every float of the report within
               DIAG_RTOL of the same call on the CPU, the largest difference
               and its key printed; no kernel launched;
-19. the kernels line, the card line, and last the result line.
+19. parallel — stage placement and the distributed bootstrap on one card,
+              over the e2e phase's trees: ``torch_engines(stage_parallel=
+              True)`` degenerates to card 0 (``placement_info()`` [0] for
+              every stage); one 10 s request through it, the launch counters
+              read around it, against unplaced engines over the same trees
+              (transcripts equal, audio within PARALLEL_ATOL); ``vocode_sp``
+              of 10 s of mel over a one-slot mesh equal to ``vocode``; a
+              ``torch.distributed`` world of one joined over NCCL
+              (``tcp://127.0.0.1:<free port>`` from ``MeshConfig``) runs one
+              ``all_reduce``. The four-card checks are
+              ``python3 -m expressive_speech_translation_tpu_torch.parallel.smoke``;
+20. the kernels line, the card line, and last the result line.
 
 The e2e phase also times one ``translate`` at ``num_beams=4`` beside the
 greedy call.
@@ -311,6 +322,7 @@ RES_F32_RTOL = 1e-5      # max |kernel - plain| / max |plain|: f32 sums in anoth
 RES_BF16_RTOL = 1.6e-2   # two bf16 ulps (2^-7 relative) of the peak, and a margin: operands and output round to bf16
 DEC_F32_RTOL = 1e-5      # decode kernels, f32: max |kernel - plain| / max |plain|, sums in another order
 DEC_BF16_RTOL = 1.6e-2   # decode kernels, bf16: an output rounded to bf16 plus summation order
+PARALLEL_ATOL = 1e-3     # placed against unplaced engines on one card: the same kernels, |audio| ≤ 1
 STACK_MIN_LAYERS = 24
 STACK_MIN_BYTES = 100e6
 KERNELS = (3, 7, 11)
@@ -5162,12 +5174,82 @@ def diagnostics_phase(dev, report, card):
     return out
 
 
+def parallel_phase(dev, report, card, backend):
+    """Stage placement and the bootstrap on one card, over the e2e trees."""
+    import socket
+
+    from expressive_speech_translation_tpu_torch.core.config import MeshConfig
+    from expressive_speech_translation_tpu_torch.models import cosyvoice as cvm
+    from expressive_speech_translation_tpu_torch.parallel import mesh as pmesh
+    from expressive_speech_translation_tpu_torch.parallel.smoke import engines_like
+    from expressive_speech_translation_tpu_torch.pipeline.cascaded import CascadedBackend
+
+    print("== parallel: torch_engines(stage_parallel=True) on one card over the e2e trees, "
+          "vocode_sp over one slot, an NCCL world of one", flush=True)
+    t_phase = time.perf_counter()
+    placed = engines_like(backend.engines, stage_parallel=True)
+    plain = engines_like(backend.engines)
+    info = placed.placement_info()
+    if info != {"asr": [0], "nmt": [0], "tts": [0]}:
+        raise AssertionError(f"stage_parallel on one card: placement {info}")
+    x = _speechlike(10.0, seed=10)
+    outs, walls = {}, {}
+    for name, engines in (("placed", placed), ("unplaced", plain)):
+        if name == "placed":
+            _reset_launches()
+        t0 = time.perf_counter()
+        outs[name] = CascadedBackend(engines).translate_speech(x, "eng", "fra")
+        walls[name] = time.perf_counter() - t0
+        if name == "placed":
+            launches = _read_launches()
+    a, b = outs["placed"], outs["unplaced"]
+    same = a["transcripts"] == b["transcripts"] and a["audio"].shape == b["audio"].shape
+    diff = float(np.abs(a["audio"] - b["audio"]).max()) if same else float("inf")
+    tts = backend.engines.tts
+    cfg = tts.cfg.vocoder
+    mel = torch.randn((1, 500, cfg.n_mels), generator=torch.Generator(device=dev).manual_seed(5),
+                      device=dev).to(tts.dtype)
+    one_slot = pmesh.make_mesh(pmesh.MeshSpec(dp=1, tp=1), devices=[dev])
+    before = cuda_vocoder.fused_resblock_stage.launches
+    sp_equal = torch.equal(cvm.vocode_sp(tts.params["vocoder"], cfg, mel, one_slot, "dp"),
+                           cvm.vocode(tts.params["vocoder"], cfg, mel))
+    sp_launches = (cuda_vocoder.fused_resblock_stage.launches - before) // 2
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    pmesh.maybe_initialize_distributed(
+        MeshConfig(coordinator=f"127.0.0.1:{port}", num_processes=1, process_id=0))
+    dist = torch.distributed
+    ones = torch.ones(4, device=dev)
+    dist.all_reduce(ones)
+    torch.cuda.synchronize()
+    nccl = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "all_reduce": ones.tolist(), "seconds": time.perf_counter() - t0}
+    dist.destroy_process_group()
+    out = {"placement": info, "request_s": walls, "transcripts_equal": same,
+           "max_audio_diff": diff, "launches": launches, "vocode_sp_equal": sp_equal,
+           "vocode_sp_resblock_launches": sp_launches, "nccl": nccl,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  placement {info}; 10 s request placed {walls['placed']:.3f} s, unplaced "
+          f"{walls['unplaced']:.3f} s, transcripts and length equal {same}, max |audio diff| "
+          f"{diff:.3g} (gate {PARALLEL_ATOL:g}); launches {launches}; vocode_sp over one slot "
+          f"equal to vocode {sp_equal} (resblock {sp_launches} a call); NCCL world "
+          f"{nccl['world']} ({nccl['backend']}) all_reduce {nccl['all_reduce']} in "
+          f"{nccl['seconds']:.2f} s; phase {out['seconds']:.1f} s  [{card}]", flush=True)
+    if (not same or diff > PARALLEL_ATOL or not sp_equal or nccl["all_reduce"] != [1.0] * 4
+            or min(launches[k] for k in MAIN_PATH_KERNELS) <= 0):
+        raise AssertionError(f"parallel phase: {out}")
+    report["parallel"] = out
+    return out
+
+
 def _bound_by(flops, peak_rate, nbytes):
     return "operations" if flops / peak_rate >= nbytes / PEAK_BYTES else "bytes"
 
 
 def _launches(name, e2e, front, serve, lipsync, diff2lip, services, batched, stream, mtp,
-              official, ckpt, alt, tools, train, diag) -> dict:
+              official, ckpt, alt, tools, train, diag, par) -> dict:
     """A kernel's launch count on each path driven: the three single
     requests, the detection of the 10 s request, the frontend's upload and
     video request, the serve phase's routes, the lip-sync render and its
@@ -5177,7 +5259,8 @@ def _launches(name, e2e, front, serve, lipsync, diff2lip, services, batched, str
     the 10 s request served from the bake, the alternate phase's ESPnet
     request (Seamless launches none), the tools phase's translate,
     verify-quality and batch runner, the train phase's export round trip
-    (training itself launches none) and the diagnostics report."""
+    (training itself launches none), the diagnostics report and the
+    stage-placed 10 s request of the parallel phase."""
     return {"single": e2e["launches"][name], "detect": e2e["detect"]["launches"][name],
             "frontend": front["launches"][name], "serve": serve["launches"][name],
             "lipsync": lipsync["launches"][name], "diff2lip": diff2lip["launches"][name],
@@ -5186,11 +5269,11 @@ def _launches(name, e2e, front, serve, lipsync, diff2lip, services, batched, str
             "mtp": mtp["launches"][name], "official": official["launches"][name],
             "checkpoints": ckpt["launches"][name], "alternate": alt["launches"][name],
             "tools": tools["launches"][name], "train": train["launches"][name],
-            "diagnostics": diag["launches"][name]}
+            "diagnostics": diag["launches"][name], "parallel": par["launches"][name]}
 
 
 def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff2lip, services,
-                  batched, stream, mtp, official, ckpt, alt, tools, train, diag):
+                  batched, stream, mtp, official, ckpt, alt, tools, train, diag, par):
     """A decode kernel's entry: its first (bf16, B=1 or the first listed)
     shape's times; the library call is null (no single PyTorch call computes
     the fused function) and the cuBLAS chain's time rides beside it."""
@@ -5199,7 +5282,7 @@ def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff
             "replaces": f"{REFERENCE}/{replaces}", "launches": e2e["launches"][name],
             "launches_by_path": _launches(name, e2e, front, serve, lipsync, diff2lip, services,
                                           batched, stream, mtp, official, ckpt, alt, tools,
-                                          train, diag),
+                                          train, diag, par),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
             "bound_by": _bound_by(timed["gflop"] * 1e9, PEAK_BF16, timed["mbytes"] * 1e6),
@@ -5209,7 +5292,7 @@ def _decode_entry(name, source, replaces, rows, e2e, front, serve, lipsync, diff
 
 def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, serve, lipsync,
                  diff2lip, services, batched, stream, mtp, official, ckpt, alt, tools, train,
-                 diag):
+                 diag, par):
     """One entry per kernel. ``launches`` counts the three single requests;
     ``launches_by_path`` adds the detection, the batched requests and the
     streamed ones.
@@ -5231,7 +5314,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "launches": e2e["launches"]["log_mel_frames"],
          "launches_by_path": _launches("log_mel_frames", e2e, front, serve, lipsync, diff2lip,
                                        services, batched, stream, mtp, official, ckpt, alt,
-                                       tools, train, diag),
+                                       tools, train, diag, par),
          "max_abs_err": mel["max_abs_err"],
          "ms": mel["ms"], "plain_ms": mel["plain_ms"], "bound_ms": mel["bound_ms"],
          "bound_by": _bound_by(mel["gflop"] * 1e9, PEAK_FP32, mel["mbytes"] * 1e6),
@@ -5242,7 +5325,7 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "launches": e2e["launches"]["fused_resblock_stage"],
          "launches_by_path": _launches("fused_resblock_stage", e2e, front, serve, lipsync,
                                        diff2lip, services, batched, stream, mtp, official, ckpt,
-                                       alt, tools, train, diag),
+                                       alt, tools, train, diag, par),
          "max_abs_err": max(r["max_abs_err"] for r in res_rows),
          "ms": sum(r["ms"] for r in serving), "plain_ms": sum(r["plain_ms"] for r in serving),
          "bound_ms": sum(r["bound_ms"] for r in serving),
@@ -5257,13 +5340,13 @@ def kernels_line(mel_rows, res_rows, mv_rows, mlp_rows, int4_rows, e2e, front, s
          "stream_bound_ms": sum(r["bound_ms"] for r in streamed)},
         _decode_entry("fused_ln_matvec", "decode.cu", "ops/pallas_decode.py:124", mv_rows, e2e,
                       front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
-                      ckpt, alt, tools, train, diag),
+                      ckpt, alt, tools, train, diag, par),
         _decode_entry("fused_ln_mlp", "decode.cu", "ops/pallas_decode.py:209", mlp_rows, e2e,
                       front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
-                      ckpt, alt, tools, train, diag),
+                      ckpt, alt, tools, train, diag, par),
         _decode_entry("matmul_int4", "int4.cu", "ops/pallas_int4.py:94", int4_rows, e2e,
                       front, serve, lipsync, diff2lip, services, batched, stream, mtp, official,
-                      ckpt, alt, tools, train, diag),
+                      ckpt, alt, tools, train, diag, par),
     ]
 
 
@@ -5318,6 +5401,7 @@ def main() -> int:
     tools = tools_phase(dev, report, card, backend)
     train = train_phase(dev, report, card)
     diag = diagnostics_phase(dev, report, card)
+    par = parallel_phase(dev, report, card, backend)
     report["seconds"] = time.perf_counter() - t_start
     print(f"== done in {report['seconds']:.1f} s", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -5325,7 +5409,7 @@ def main() -> int:
         json.dump(report, f, indent=1)
     print(json.dumps({"kernels": kernels_line(*kernel_rows, e2e, front, serve, lipsync, diff2lip,
                                               services, batched, stream, mtp, official, ckpt,
-                                              alt, tools, train, diag)}))
+                                              alt, tools, train, diag, par)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

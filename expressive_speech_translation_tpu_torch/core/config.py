@@ -157,8 +157,9 @@ class EngineConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh layout (the JAX package's sharding section, kept so one
-    file configures either package; this package runs on one card).
+    """Device mesh layout (the JAX package's sharding section; one file
+    configures either package). ``coordinator`` / ``num_processes`` /
+    ``process_id`` join hosts in ``parallel.mesh.maybe_initialize_distributed``.
 
     ``dp`` of -1 means "fill with all remaining devices"."""
 

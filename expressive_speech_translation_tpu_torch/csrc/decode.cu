@@ -56,6 +56,8 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
 #include <stdint.h>
 
 namespace cg = cooperative_groups;
@@ -818,30 +820,47 @@ __global__ void __launch_bounds__(THREADS)
 
 // ---------------------------------------------------------------------- host
 
+// Per device (the card the calling thread has current): a launch on any card
+// plans for that card.
+constexpr int kMaxDevices = 64;
+
+int current_device() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev;
+}
+
 int sm_count() {
-  static int n = 0;
+  static std::atomic<int> cached[kMaxDevices];
+  const int dev = current_device();
+  if (dev < 0 || dev >= kMaxDevices) return 132;
+  int n = cached[dev].load(std::memory_order_acquire);
   if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (n <= 0) n = 132;
+    cached[dev].store(n, std::memory_order_release);
   }
   return n;
 }
 
-// Once per kernel: let its launches take up to the card's opt-in maximum of
-// dynamic shared memory (no CUDA API call per launch, and none inside a CUDA
-// graph capture).
+// Once per kernel and card: let its launches on the current card take up to
+// that card's opt-in maximum of dynamic shared memory (the attribute is set
+// per device; no CUDA API call per launch, and none inside a CUDA graph
+// capture once the card has launched the kernel).
 template <auto Kernel>
 int allow_smem() {
-  static const int status = [] {
-    int dev = 0, optin = 0;
-    cudaGetDevice(&dev);
+  static std::atomic<int> status[kMaxDevices];  // 0: not set yet, else 1 + cudaError_t
+  const int dev = current_device();
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int s = status[dev].load(std::memory_order_acquire);
+  if (s == 0) {
+    int optin = 0;
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    return static_cast<int>(
+    s = 1 + static_cast<int>(
         cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin));
-  }();
-  return status;
+    status[dev].store(s, std::memory_order_release);
+  }
+  return s - 1;
 }
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }

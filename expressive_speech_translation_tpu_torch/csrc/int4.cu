@@ -62,6 +62,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
 #include <stdint.h>
 #include <string.h>
 
@@ -80,13 +82,25 @@ struct Args {
   int nb, K, N, ks;
 };
 
+// Per device (the card the calling thread has current): a launch on any card
+// plans for that card.
+constexpr int kMaxDevices = 64;
+
+int current_device() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev;
+}
+
 int sm_count() {
-  static int n = 0;
+  static std::atomic<int> cached[kMaxDevices];
+  const int dev = current_device();
+  if (dev < 0 || dev >= kMaxDevices) return 132;
+  int n = cached[dev].load(std::memory_order_acquire);
   if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (n <= 0) n = 132;
+    cached[dev].store(n, std::memory_order_release);
   }
   return n;
 }
@@ -103,19 +117,24 @@ int slice_rows(int kh, int N, int unit, int cap) {
   return ks < unit ? unit : ks;
 }
 
-// Once per kernel: let its launches take up to the card's opt-in maximum of
-// dynamic shared memory (no CUDA API call per launch, and none inside a CUDA
-// graph capture).
+// Once per kernel and card: let its launches on the current card take up to
+// that card's opt-in maximum of dynamic shared memory (the attribute is set
+// per device; no CUDA API call per launch, and none inside a CUDA graph
+// capture once the card has launched the kernel).
 template <auto Kernel>
 int allow_smem() {
-  static const int status = [] {
-    int dev = 0, optin = 0;
-    cudaGetDevice(&dev);
+  static std::atomic<int> status[kMaxDevices];  // 0: not set yet, else 1 + cudaError_t
+  const int dev = current_device();
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int s = status[dev].load(std::memory_order_acquire);
+  if (s == 0) {
+    int optin = 0;
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    return static_cast<int>(
+    s = 1 + static_cast<int>(
         cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin));
-  }();
-  return status;
+    status[dev].store(s, std::memory_order_release);
+  }
+  return s - 1;
 }
 
 // out[b][n] = T((sum_s part[s][b][n]) * scale[n]), slices in order. Launched

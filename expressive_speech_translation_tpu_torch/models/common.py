@@ -11,7 +11,11 @@ parameter trees carry over unchanged (:func:`tree_from_numpy`):
   which saves a cache copy per step;
 - weight-only int8 decode (``quantize_*``): int8 codes with per-channel f32
   scales, multiplied in the activations' dtype by ``torch.matmul``, as the
-  JAX package leaves the convert to XLA (no kernel of its own).
+  JAX package leaves the convert to XLA (no kernel of its own);
+- tensor parallelism: a leaf placed by ``parallel/partition.py`` may be a
+  ``Shards`` split over a group's cards; :func:`dense`,
+  :func:`tied_head_logits` and :func:`embed_rows` compute over its parts and
+  return to the activations' device (:func:`transformer_partition_rules`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.partition import PartitionRules, Shards, matmul, whole
 
 Params = Dict[str, Any]
 
@@ -41,6 +47,16 @@ def tree_from_numpy(tree, device, dtype=None):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t
+
+
+def tree_to(tree, device):
+    """A nested dict/list tree of tensors on ``device`` (a tensor already
+    there is kept, not copied)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device) if torch.is_tensor(tree) else tree
 
 
 def state_tensor(value, device) -> torch.Tensor:
@@ -128,6 +144,8 @@ def cast_floats(tree, dtype):
         return [cast_floats(v, dtype) for v in tree]
     if torch.is_tensor(tree) and tree.is_floating_point():
         return tree.to(dtype)
+    if isinstance(tree, Shards) and tree.dtype.is_floating_point:
+        return tree.map(lambda t: t.to(dtype))
     return tree
 
 
@@ -191,13 +209,15 @@ class Init:
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
     """``x @ kernel + bias``; a weight-only int8 layer (``kernel_q``, see
     :func:`quantize_dense`) multiplies by its codes in x's dtype and applies
-    the per-output-channel scale after the product."""
+    the per-output-channel scale after the product. A sharded kernel
+    computes on its cards and returns to x's (``parallel.partition.matmul``);
+    a sharded scale or bias is applied whole there."""
     if "kernel_q" in p:
-        y = (x @ p["kernel_q"].to(x.dtype)) * p["scale"].to(x.dtype)
+        y = matmul(x, p["kernel_q"]) * whole(p["scale"]).to(x.dtype)
     else:
-        y = x @ p["kernel"]
+        y = matmul(x, p["kernel"])
     if "bias" in p:
-        y = y + p["bias"]
+        y = y + whole(p["bias"])
     return y
 
 
@@ -240,8 +260,19 @@ def tied_head_logits(container: Params, x: torch.Tensor, embed: torch.Tensor) ->
     copy when ``container`` holds ``embed_q`` (:func:`quantize_embed_head`)."""
     if "embed_q" in container:
         eq = container["embed_q"]
-        return (x @ eq["q"].T.to(x.dtype)) * eq["scale"].to(x.dtype)
-    return x @ embed.T
+        return matmul(x, eq["q"], transpose=True) * whole(eq["scale"]).to(x.dtype)
+    return matmul(x, embed, transpose=True)
+
+
+def embed_rows(table, ids) -> torch.Tensor:
+    """``table[ids]``; rows of a hidden-sharded table (split along dim 1)
+    are gathered on every slot and concatenated on the lead."""
+    if not isinstance(table, Shards):
+        return table[ids.long() if torch.is_tensor(ids) else ids]
+    if table.dim != 1:
+        raise ValueError(f"embedding rows of a table split along dim {table.dim}")
+    rows = [p[ids.to(p.device).long() if torch.is_tensor(ids) else ids] for p in table.parts]
+    return torch.cat([r.to(table.device) for r in rows], dim=-1)
 
 
 def layer_norm(p: Params, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
@@ -356,3 +387,26 @@ def init_decoder_kv_cache(n_layers: int, batch: int, max_len: int, heads: int,
     shape = (batch, max_len, heads, head_dim)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)} for _ in range(n_layers)]
+
+
+# ------------------------------------------------------------------ parallelism
+
+
+def transformer_partition_rules(tp_axis: str = "tp") -> PartitionRules:
+    """Megatron-style TP layout of the shared pre-LN blocks (whisper and
+    NLLB share these paths): column-parallel q/k/v and fc1, row-parallel o
+    and fc2, a hidden-sharded tied embedding whose logit product contracts
+    over the shards and sums. int8 layouts (``kernel_q`` and per-channel
+    ``scale``) shard with their columns; row-parallel scales replicate."""
+    return PartitionRules(rules=(
+        (r"/(self_attn|cross_attn)/(q|k|v)/kernel(_q)?$", (None, tp_axis)),
+        (r"/(self_attn|cross_attn)/(q|k|v)/scale$", (None, tp_axis)),
+        (r"/(self_attn|cross_attn)/(q|k|v)/bias$", (tp_axis,)),
+        (r"/(self_attn|cross_attn)/o/kernel(_q)?$", (tp_axis, None)),
+        (r"/mlp/fc1/kernel(_q)?$", (None, tp_axis)),
+        (r"/mlp/fc1/scale$", (None, tp_axis)),
+        (r"/mlp/fc1/bias$", (tp_axis,)),
+        (r"/mlp/fc2/kernel(_q)?$", (tp_axis, None)),
+        (r"embed_q/q$", (None, tp_axis)),
+        (r"(^|/)embed$", (None, tp_axis)),
+    ))

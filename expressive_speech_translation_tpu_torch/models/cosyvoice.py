@@ -40,8 +40,10 @@ import torch.nn.functional as F
 from ..core.device import resolve_device
 from ..ops import cuda_vocoder
 from . import qwen2 as q2
-from .common import (AttnConfig, Init, Params, dense, layer_norm, linear_from_state, merge_heads,
-                     mlp, quantize_dense, split_heads, state_tensor, tree_from_numpy)
+from ..parallel.partition import PartitionRules
+from .common import (AttnConfig, Init, Params, dense, embed_rows, layer_norm, linear_from_state,
+                     merge_heads, mlp, quantize_dense, split_heads, state_tensor, tree_from_numpy,
+                     tree_to)
 
 
 # ===================================================================== noise
@@ -173,10 +175,10 @@ def build_prompt_embeddings(params: Params, cfg: SpeechLMConfig, text_tokens: to
     the mask, so a text shorter than its bucket leaves no hole."""
     b = text_tokens.shape[0]
     emb_table = params["speech_embed"]
-    sos = emb_table[cfg.sos_index][None, None, :].expand(b, 1, -1)
-    task = emb_table[cfg.task_index][None, None, :].expand(b, 1, -1)
-    text_e = params["text_embed"][text_tokens.long()] * text_mask[..., None]
-    sp_e = emb_table[prompt_speech.long()] * prompt_speech_mask[..., None]
+    sos = embed_rows(emb_table, cfg.sos_index)[None, None, :].expand(b, 1, -1)
+    task = embed_rows(emb_table, cfg.task_index)[None, None, :].expand(b, 1, -1)
+    text_e = embed_rows(params["text_embed"], text_tokens) * text_mask[..., None]
+    sp_e = embed_rows(emb_table, prompt_speech) * prompt_speech_mask[..., None]
     emb = torch.cat([sos, text_e, task, sp_e], dim=1)
     ones = torch.ones((b, 1), dtype=torch.bool, device=emb.device)
     mask = torch.cat([ones, text_mask, ones, prompt_speech_mask], dim=1)
@@ -279,7 +281,7 @@ def generate_speech_tokens(params: Params, cfg: SpeechLMConfig, noise: NoiseSour
         # the cache slot is the shared p_len + i; each row attends to its
         # valid prompt K/V only and rotates at its true continuation position
         h = q2.decode_step(params["backbone"], cfg.backbone,
-                           params["speech_embed"][nxt.long()][:, None, :], p_len + i, cache,
+                           embed_rows(params["speech_embed"], nxt)[:, None, :], p_len + i, cache,
                            rope_pos=last_idx + 1 + i, prompt_len=last_idx + 1,
                            prompt_capacity=p_len)
     lengths = (tokens != cfg.eos_speech).to(torch.int32).sum(dim=1)
@@ -331,7 +333,8 @@ def generate_speech_tokens_mtp(params: Params, cfg: SpeechLMConfig, noise: Noise
         recent = torch.cat([recent, new], dim=1)[:, -cfg.win_size:]
         if i == n_iters - 1 or bool(done.all()):
             break
-        h = q2.decode_span(params["backbone"], cfg.backbone, params["speech_embed"][new.long()],
+        h = q2.decode_span(params["backbone"], cfg.backbone,
+                           embed_rows(params["speech_embed"], new),
                            p_len + i * k_mtp, cache, rope_pos=last_idx + 1 + i * k_mtp,
                            prompt_len=last_idx + 1, prompt_capacity=p_len)[:, -1, :]
     tokens = tokens[:, :max_new_tokens]
@@ -390,7 +393,7 @@ def generate_speech_tokens_spec(params: Params, cfg: SpeechLMConfig, noise: Nois
             drafts.append(d)
         span = torch.stack([pending] + drafts, dim=1)                      # [1, K]
         h_span = q2.decode_span(params["backbone"], cfg.backbone,
-                                params["speech_embed"][span.long()], p_len + n - 1, cache,
+                                embed_rows(params["speech_embed"], span), p_len + n - 1, cache,
                                 rope_pos=last_idx + n, prompt_len=last_idx + 1,
                                 prompt_capacity=p_len)
         verifier = dense(params["head"], h_span)                          # [1, K, V]
@@ -668,6 +671,61 @@ def vocode(params: Params, cfg: VocoderConfig, mel: torch.Tensor) -> torch.Tenso
     return x[:, 0, :]
 
 
+def vocoder_halo_frames(cfg: VocoderConfig, pre_width: int = 7, post_width: int = 7) -> int:
+    """The vocoder's receptive field in mel frames, one side: how far a
+    frame reaches into the waveform of its neighbours. Worked back from the
+    output: ``conv_post``'s reach, then per stage (last first) the widest
+    resblock branch's (Σ over its dilations d of d·(k − 1)/2 for the
+    dilated conv plus (k − 1)/2 for the plain one), carried through the
+    transposed conv to its input rate (⌈(reach + kernel) / rate⌉ + 1), then
+    ``conv_pre``'s. 16 frames at the default :class:`VocoderConfig`
+    (kernels 16/12/20, rates 8/6/10, resblock kernels 3/7/11 at dilations
+    1/3/5, 7-wide pre and post convs)."""
+    reach = (post_width - 1) // 2
+    for rate, kernel in zip(reversed(cfg.upsample_rates), reversed(cfg.upsample_kernels)):
+        reach += max(sum(d * (k - 1) // 2 + (k - 1) // 2 for d in dils)
+                     for k, dils in zip(cfg.resblock_kernels, cfg.resblock_dilations))
+        reach = -(-(reach + kernel) // rate) + 1
+    return reach + (pre_width - 1) // 2
+
+
+def vocode_sp(params: Params, cfg: VocoderConfig, mel: torch.Tensor, mesh,
+              axis: str) -> torch.Tensor:
+    """Sequence-parallel vocoding: the mel's time axis cut into ``n =
+    mesh.shape[axis]`` windows, one a device (the leads of the dp groups
+    for ``axis="dp"``, the slots of group 0 for ``"tp"``), each with a halo
+    of :func:`vocoder_halo_frames` frames on either side; each window is
+    vocoded on its device by :func:`vocode` (its narrow stages launch the
+    resblock kernel on that card), the halos trimmed, the windows
+    concatenated on the first device. This process must own those slots.
+
+    As the JAX package's ``vocode_sp``: T is zero-padded to a multiple of n
+    and the waveform trimmed to T·hop, so the padded frames reach into the
+    trailing receptive field exactly as they do there; with T divisible by
+    n the result is :func:`vocode`'s. The long-audio path: the vocoder is
+    the only stage whose cost is a pure function of audio length."""
+    from ..parallel.mesh import owned, run_per_group
+
+    slots = owned(mesh.devices[:, 0] if axis == "dp" else mesh.devices[0, :])
+    n = mesh.shape[axis]
+    t = mel.shape[1]
+    pad = (-t) % n
+    if pad:
+        mel = F.pad(mel, (0, 0, 0, pad))
+    width, halo, hop = mel.shape[1] // n, vocoder_halo_frames(cfg), cfg.hop
+    lead = slots[0].device
+
+    def window(i: int) -> torch.Tensor:
+        dev = slots[i].device
+        lo, hi = max(i * width - halo, 0), min((i + 1) * width + halo, mel.shape[1])
+        wave = vocode(tree_to(params, dev), cfg, mel[:, lo:hi].to(dev))
+        keep = (i * width - lo) * hop
+        return wave[:, keep: keep + width * hop].to(lead)
+
+    wave = torch.cat(run_per_group(window, [(i,) for i in range(n)]), dim=1)
+    return wave[:, : t * hop] if pad else wave
+
+
 # ============================================================== full model
 
 
@@ -800,6 +858,22 @@ def from_cosyvoice_llm_state_dict(state, cfg: SpeechLMConfig, device=None) -> Pa
                                       dev)}
 
 
+def speech_lm_partition_rules(tp_axis: str = "tp") -> PartitionRules:
+    """TP rules for the whole speech LM: the backbone's
+    (``qwen2.partition_rules``), hidden-split embedding tables and a
+    vocab-parallel output head; the MTP heads are extra [H, V] heads,
+    vocab-parallel like the main one (paths ``mtp_heads/0/kernel``)."""
+    return PartitionRules(rules=q2.partition_rules(tp_axis).rules + (
+        (r"(text_embed|speech_embed)$", (None, tp_axis)),
+        (r"head/kernel(_q)?$", (None, tp_axis)),
+        (r"head/scale$", (None, tp_axis)),
+        (r"head/bias$", (tp_axis,)),
+        (r"mtp_heads/\d+/kernel(_q)?$", (None, tp_axis)),
+        (r"mtp_heads/\d+/scale$", (None, tp_axis)),
+        (r"mtp_heads/\d+/bias$", (tp_axis,)),
+    ))
+
+
 def quantize_speech_lm(params: Params) -> Params:
     """int8 weights for the speech LM's decode: every backbone dense layer,
     the head and the MTP heads; the embedding tables and norms stay float."""
@@ -878,7 +952,7 @@ def lm_stream_chunk(params: Params, cfg: SpeechLMConfig, noise: NoiseSource, sta
                                          min_new_tokens, draw=j)
         tokens[:, j] = nxt
         h = q2.decode_step(params["backbone"], cfg.backbone,
-                           params["speech_embed"][nxt.long()][:, None, :], p_len + step, cache,
+                           embed_rows(params["speech_embed"], nxt)[:, None, :], p_len + step, cache,
                            rope_pos=last_idx + 1 + step, prompt_len=last_idx + 1,
                            prompt_capacity=p_len)
         step += 1

@@ -19,7 +19,8 @@ import torch
 
 from ..core.device import resolve_device
 from .beam import BeamConfig, beam_search, greedy_search
-from .common import (AttnConfig, Init, Params, cast_floats, hf_pre_ln_block, hf_state_getter,
+from .common import (AttnConfig, Init, Params, cast_floats, embed_rows, hf_pre_ln_block,
+                     hf_state_getter,
                      init_decoder_kv_cache, layer_norm, mha, mha_step, mlp,
                      precompute_layer_cross_kv, quantize_embed_head, quantize_transformer_blocks,
                      state_tensor, tied_head_logits, tree_from_numpy)
@@ -124,7 +125,7 @@ def encode(params: Params, cfg: NLLBConfig, tokens: torch.Tensor) -> torch.Tenso
             f"(max_positions={cfg.max_positions})")
     scale = float(np.sqrt(cfg.d_model))
     pos_ids = position_ids_from_tokens(tokens, cfg.pad_token)
-    x = params["embed"][tokens.long()] * scale + params["pos"][pos_ids]
+    x = embed_rows(params["embed"], tokens) * scale + params["pos"][pos_ids]
     pad_mask = (tokens != cfg.pad_token)[:, None, None, :]
     for block in params["encoder"]["layers"]:
         h = layer_norm(block["self_attn_ln"], x)
@@ -139,7 +140,7 @@ def decode_step(params: Params, cfg: NLLBConfig, token: torch.Tensor, pos: int, 
     """One cached decoder step → logits [B, vocab]. Generated tokens are never
     pad, so the position id is pos + 1 + padding_idx."""
     scale = float(np.sqrt(cfg.d_model))
-    x = (params["embed"][token.long()][:, None, :] * scale
+    x = (embed_rows(params["embed"], token)[:, None, :] * scale
          + params["pos"][pos + 1 + cfg.pad_token][None, None, :])
     for block, cache, (ck, cv) in zip(params["decoder"]["layers"], kv_cache, cross_kv):
         h = layer_norm(block["self_attn_ln"], x)
@@ -199,3 +200,12 @@ def quantize_nllb_decoder(params: Params) -> Params:
     dec = dict(params["decoder"])
     dec["layers"] = quantize_transformer_blocks(dec["layers"])
     return {**params, "decoder": dec, "embed_q": quantize_embed_head(params["embed"])}
+
+
+def nllb_partition_rules(tp_axis: str = "tp"):
+    """TP rules for NLLB/M2M100: the same shared-block Megatron layout
+    (``common.transformer_partition_rules``); sinusoid positions and norms
+    replicate. Requires heads % tp == 0."""
+    from .common import transformer_partition_rules
+
+    return transformer_partition_rules(tp_axis)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..parallel.partition import PartitionRules
 from .common import Init, Params, dense, linear_from_state, state_tensor, tree_from_numpy
 
 
@@ -250,3 +251,22 @@ def decode_span(params: Params, cfg: Qwen2Config, x: torch.Tensor, pos: int, kv_
         x = x + dense(layer["o"], _attend(cfg, q, cache["k"], cache["v"], mask, x.dtype))
         x = x + _mlp(layer, _rms(layer["post_ln"], x, cfg.norm_eps))
     return _rms(params["ln_f"], x, cfg.norm_eps)
+
+
+# --------------------------------------------------------------- parallelism
+
+
+def partition_rules(tp_axis: str = "tp") -> PartitionRules:
+    """Megatron-style tensor-parallel layout of the backbone:
+    column-parallel q/k/v/gate/up (output features split over ``tp_axis``)
+    and row-parallel o/down (input features split). ``kernel(_q)`` covers
+    the float and the weight-only int8 layouts; the per-output-channel
+    scale [1, out] splits with the columns. Head math is local when
+    heads % tp == 0 and kv_heads % tp == 0; otherwise the gathered columns
+    are reshaped into heads on the lead, which is the same function."""
+    return PartitionRules(rules=(
+        (r"/(q|k|v|gate|up)/kernel(_q)?$", (None, tp_axis)),
+        (r"/(q|k|v|gate|up)/scale$", (None, tp_axis)),
+        (r"/(q|k|v)/bias$", (tp_axis,)),
+        (r"/(o|down)/kernel(_q)?$", (tp_axis, None)),
+    ))

@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
-from .common import (AttnConfig, Init, Params, cast_floats, dense, gelu, hf_pre_ln_block,
+from .common import (AttnConfig, Init, Params, cast_floats, dense, embed_rows, gelu,
+                     hf_pre_ln_block,
                      hf_state_getter, init_decoder_kv_cache, layer_norm, merge_heads, mha,
                      mha_step, mlp,
                      precompute_layer_cross_kv, quantize_embed_head,
@@ -187,7 +188,7 @@ def decode_step_with_attn(params: Params, cfg: WhisperConfig, token: torch.Tenso
     head-mean cross-attention weights averaged over the upper half of the
     layers (whisper's alignment heads convention)."""
     dec = params["decoder"]
-    x = dec["embed"][token.long()][:, None, :] + dec["pos"][pos][None, None, :]
+    x = embed_rows(dec["embed"], token)[:, None, :] + dec["pos"][pos][None, None, :]
     attn_maps = []
     for block, cache, (ck, cv) in zip(dec["layers"], kv_cache, cross_kv):
         h = layer_norm(block["self_attn_ln"], x)
@@ -384,3 +385,12 @@ def dtw_token_times(alignment: np.ndarray, n_tokens: int, audio_seconds: float) 
             j -= 1
     frames_per_second = (m / 30.0) if audio_seconds <= 0 else m / max(audio_seconds, 1e-6)
     return first_frame / frames_per_second
+
+
+def whisper_partition_rules(tp_axis: str = "tp"):
+    """TP rules for whisper: the shared-block Megatron layout
+    (``common.transformer_partition_rules``); the conv stem, positions and
+    norms replicate. Requires heads % tp == 0."""
+    from .common import transformer_partition_rules
+
+    return transformer_partition_rules(tp_axis)

@@ -283,9 +283,11 @@ def fused_ln_matvec(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     out = torch.empty((bsz, n), dtype=x.dtype, device=x.device)
     if bsz == 0:
         return out
-    status = _lib().est_ln_matvec(x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
-                                  w.data_ptr(), b32.data_ptr(), out.data_ptr(), bsz, d, n,
-                                  NORMS[norm], eps, int(x.dtype == torch.bfloat16), _stream(x))
+    with torch.cuda.device(x.device):    # the C side plans and sets attributes on the current card
+        status = _lib().est_ln_matvec(x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
+                                      w.data_ptr(), b32.data_ptr(), out.data_ptr(), bsz, d, n,
+                                      NORMS[norm], eps, int(x.dtype == torch.bfloat16),
+                                      _stream(x))
     build.check(status, "fused_ln_matvec")
     fused_ln_matvec.launches += 1
     return out
@@ -327,11 +329,12 @@ def fused_ln_mlp(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if bsz == 0:
         return out
     u = torch.empty((min(bsz, MAX_NB), f), dtype=x.dtype, device=x.device)
-    status = _lib().est_ln_mlp(x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
-                               w_packed.data_ptr(), b1_32.data_ptr(), b2_32.data_ptr(),
-                               out.data_ptr(), u.data_ptr(), bsz, d, f, NORMS[norm], eps,
-                               ACTIVATIONS[activation], int(gated), int(residual),
-                               int(x.dtype == torch.bfloat16), _stream(x))
+    with torch.cuda.device(x.device):
+        status = _lib().est_ln_mlp(x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
+                                   w_packed.data_ptr(), b1_32.data_ptr(), b2_32.data_ptr(),
+                                   out.data_ptr(), u.data_ptr(), bsz, d, f, NORMS[norm], eps,
+                                   ACTIVATIONS[activation], int(gated), int(residual),
+                                   int(x.dtype == torch.bfloat16), _stream(x))
     build.check(status, "fused_ln_mlp")
     fused_ln_mlp.launches += 1
     return out

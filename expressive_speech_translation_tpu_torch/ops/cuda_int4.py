@@ -112,19 +112,20 @@ def matmul_int4(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> t
             raise ValueError(f"int4 {name} must be contiguous, 16-byte aligned, on {x.device}")
     if scale.device != x.device:
         raise ValueError(f"int4 scale must be on {x.device}")
-    lib = _lib()
-    bf16 = int(variant(x.dtype) == "tensor-core")
-    if lib.est_int4_smem(bsz, k, n, bf16) > SMEM_OPTIN_BYTES:
-        raise ValueError(f"matmul_int4: K={k} does not fit a block's shared memory")
-    scale32 = scale.reshape(-1).float().contiguous()
-    out = torch.empty((bsz, n), dtype=x.dtype, device=x.device)
-    if bsz == 0:
-        return out
-    part = torch.empty((max(1, lib.est_int4_scratch_floats(bsz, k, n, bf16)),),
-                       dtype=torch.float32, device=x.device)
-    status = lib.est_matmul_int4(x.data_ptr(), packed.data_ptr(), scale32.data_ptr(),
-                                 out.data_ptr(), part.data_ptr(), bsz, k, n, bf16,
-                                 torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):    # the C side plans and sets attributes on the current card
+        lib = _lib()
+        bf16 = int(variant(x.dtype) == "tensor-core")
+        if lib.est_int4_smem(bsz, k, n, bf16) > SMEM_OPTIN_BYTES:
+            raise ValueError(f"matmul_int4: K={k} does not fit a block's shared memory")
+        scale32 = scale.reshape(-1).float().contiguous()
+        out = torch.empty((bsz, n), dtype=x.dtype, device=x.device)
+        if bsz == 0:
+            return out
+        part = torch.empty((max(1, lib.est_int4_scratch_floats(bsz, k, n, bf16)),),
+                           dtype=torch.float32, device=x.device)
+        status = lib.est_matmul_int4(x.data_ptr(), packed.data_ptr(), scale32.data_ptr(),
+                                     out.data_ptr(), part.data_ptr(), bsz, k, n, bf16,
+                                     torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "matmul_int4")
     matmul_int4.launches += 1
     return out

@@ -146,10 +146,11 @@ def log_mel_frames(audio: torch.Tensor, n_mels: int, chunk_samples: int) -> torc
         raise ValueError("log-mel kernel takes a contiguous waveform")
     window, twiddles, bands, band_w = _kernel_tables(n_mels, audio.device)
     out = torch.empty((n_frames, n_mels), dtype=torch.float32, device=audio.device)
-    status = (_entry or _bind())(
-        x.data_ptr(), x.shape[0], chunk_samples, window.data_ptr(), twiddles.data_ptr(),
-        bands.data_ptr(), band_w.data_ptr(), n_mels, out.data_ptr(),
-        torch.cuda.current_stream(audio.device).cuda_stream)
+    with torch.cuda.device(audio.device):
+        status = (_entry or _bind())(
+            x.data_ptr(), x.shape[0], chunk_samples, window.data_ptr(), twiddles.data_ptr(),
+            bands.data_ptr(), band_w.data_ptr(), n_mels, out.data_ptr(),
+            torch.cuda.current_stream(audio.device).cuda_stream)
     build.check(status, "log_mel_frames")
     log_mel_frames.launches += 1
     return out

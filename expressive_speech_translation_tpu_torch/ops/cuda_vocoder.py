@@ -233,13 +233,14 @@ def fused_resblock_stage(x: torch.Tensor, weights: Tuple[torch.Tensor, torch.Ten
     n_dil = (ctypes.c_int * n)(*[len(d) for d in dilations])
     dil = (ctypes.c_int * (n * MAX_DILATIONS))(
         *[v for d in dilations for v in (list(d) + [0] * (MAX_DILATIONS - len(d)))])
-    status = lib.est_resblock_stage(
-        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), w.data_ptr(), b.data_ptr(),
-        bsz, t, c, *x.stride(), *out.stride(), halo, n,
-        ctypes.addressof(ks), ctypes.addressof(n_dil), ctypes.addressof(dil),
-        int(x.dtype == torch.bfloat16), 0 if wg else pl.window // 32,
-        pl.window if wg else 0, stage_margin(kernels, dilations),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):    # the C side sets attributes on the current card
+        status = lib.est_resblock_stage(
+            x.data_ptr(), out.data_ptr(), scratch.data_ptr(), w.data_ptr(), b.data_ptr(),
+            bsz, t, c, *x.stride(), *out.stride(), halo, n,
+            ctypes.addressof(ks), ctypes.addressof(n_dil), ctypes.addressof(dil),
+            int(x.dtype == torch.bfloat16), 0 if wg else pl.window // 32,
+            pl.window if wg else 0, stage_margin(kernels, dilations),
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "fused_resblock_stage")
     fused_resblock_stage.launches += 1
     return out

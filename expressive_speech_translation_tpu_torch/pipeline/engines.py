@@ -69,19 +69,25 @@ class Engines:
         return "fake"
 
     def placement_info(self) -> Dict[str, List[int]]:
-        """The CUDA device indices each stage's parameter tensors live on,
-        surfaced in /health/model. A stage with no parameters (a fake) or
-        whose tensors are all on the CPU lists none: the JAX package on the
-        CPU lists its CPU device, ``[0]``. Placement is fixed once the
-        engines are built, so the walk runs once and is cached."""
+        """The devices each stage's parameter tensors live on, surfaced in
+        /health/model: a stage placed on a mesh lists the ids of the mesh
+        slots its trees occupy (``slot_ids``; on the card a slot's id is its
+        CUDA index), any other the CUDA indices of its tensors. A stage with
+        no parameters (a fake) or whose tensors are all on the CPU lists
+        none: the JAX package on the CPU lists its CPU device, ``[0]``.
+        Placement is fixed once the engines are built, so the walk runs once
+        and is cached."""
         cached = getattr(self, "_placement_cache", None)
         if cached is not None:
             return cached
         out: Dict[str, List[int]] = {}
         for stage, e in _stages(self):
-            devices: set = set()
-            _cuda_indices(getattr(e, "params", None), devices)
-            out[stage] = sorted(devices)
+            ids = getattr(e, "slot_ids", None)
+            if ids is None:
+                devices: set = set()
+                _cuda_indices(getattr(e, "params", None), devices)
+                ids = sorted(devices)
+            out[stage] = list(ids)
         self._placement_cache = out
         return out
 

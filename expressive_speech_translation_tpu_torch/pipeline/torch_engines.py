@@ -18,7 +18,12 @@ Port of the JAX package's ``pipeline/jax_engines.py`` single-request path:
   decoding, reconciled with the heads the tree carries as JAX does.
 
 Every engine takes ``quantize=True`` for int8 decode weights (after the
-dtype cast, as in JAX).
+dtype cast, as in JAX), and ``mesh=`` (``parallel/mesh.py``) to serve from
+a (dp, tp) group of cards: ASR and NMT under their partition rules, the TTS
+speech LM under the speech-LM rules, everything else on each group's lead;
+batched dispatches spread their rows over the dp groups
+(:func:`~..parallel.mesh.dp_slices`). ``torch_engines(stage_parallel=True)``
+gives each stage a disjoint group (``parallel/stages.py``).
 
 Each engine also serves a batch of requests in one device pass
 (``transcribe_batch``, ``translate_batch``, ``synthesize_batch``), padded to
@@ -36,9 +41,10 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import types
 import zlib
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +62,8 @@ from ..models.common import cast_floats
 from ..ops.cuda_mel import whisper_log_mel_fused
 from ..ops.mel import kaldi_fbank, whisper_log_mel
 from ..ops.resample import resample
+from ..parallel.mesh import TP_AXIS, dp_slices, run_per_group, shard_params
+from ..parallel.partition import slot_ids
 from ..serve.batching import BatchedAsr, BatchedNmt, BatchedTts
 from .engines import Engines
 from .languages import (NLLB_LANGUAGES, nllb_placeholder_lang_ids, whisper_lang_index,
@@ -86,10 +94,58 @@ def _fit_vocab(ids, vocab_size: int, weightless: bool, label: str) -> np.ndarray
     return arr
 
 
+def _home(mesh, device) -> torch.device:
+    """The device an engine makes its tensors on: under a mesh the lead of
+    the first dp group this process owns, else ``device`` resolved."""
+    if mesh is None:
+        return resolve_device(device)
+    local = mesh.local_groups()
+    if not local:
+        raise ValueError(f"no dp group of {mesh} belongs to this process")
+    return mesh.lead(local[0])
+
+
+class _Placed:
+    """Mesh placement shared by the engines. ``mesh=None`` serves from one
+    device. Under a mesh the engine's trees are placed on every dp group
+    this process owns (``parallel.mesh.shard_params``): the first group's
+    are the engine's own, on its ``device``. ``groups`` holds one placement
+    a group, each with ``device`` and the placed trees: the engine itself
+    for the first, a namespace for each further one. A batched dispatch
+    hands each group's placement its share of the rows (:meth:`_per_group`);
+    every setting is read from the engine."""
+
+    mesh = None
+
+    @property
+    def groups(self) -> list:
+        return self.__dict__.get("_groups", [self])
+
+    def _place(self, mesh, trees: Callable[[int], Dict[str, Any]]) -> None:
+        """``trees(group)`` → {attribute: that group's placed tree}."""
+        local = mesh.local_groups()
+        placed = {g: trees(g) for g in local}
+        groups = [self] + [types.SimpleNamespace(device=mesh.lead(g)) for g in local[1:]]
+        for entry, g in zip(groups, local):
+            for name, tree in placed[g].items():
+                setattr(entry, name, tree)
+        self.mesh, self._groups = mesh, groups
+        self.slot_ids = sorted({i for g, attrs in placed.items() for tree in attrs.values()
+                                for i in slot_ids(tree, mesh, g)})
+
+    def _per_group(self, rows: int, fn: Callable[[Any, int, int], Any]) -> list:
+        """``fn(group, lo, hi)`` for each group's share of ``rows`` batch
+        rows, one thread a group, the results in row order; a row count
+        the groups do not divide runs whole on the first."""
+        groups = self.groups
+        return run_per_group(fn, [(groups[i], lo, hi)
+                                  for i, lo, hi in dp_slices(range(len(groups)), rows)])
+
+
 # ========================================================================= ASR
 
 
-class TorchWhisperAsr:
+class TorchWhisperAsr(_Placed):
     """ASR engine: fused log-mel kernel → Whisper decode with alignments."""
 
     def __init__(
@@ -110,14 +166,17 @@ class TorchWhisperAsr:
         suppress_tokens: tuple = (),
         suppress_blank: bool = True,
         condition_on_previous_text: bool = True,
+        mesh=None,
     ):
         """``context_buckets``: encoder windows in seconds (even, ascending,
         at most 30); an utterance chunk is padded to the smallest that holds
         it. ``temperatures``: the fallback ladder; random weights always fail
         the logprob gate, so weightless mode defaults to greedy only.
         ``quantize``: int8 decoder weights and tied head
-        (``whisper.quantize_whisper_decoder``, after the dtype cast)."""
-        self.device = resolve_device(device)
+        (``whisper.quantize_whisper_decoder``, after the dtype cast).
+        ``mesh``: serve from its groups (``whisper_partition_rules``); the
+        engine's device is then its first group's lead."""
+        self.device = _home(mesh, device)
         self.cfg = cfg or wm.WhisperConfig(d_model=512, encoder_layers=6, decoder_layers=6,
                                            heads=8, ffn_dim=2048)
         self.weightless = params is None
@@ -148,6 +207,10 @@ class TorchWhisperAsr:
         self.condition_on_previous_text = condition_on_previous_text
         self.PREV_CTX_BUCKETS = (8, 16, 32)
         self._seed = 0
+        if mesh is not None:
+            rules = wm.whisper_partition_rules(TP_AXIS)
+            self._place(mesh, lambda g: {"params": shard_params(self.params, mesh, rules,
+                                                                group=g)})
 
     def _prompt_row(self, language: Optional[str]) -> List[int]:
         try:
@@ -215,11 +278,13 @@ class TorchWhisperAsr:
         return whisper_log_mel_fused(audio, n_mels=self.cfg.n_mels,
                                      chunk_samples=len(padded)).to(self.dtype)
 
-    def _mel_b(self, audio: np.ndarray) -> torch.Tensor:
-        """Log-mel [N, n_mels, frames] of zero-padded rows [N, samples]. The
-        plain ``ops/mel.py`` version, as the JAX batched programs take XLA's
-        mel and not the Pallas kernel (which takes one waveform)."""
-        return whisper_log_mel(torch.from_numpy(audio).to(self.device), n_mels=self.cfg.n_mels,
+    def _mel_b(self, audio: np.ndarray, device=None) -> torch.Tensor:
+        """Log-mel [N, n_mels, frames] of zero-padded rows [N, samples] on
+        ``device`` (default the engine's). The plain ``ops/mel.py`` version,
+        as the JAX batched programs take XLA's mel and not the Pallas kernel
+        (which takes one waveform)."""
+        return whisper_log_mel(torch.from_numpy(audio).to(device or self.device),
+                               n_mels=self.cfg.n_mels,
                                chunk_samples=audio.shape[-1]).to(self.dtype)
 
     def _lang_code(self, token: int) -> str:
@@ -401,11 +466,16 @@ class TorchWhisperAsr:
                 audio[j, : len(row)] = row[: 16_000 * window_s]
             prompt = np.tile(np.asarray(prompts[lo], np.int32), (nb, 1))
             prompt[: hi - lo] = np.asarray(prompts[lo:hi], np.int32)
-            out = wm.decode_with_alignment(
-                self.params, self.cfg, self._mel_b(audio), torch.from_numpy(prompt).to(self.device),
-                max_new_tokens=self.max_new_tokens, suppress_tokens=self._suppress[0],
-                suppress_first_tokens=self._suppress[1], sot_index=0)
-            tokens, aligns, slp, ngen, nsp = (t.cpu().numpy() for t in out)
+            def decode(grp, lo, hi):
+                out = wm.decode_with_alignment(
+                    grp.params, self.cfg, self._mel_b(audio[lo:hi], grp.device),
+                    torch.from_numpy(prompt[lo:hi]).to(grp.device),
+                    max_new_tokens=self.max_new_tokens, suppress_tokens=self._suppress[0],
+                    suppress_first_tokens=self._suppress[1], sot_index=0)
+                return [t.cpu().numpy() for t in out]
+
+            tokens, aligns, slp, ngen, nsp = (
+                np.concatenate(parts) for parts in zip(*self._per_group(nb, decode)))
             for row, (ri, offset, seconds) in enumerate(specs[lo:hi]):
                 text, words = self._gated_chunk(
                     tokens[row], aligns[row], prompt.shape[1], offset, seconds, window_s,
@@ -423,7 +493,7 @@ class TorchWhisperAsr:
 # ========================================================================= NMT
 
 
-class TorchNllbNmt:
+class TorchNllbNmt(_Placed):
     """NMT engine: NLLB generate (greedy, or beam search at ``num_beams`` > 1)
     over bucketed source lengths."""
 
@@ -439,10 +509,13 @@ class TorchNllbNmt:
         num_beams: int = 1,
         max_new_tokens: int = 200,
         quantize: bool = False,
+        mesh=None,
     ):
         """``quantize``: int8 decoder weights and tied head
-        (``nllb.quantize_nllb_decoder``, after the dtype cast)."""
-        self.device = resolve_device(device)
+        (``nllb.quantize_nllb_decoder``, after the dtype cast). ``mesh``:
+        serve from its groups (``nllb_partition_rules``); the engine's
+        device is then its first group's lead."""
+        self.device = _home(mesh, device)
         self.cfg = cfg or nlm.NLLBConfig(d_model=512, encoder_layers=6, decoder_layers=6,
                                          heads=8, ffn_dim=2048, vocab_size=384)
         self.weightless = params is None
@@ -463,6 +536,10 @@ class TorchNllbNmt:
             self.lang_code_to_id = nllb_placeholder_lang_ids(self.cfg.vocab_size)
         self.num_beams = num_beams
         self.max_new_tokens = max_new_tokens
+        if mesh is not None:
+            rules = nlm.nllb_partition_rules(TP_AXIS)
+            self._place(mesh, lambda g: {"params": shard_params(self.params, mesh, rules,
+                                                                group=g)})
 
     def _lang_id(self, code: str) -> int:
         for key in (code, NLLB_LANGUAGES.get(code, "")):
@@ -492,9 +569,9 @@ class TorchNllbNmt:
                          np.int32)
         for row, src in enumerate(srcs):
             padded[row, : len(src)] = _fit_vocab(src, self.cfg.vocab_size, self.weightless, "NMT")
-        out = nlm.generate(self.params, self.cfg, torch.from_numpy(padded).to(self.device),
-                           forced_bos, num_beams=self.num_beams,
-                           max_new_tokens=self.max_new_tokens).cpu().numpy()
+        out = np.concatenate(self._per_group(rows, lambda grp, lo, hi: nlm.generate(
+            grp.params, self.cfg, torch.from_numpy(padded[lo:hi]).to(grp.device), forced_bos,
+            num_beams=self.num_beams, max_new_tokens=self.max_new_tokens).cpu().numpy()))
         return [self.tokenizer.decode([int(t) for t in out[row, 2:]
                                        if t not in (self.cfg.eos_token, self.cfg.pad_token)])
                 for row in range(len(srcs))]
@@ -577,7 +654,46 @@ def _reconciled(cfg, mtp: int, spec: bool, params):
                                                            spec_decode=want_spec))
 
 
-class TorchCosyVoiceTts:
+class _RowNoise:
+    """Rows [lo, lo + b) of a dispatch of ``rows`` rows: every draw is the
+    whole dispatch's draw, cut to these rows and moved to ``device``, so a
+    dp group's share samples as its rows do in one dispatch. A
+    :class:`cosyvoice.GeneratorNoise` (each draw a function of its seed and
+    index) is redrawn on ``device`` itself, so no draw crosses cards."""
+
+    def __init__(self, base: cvm.NoiseSource, lo: int, rows: int, device):
+        if isinstance(base, cvm.GeneratorNoise):
+            base = cvm.GeneratorNoise(base.seed, device)
+        self.base, self.lo, self.rows, self.device = base, lo, rows, device
+
+    def _whole(self, shape) -> Tuple[int, ...]:
+        return (self.rows,) + tuple(shape[1:])
+
+    def _cut(self, t: torch.Tensor, shape) -> torch.Tensor:
+        return t[self.lo:self.lo + shape[0]].to(self.device)
+
+    def ras_gumbel(self, step, shape):
+        return tuple(self._cut(t, shape) for t in self.base.ras_gumbel(step, self._whole(shape)))
+
+    def mtp_gumbel(self, pass_index, head, shape):
+        return tuple(self._cut(t, shape)
+                     for t in self.base.mtp_gumbel(pass_index, head, self._whole(shape)))
+
+    def flow_x0(self, shape):
+        return self._cut(self.base.flow_x0(self._whole(shape)), shape)
+
+    def chunk(self, index, count):
+        return _RowNoise(self.base.chunk(index, count), self.lo, self.rows, self.device)
+
+    def hift_source(self, phase_shape, noise_shape):
+        phase, noise = self.base.hift_source(self._whole(phase_shape), self._whole(noise_shape))
+        return self._cut(phase, phase_shape), self._cut(noise, noise_shape)
+
+    def flow_x0_prefix(self, bucket, shape):
+        return self._cut(self.base.flow_x0_prefix(bucket, self._whole(shape)), shape)
+
+
+class TorchCosyVoiceTts(_Placed):
     """TTS engine: CosyVoice synthesis (speech-token LM → flow → vocoder)
     with speaker conditioning from the reference audio; the native chain, or
     the official one (``official=``)."""
@@ -600,6 +716,7 @@ class TorchCosyVoiceTts:
         spec: bool = False,
         ecapa_weights=None,
         speech_tokenizer_weights=None,
+        mesh=None,
     ):
         """``noise(call_index)`` gives each synthesis its noise source
         (default: :class:`cosyvoice.GeneratorNoise` seeded with the call
@@ -617,8 +734,11 @@ class TorchCosyVoiceTts:
         ``ecapa_weights`` / ``speech_tokenizer_weights``: optional
         ``(params, cfg)`` of the conditioning models (the port's f32 trees);
         without them both run on seeded random weights, which carry no
-        speaker identity (``conditioning_weightless``)."""
-        self.device = resolve_device(device)
+        speaker identity (``conditioning_weightless``). ``mesh``: serve from
+        its groups, the speech LM under ``speech_lm_partition_rules`` and the
+        rest (flow, vocoder, conditioning) on each group's lead; the
+        engine's device is then its first group's lead."""
+        self.device = _home(mesh, device)
         self.official = official
         if official is not None:
             params, ocfg = official
@@ -674,6 +794,13 @@ class TorchCosyVoiceTts:
         self._noref_tokens = 2                   # live zero prompt slots without a reference
         self._noref_frames = self._noref_tokens * ratio
         self._call_count = 0
+        if mesh is not None:
+            rules = cvm.speech_lm_partition_rules(TP_AXIS)
+            self._place(mesh, lambda g: {
+                "params": {k: shard_params(v, mesh, rules if k == "lm" else None, group=g)
+                           for k, v in self.params.items()},
+                "_ecapa": shard_params(self._ecapa, mesh, group=g),
+                "_st": shard_params(self._st, mesh, group=g)})
 
     @staticmethod
     def _ref_usable(reference_audio_16k) -> bool:
@@ -697,31 +824,37 @@ class TorchCosyVoiceTts:
         hop = self.official_cfg.hift.hop if self.official is not None else self.cfg.vocoder.hop
         return self.cfg.flow.token_mel_ratio * hop
 
-    def _synthesize(self, noise, toks, tmask, psp, psm, spk, pmel, pmm, max_new: int):
-        """One synthesis through the chain the engine serves → (audio
-        [B, T], token lengths [B])."""
+    def _synthesize(self, noise, toks, tmask, psp, psm, spk, pmel, pmm, max_new: int,
+                    params=None):
+        """One synthesis through the chain the engine serves, with
+        ``params`` (default the engine's) → (audio [B, T], token lengths
+        [B])."""
+        params = self.params if params is None else params
         if self.official is not None:
-            out = com.synthesize_official(self.params, self.official_cfg, noise, toks, tmask,
+            out = com.synthesize_official(params, self.official_cfg, noise, toks, tmask,
                                           psp, psm, spk, pmel, max_new_tokens=max_new)
         else:
-            out = cvm.synthesize(self.params, self.cfg, noise, toks, tmask, psp, psm, spk, pmel,
+            out = cvm.synthesize(params, self.cfg, noise, toks, tmask, psp, psm, spk, pmel,
                                  pmm, max_new_tokens=max_new)
         return out["audio"], out["token_lengths"]
 
-    def _cond_b(self, ref16: np.ndarray, has_ref: np.ndarray):
+    def _cond_b(self, ref16: np.ndarray, has_ref: np.ndarray, grp=None):
         """Voice-prompt conditioning of N 10 s 16 kHz references [N, 160000]
-        in one pass → (speaker embeddings [N, spk_dim] and prompt mels
-        [N, 2 s of frames, n_mels] in the serving dtype, prompt speech tokens
-        [N, 50] int32, their mask [N, 50]). Rows whose ``has_ref`` is 0 are
-        zeroed and keep ``_noref_tokens`` live token slots."""
-        dev = self.device
+        in one pass, by the conditioning models of placement ``grp``
+        (default the engine's own, :attr:`groups`) → (speaker embeddings
+        [N, spk_dim] and prompt mels [N, 2 s of frames, n_mels] in the
+        serving dtype, prompt speech tokens [N, 50] int32, their mask
+        [N, 50]). Rows whose ``has_ref`` is 0 are zeroed and keep
+        ``_noref_tokens`` live token slots."""
+        grp = grp or self
+        dev = grp.device
         x = torch.from_numpy(np.ascontiguousarray(ref16, np.float32)).to(dev)
-        spk = ecm.embed_audio(self._ecapa, self._ecapa_cfg, x)
+        spk = ecm.embed_audio(grp._ecapa, self._ecapa_cfg, x)
         ref24 = resample(x, 16_000, 24_000)
         pmel = kaldi_fbank(ref24, sr=24_000)[:, : self._prompt_frames].to(self.dtype)
         st_mel = kaldi_fbank(ref24, sr=24_000, frame_length_ms=40.0, frame_shift_ms=20.0,
                              n_mels=self._st_cfg.n_mels)
-        ids, _ = stm.encode(self._st, self._st_cfg, st_mel,
+        ids, _ = stm.encode(grp._st, self._st_cfg, st_mel,
                             torch.ones(st_mel.shape[:2], dtype=torch.bool, device=dev))
         psp = (ids[:, : self._prompt_tokens] % self.cfg.lm.speech_token_size).to(torch.int32)
         hr32 = torch.from_numpy(np.asarray(has_ref, np.float32)).to(dev)
@@ -808,7 +941,11 @@ class TorchCosyVoiceTts:
         ``_noref_frames`` frames, as :meth:`synthesize` conditions them. One
         noise source a dispatch (``noise(call_index)``). The native vocoder's
         narrow stages run the resblock kernel on the whole batch; the official
-        chain compacts each row's prompt and masks HiFT to each row's frames."""
+        chain compacts each row's prompt and masks HiFT to each row's frames.
+        Under a mesh whose owned dp groups divide the padded rows, each
+        group conditions and synthesizes its share with its placement
+        (:attr:`groups`), the dispatch's noise cut to its rows
+        (:class:`_RowNoise`)."""
         if not requests:
             return []
         n = len(requests)
@@ -817,7 +954,6 @@ class TorchCosyVoiceTts:
             for lo, hi in row_slices(n, 16):
                 outs.extend(self.synthesize_batch(requests[lo:hi]))
             return outs
-        dev = self.device
         nb = bucket_batch(n)
         enc = [self._text_ids(r["text"], r.get("style_prompt", ""), r.get("reference_audio_16k"))
                for r in requests]
@@ -835,17 +971,25 @@ class TorchCosyVoiceTts:
                 refs[i] = np.resize(np.asarray(ra, np.float32).reshape(-1)[: 16_000 * 10],
                                     16_000 * 10)
                 has_ref[i] = 1.0
-        spk, pmel, psp, psm = self._cond_b(refs, has_ref)
-        frames = torch.arange(pmel.shape[1], device=dev)[None, :]
-        pmm = torch.from_numpy(has_ref > 0).to(dev)[:, None] | (frames < self._noref_frames)
         seconds = max(float(np.clip(len(r["text"]) * self.seconds_per_char, 0.6, 30.0))
                       for r in requests)
         max_new = _bucket_capped(int(seconds * 25), TTS_BUDGET_BUCKETS)
         self._call_count += 1
-        audio, lengths = self._synthesize(
-            self._noise(self._call_count), torch.from_numpy(toks).to(dev),
-            torch.from_numpy(tmask).to(dev), psp, psm, spk, pmel, pmm, max_new)
-        audio, lengths = audio.float().cpu().numpy(), lengths.cpu().numpy()
+        noise = self._noise(self._call_count)
+
+        def synth(grp, lo, hi):
+            dev = grp.device
+            spk, pmel, psp, psm = self._cond_b(refs[lo:hi], has_ref[lo:hi], grp)
+            frames = torch.arange(pmel.shape[1], device=dev)[None, :]
+            pmm = torch.from_numpy(has_ref[lo:hi] > 0).to(dev)[:, None] | (
+                frames < self._noref_frames)
+            rows = noise if hi - lo == nb else _RowNoise(noise, lo, nb, dev)
+            audio, lengths = self._synthesize(
+                rows, torch.from_numpy(toks[lo:hi]).to(dev), torch.from_numpy(tmask[lo:hi]).to(dev),
+                psp, psm, spk, pmel, pmm, max_new, params=grp.params)
+            return audio.float().cpu().numpy(), lengths.cpu().numpy()
+
+        audio, lengths = (np.concatenate(parts) for parts in zip(*self._per_group(nb, synth)))
         spt = self._samples_per_token()
         return [audio[i, : max(int(lengths[i]), 1) * spt] for i in range(n)]
 
@@ -861,37 +1005,41 @@ def reference_scale_configs() -> Dict[str, Any]:
             "tts_cfg": cvm.CosyVoiceConfig()}
 
 
-# Keys of the JAX factory that ask for a feature the port lacks: key → (the
-# JAX default, which asks for nothing, and the ROADMAP Queue 1 item that
-# brings the feature). Any other value raises NotImplementedError.
-_QUEUED_KEYS = {
-    "mesh": (None, 12), "stage_parallel": (False, 12), "stage_tp": (1, 12),
-    "stage_meshes": (None, 12),
-}
-_QUEUE_ITEMS = {12: "meshes and stage-parallel serving"}
+# The keys of the JAX factory that ``torch_engines`` passes on from
+# ``**kwargs``; any other key raises TypeError.
 _PASSED_KEYS = frozenset((
     "asr_cfg", "asr_params", "asr_context_buckets", "asr_tokenizer", "nmt_cfg", "nmt_params",
     "nmt_tokenizer", "lang_code_to_id", "tts_cfg", "tts_params", "tts_tokenizer", "tts_noise",
     "tts_mtp", "tts_spec", "tts_ecapa", "tts_speech_tokenizer", "tts_official", "tokenizer",
-    "dtype"))
+    "dtype", "mesh", "stage_meshes"))
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1 item {item} "
-                               f"({_QUEUE_ITEMS[item]})")
+# The dp cap of ``stage_parallel`` placement: a stage's dp groups run in
+# threads of one process, and two TTS groups served slower than one card
+# (PERF.md §6), so each stage gets one group and spare cards stay idle.
+STAGE_MAX_DP = 1
 
 
-def _check_keys(kwargs: Dict[str, Any]) -> None:
-    """Raise for every key the port would otherwise drop: a JAX factory key
-    asking for a feature still queued, or a key neither factory knows."""
-    for key, value in kwargs.items():
-        if key in _QUEUED_KEYS:
-            default, item = _QUEUED_KEYS[key]
-            asks = value is not None if default is None else value != default
-            if asks:
-                raise _not_ported(f"torch_engines({key}={value!r})", item)
-        elif key not in _PASSED_KEYS:
-            raise TypeError(f"torch_engines() got an unexpected keyword argument {key!r}")
+def _stage_meshes(stage_parallel: bool, stage_tp: int, per_stage) -> Optional[Dict[str, Any]]:
+    """The per-stage meshes the factory serves from: explicit
+    ``stage_meshes``, else with ``stage_parallel`` one disjoint group of
+    the host's cards a stage (``parallel.stages.stage_meshes(tp=stage_tp,
+    max_dp=STAGE_MAX_DP)``), else none. ``stage_tp`` without
+    ``stage_parallel`` (or beside explicit meshes) is ignored with a
+    warning, as in the JAX factory."""
+    if stage_tp > 1 and (not stage_parallel or per_stage is not None):
+        log.warning(
+            "stage_tp=%d ignored: %s — set stage_parallel=True "
+            "(EST_ENGINES__STAGE_PARALLEL=1) and drop explicit stage_meshes "
+            "for per-stage tensor parallelism", stage_tp,
+            "explicit stage_meshes given" if per_stage is not None
+            else "stage_parallel is off")
+    if stage_parallel and per_stage is None:
+        from ..parallel.stages import placement_report, stage_meshes
+
+        per_stage = stage_meshes(tp=stage_tp, max_dp=STAGE_MAX_DP)
+        log.info("stage-parallel placement: %s", placement_report(per_stage))
+    return per_stage
 
 
 def _load_baked(kwargs: Dict[str, Any], dev) -> None:
@@ -936,7 +1084,8 @@ def _load_baked(kwargs: Dict[str, Any], dev) -> None:
 
 def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
                   batch_asr: bool = False, batch_nmt: bool = False, max_batch: int = 8,
-                  batch_wait_ms: float = 20.0, quantize: bool = False, **kwargs) -> Engines:
+                  batch_wait_ms: float = 20.0, quantize: bool = False,
+                  stage_parallel: bool = False, stage_tp: int = 1, **kwargs) -> Engines:
     """Engines wired to the port's models (random weights unless supplied),
     on the card unless ``device="cpu"``.
 
@@ -954,11 +1103,24 @@ def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
     chain), ``tts_mtp``/``tts_spec`` (the TTS engine's ``mtp``/``spec``) and
     ``dtype`` pass through to the engines; ``asr_tokenizer``/
     ``nmt_tokenizer``/``tts_tokenizer`` override the shared ``tokenizer``.
-    The JAX factory's other keys (meshes) are accepted at their defaults and
-    raise ``NotImplementedError`` naming the ROADMAP item that brings them
-    otherwise. A set ``EST_MODELS_DIR`` serves the port's bake over the
-    scale's configs (:func:`_load_baked`)."""
-    _check_keys(kwargs)
+    ``mesh`` serves every stage from one (dp, tp) mesh
+    (``parallel/mesh.py``); ``stage_parallel=True`` gives each stage a
+    disjoint group of the host's cards with ``stage_tp``-way tensor
+    parallelism inside it (``parallel/stages.py``); an explicit
+    ``stage_meshes={"asr": Mesh, ...}`` overrides both per stage. A stage
+    on a mesh makes its tensors on its group's lead, whatever ``device``
+    says. A set ``EST_MODELS_DIR`` serves the port's bake over the scale's
+    configs (:func:`_load_baked`)."""
+    for key in kwargs:
+        if key not in _PASSED_KEYS:
+            raise TypeError(f"torch_engines() got an unexpected keyword argument {key!r}")
+    per_stage = _stage_meshes(stage_parallel, stage_tp, kwargs.get("stage_meshes"))
+
+    def mesh(stage: str):
+        if per_stage is not None and stage in per_stage:
+            return per_stage[stage]
+        return kwargs.get("mesh")
+
     dev = resolve_device(device)
     if scale == "reference":
         for k, v in reference_scale_configs().items():
@@ -971,11 +1133,12 @@ def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
     asr: Any = TorchWhisperAsr(kwargs.get("asr_cfg"), kwargs.get("asr_params"),
                                kwargs.get("asr_tokenizer", tok), device=dev, dtype=dtype,
                                quantize=quantize,
-                               context_buckets=kwargs.get("asr_context_buckets", (30,)))
+                               context_buckets=kwargs.get("asr_context_buckets", (30,)),
+                               mesh=mesh("asr"))
     nmt: Any = TorchNllbNmt(kwargs.get("nmt_cfg"), kwargs.get("nmt_params"),
                             kwargs.get("nmt_tokenizer", tok), device=dev,
                             lang_code_to_id=kwargs.get("lang_code_to_id"), dtype=dtype,
-                            quantize=quantize)
+                            quantize=quantize, mesh=mesh("nmt"))
     tts: Any = TorchCosyVoiceTts(kwargs.get("tts_cfg"), kwargs.get("tts_params"),
                                  kwargs.get("tts_tokenizer", tok), device=dev,
                                  dtype=dtype, noise=kwargs.get("tts_noise"), quantize=quantize,
@@ -983,7 +1146,8 @@ def torch_engines(*, scale: str = "toy", device=None, batch_tts: bool = False,
                                  mtp=kwargs.get("tts_mtp", 0),
                                  spec=kwargs.get("tts_spec", False),
                                  ecapa_weights=kwargs.get("tts_ecapa"),
-                                 speech_tokenizer_weights=kwargs.get("tts_speech_tokenizer"))
+                                 speech_tokenizer_weights=kwargs.get("tts_speech_tokenizer"),
+                                 mesh=mesh("tts"))
     batching = dict(max_batch=max_batch, max_wait_ms=batch_wait_ms)
     if batch_tts:
         tts = BatchedTts(tts, **batching)

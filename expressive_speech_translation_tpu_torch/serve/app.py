@@ -526,6 +526,11 @@ def main() -> None:
 
     config = load_config()
     setup_logging(config.log_dir)
+    # multi-host serving: join the torch.distributed group before any engine
+    # touches a card (a no-op on a single host)
+    from ..parallel.mesh import maybe_initialize_distributed
+
+    maybe_initialize_distributed(config.mesh)
     # the server defaults to the port's engines (mode "jax";
     # EST_ENGINES__MODE overrides); random weights show in /health/model
     # and in every /translate response. The video route runs in-process when

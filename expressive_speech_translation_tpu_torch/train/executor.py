@@ -16,6 +16,7 @@ import time
 from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
+import torch
 
 from ..core.buckets import bucket_size
 from ..core.config import TrainConfig
@@ -121,6 +122,10 @@ class Executor:
         self.train_step = make_train_step(
             lm_cfg, self.optimizer, mesh, accum_grad=train_cfg.accum_grad
         )
+        # across processes every rank keeps the same replicated state; rank 0
+        # alone writes the checkpoints
+        dist = torch.distributed
+        self.writes = not (dist.is_available() and dist.is_initialized() and dist.get_rank())
         self.eval_fn = eval_step(lm_cfg)
         self.ckpt = CheckpointManager(
             checkpoint_dir or train_cfg.checkpoint_dir,
@@ -182,7 +187,7 @@ class Executor:
                      start_epoch, skip_first)
         self._resume_meta = {}
         for epoch in range(start_epoch, max_epochs):
-            if self.ckpt is not None:
+            if self.ckpt is not None and self.writes:
                 self.ckpt.save_meta({"epoch": epoch,
                                      "epoch_start_step": int(state.step) - skip_first})
             to_skip = skip_first
@@ -209,7 +214,8 @@ class Executor:
                             "grad_norm": float(metrics["grad_norm"]),
                             "it_per_s": round(rate, 3),
                         })
-                if self.ckpt is not None and step % self.cfg.save_per_step == 0:
+                if (self.ckpt is not None and self.writes
+                        and step % self.cfg.save_per_step == 0):
                     cvm = self.cv(state, cv_batches())
                     if cvm:
                         log.info(
@@ -229,7 +235,7 @@ class Executor:
                 if metric_sink is not None:
                     metric_sink({"phase": "cv", "epoch": epoch,
                                  "step": int(state.step), **cvm})
-            if self.ckpt is not None:
+            if self.ckpt is not None and self.writes:
                 self.ckpt.save(state, metrics=cvm, force=True)
         if self.ckpt is not None:
             self.ckpt.wait()

@@ -3,7 +3,10 @@ package's ``train/run.py``).
 
 The reference launches ``torchrun --nproc_per_node=$N cosyvoice/bin/train.py
 --train_engine torch_ddp --model llm …`` (train_greek.sh:13-28). The port
-trains on one card (multi-host meshes are ROADMAP Queue 1 item 12)::
+trains on one device a process, data-parallel over the processes of a
+``torch.distributed`` group joined through ``EST_MESH__COORDINATOR`` /
+``NUM_PROCESSES`` / ``PROCESS_ID`` or torchrun's ``env://`` variables (each
+process on its ``--device`` card, by default torchrun's ``LOCAL_RANK``)::
 
     python -m expressive_speech_translation_tpu_torch.train.run \
         --config greek_sft.yaml --data-dir DATA --checkpoint-dir CKPTS
@@ -197,7 +200,8 @@ def main(argv: Optional[list] = None) -> int:
                              "native tts_llm checkpoint servable via "
                              "EST_MODELS_DIR")
     parser.add_argument("--device", default=None,
-                        help="torch device (default: the card; 'cpu' to train on the CPU)")
+                        help="torch device (default: the card, torchrun's LOCAL_RANK card "
+                             "when set; 'cuda:N' pins card N; 'cpu' to train on the CPU)")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
@@ -206,14 +210,15 @@ def main(argv: Optional[list] = None) -> int:
 
     from ..core.config import load_config
     from ..models import cosyvoice as cv
+    from ..parallel.mesh import global_slots, make_mesh, maybe_initialize_distributed
     from .executor import Executor, batches_from_samples
 
-    dev = resolve_device(args.device)
     cfg = load_config(args.config)
-    if cfg.mesh.coordinator:
-        from ..pipeline.torch_engines import _not_ported
-
-        raise _not_ported(f"multi-host training (mesh.coordinator={cfg.mesh.coordinator!r})", 12)
+    # join the torch.distributed group (EST_MESH__*) before any card is touched
+    maybe_initialize_distributed(cfg.mesh)
+    local_rank = os.environ.get("LOCAL_RANK")
+    dev = resolve_device(args.device if args.device or local_rank is None
+                         else f"cuda:{local_rank}")
     train_cfg = cfg.train
     if args.max_epochs:
         train_cfg = dataclasses.replace(train_cfg, max_epochs=args.max_epochs)
@@ -224,9 +229,18 @@ def main(argv: Optional[list] = None) -> int:
         # so the served model decodes train.mtp tokens per backbone pass
         lm_cfg = dataclasses.replace(lm_cfg, mtp=train_cfg.mtp)
 
-    executor = Executor(lm_cfg, train_cfg, checkpoint_dir=args.checkpoint_dir, device=dev)
+    # one device a process, data-parallel over the processes of a
+    # torch.distributed group: a dp=4 step in one process's threads ran
+    # 4-6x slower than one card's, four processes as fast (PERF.md §6)
+    slots = global_slots([dev])
+    mesh = make_mesh(devices=slots) if len(slots) > 1 else None
+    rows_multiple = mesh.shape["dp"] if mesh is not None else 1
+    executor = Executor(lm_cfg, train_cfg, mesh=mesh, checkpoint_dir=args.checkpoint_dir,
+                        device=dev)
     state = executor.init_or_resume()
     log.info("starting at step %d on %s", int(state.step), dev)
+    if mesh is not None:
+        log.info("data-parallel over %s", mesh)
 
     train_samples = load_kaldi_dir(args.data_dir, device=dev)
     cv_samples = (load_kaldi_dir(args.cv_data_dir, device=dev) if args.cv_data_dir
@@ -235,10 +249,12 @@ def main(argv: Optional[list] = None) -> int:
 
     def epoch_batches(epoch: int) -> Iterator:
         return batches_from_samples(iter(train_samples), train_cfg,
-                                    accum=train_cfg.accum_grad, seed=train_cfg.seed + epoch)
+                                    accum=train_cfg.accum_grad, seed=train_cfg.seed + epoch,
+                                    rows_multiple=rows_multiple)
 
     def cv_batches() -> Iterator:
-        return batches_from_samples(iter(cv_samples), train_cfg, accum=1, seed=0)
+        return batches_from_samples(iter(cv_samples), train_cfg, accum=1, seed=0,
+                                    rows_multiple=rows_multiple)
 
     sink = None
     if train_cfg.metrics_path:
@@ -248,7 +264,7 @@ def main(argv: Optional[list] = None) -> int:
     state = executor.train(state, epoch_batches, cv_batches=cv_batches, metric_sink=sink)
     log.info("training done at step %d", int(state.step))
 
-    if args.export_dir:
+    if args.export_dir and executor.writes:
         export_tts_llm(state.params, lm_cfg, args.export_dir)
     return 0
 

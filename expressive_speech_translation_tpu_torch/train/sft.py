@@ -14,8 +14,13 @@ clip 5, mixed precision, per-step loss/accuracy metrics, save every 1000 steps.
   update, as the JAX package's ``lax.scan`` step does.
 - The optimizer is ``torch.optim.AdamW`` driven to match optax's
   ``chain(clip_by_global_norm, adamw)`` (:class:`Optimizer`).
-- One card: a ``mesh`` (the JAX package's data-parallel pjit step) is
-  ROADMAP Queue 1 item 12 and raises.
+- Data parallel (``make_train_step(mesh=...)``, the JAX package's pjit step
+  over a (dp, tp) mesh) is the same step: the parameters are replicated on
+  every dp group's lead, each group takes its share of the B rows, and the
+  gradients are reduced onto the state's device and, across processes,
+  all-reduced with ``torch.distributed``. The loss is the global batch's:
+  each share's NLL sum over the global token count, so ranks holding
+  different token counts give the one-device step.
 
 The trained objective is the speech-token LM (``--model llm``): next-token
 cross-entropy over ``[sos] text [task] speech…eos`` with loss masked to the
@@ -33,7 +38,8 @@ import torch
 from ..core.device import resolve_device
 from ..models import cosyvoice as cv
 from ..models import qwen2 as q2
-from ..models.common import Init, cast_floats
+from ..models.common import Init, cast_floats, dense
+from ..parallel.mesh import make_mesh, run_per_group
 
 
 class SFTBatch(NamedTuple):
@@ -78,18 +84,38 @@ def _gather_rows(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, pos[..., None].expand(-1, -1, x.shape[-1]))
 
 
-def _masked_nll(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Σ of the f32 token NLL over ``mask``, divided by max(Σ mask, 1)."""
+def _masked_nll(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+                count: torch.Tensor) -> torch.Tensor:
+    """Σ of the f32 token NLL over ``mask``, divided by max(count, 1)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return (nll * mask).sum() / torch.clamp(count, min=1)
+
+
+def _target_mask(batch: SFTBatch) -> torch.Tensor:
+    """[B, Ts + 1]: the speech tokens and the EOS after them."""
+    ts = batch.speech_tokens.shape[1]
+    idx = torch.arange(ts + 1, device=batch.speech_tokens.device)[None, :]
+    return idx <= batch.speech_mask.sum(dim=1)[:, None]
+
+
+def token_counts(batch: SFTBatch, cfg: cv.SpeechLMConfig) -> torch.Tensor:
+    """The loss's denominators of a batch of tensors, int64 [1 + MTP heads]:
+    the target tokens of the main head, then of MTP head j (targets from
+    position j + 1 on)."""
+    m = _target_mask(batch)
+    return torch.stack([m.sum()] + [m[:, j + 1:].sum() for j in range(max(cfg.mtp - 1, 0))])
 
 
 def lm_loss(params: Any, cfg: cv.SpeechLMConfig, batch: SFTBatch, *,
-            compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+            compute_dtype=torch.bfloat16,
+            counts: Any = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Teacher-forced next-token CE over the speech segment (+ EOS) of a
     batch of tensors (:func:`batch_to`). → (loss, {"loss", "acc"[,
-    "mtp_loss"]}), each an f32 scalar tensor."""
+    "mtp_loss"]}), each an f32 scalar tensor. ``counts``
+    (:func:`token_counts` of a larger batch this one is a share of)
+    replaces the batch's own denominators, so the shares' losses add up to
+    the whole batch's."""
     b, ts = batch.speech_tokens.shape
     seq_len = 2 + batch.text_tokens.shape[1] + ts
     if seq_len > cfg.backbone.max_positions:
@@ -108,7 +134,7 @@ def lm_loss(params: Any, cfg: cv.SpeechLMConfig, batch: SFTBatch, *,
     causal = torch.ones((emb.shape[1],) * 2, dtype=torch.bool, device=dev).tril()[None, None]
     hidden = q2.forward(p["backbone"], cfg.backbone, emb,
                         attn_mask=causal & mask[:, None, None, :])
-    logits = hidden @ p["head"]["kernel"] + p["head"]["bias"]            # [B, L, V]
+    logits = dense(p["head"], hidden)                                    # [B, L, V]
 
     # compaction puts each row's speech block at 2 + n_t: speech token i is
     # predicted from position 1 + n_t + i (the task slot for i = 0), and EOS
@@ -120,11 +146,12 @@ def lm_loss(params: Any, cfg: cv.SpeechLMConfig, batch: SFTBatch, *,
     idx = torch.arange(ts + 1, device=dev)[None, :]
     eos_col = torch.full((b, 1), cfg.eos_speech, dtype=torch.int64, device=dev)
     targets = torch.cat([batch.speech_tokens, eos_col], dim=1)
-    tgt_mask = idx <= lengths[:, None]
+    tgt_mask = _target_mask(batch)
     targets = torch.where(idx == lengths[:, None], cfg.eos_speech, targets)
+    counts = token_counts(batch, cfg) if counts is None else counts.to(dev)
 
-    loss = _masked_nll(speech_logits, targets, tgt_mask)
-    denom = torch.clamp(tgt_mask.sum(), min=1)
+    loss = _masked_nll(speech_logits, targets, tgt_mask, counts[0])
+    denom = torch.clamp(counts[0], min=1)
     acc = ((speech_logits.argmax(dim=-1) == targets) & tgt_mask).sum() / denom
     metrics = {"loss": loss, "acc": acc}
 
@@ -135,9 +162,9 @@ def lm_loss(params: Any, cfg: cv.SpeechLMConfig, batch: SFTBatch, *,
         mtp_total = torch.zeros((), dtype=torch.float32, device=dev)
         for j, head in enumerate(p["mtp_heads"]):
             shift = j + 1
-            logits_j = speech_hidden[:, : ts + 1 - shift] @ head["kernel"] + head["bias"]
+            logits_j = dense(head, speech_hidden[:, : ts + 1 - shift])
             mtp_total = mtp_total + _masked_nll(logits_j, targets[:, shift:],
-                                                tgt_mask[:, shift:])
+                                                tgt_mask[:, shift:], counts[shift])
         mtp_loss = mtp_total / len(p["mtp_heads"])
         metrics["mtp_loss"] = mtp_loss
         loss = loss + mtp_loss
@@ -255,37 +282,86 @@ def init_train_state(seed: int, cfg: cv.SpeechLMConfig, optimizer: Optimizer, *,
     return TrainState(0, params, optimizer.init(params))
 
 
-def build_step_fn(cfg: cv.SpeechLMConfig, optimizer: Optimizer, *, accum_grad: int = 4,
-                  compute_dtype=torch.bfloat16):
+def build_step_fn(cfg: cv.SpeechLMConfig, optimizer: Optimizer, mesh=None, *,
+                  accum_grad: int = 4, compute_dtype=torch.bfloat16):
     """The train step ``(state, batch) → (state, metrics)``: ``batch``'s
     leaves are [accum, B, ...]; the microbatches' gradients are summed,
     divided by ``accum_grad`` and applied in one update of the state's
     parameters, in place. ``grad_norm`` is the norm of that averaged gradient
-    before clipping; the other metrics average over the microbatches."""
+    before clipping; the other metrics average over the microbatches.
+
+    Data parallel over ``mesh``'s dp groups (the JAX package's step with
+    replicated parameters and the batch's B dimension split over dp; its tp
+    axis only replicates); without a mesh, one group on the state's device.
+    Every process passes the global batch; dp group g takes rows
+    [g·B/dp, (g + 1)·B/dp) of each microbatch, and a process runs the groups
+    it owns, one thread a group, each on its replica of the parameters: the
+    state's own on the state's device, elsewhere a copy kept from step to
+    step and refreshed in place. Each share's loss is its NLL sum over the
+    whole microbatch's token counts, so the shares' gradients add up to the
+    one-device step's: each group sums its microbatches on its card, the
+    groups' sums are reduced onto the state's device (NCCL between cards)
+    and, when the mesh spans processes, all-reduced with
+    ``torch.distributed``. Every process then applies the same update to
+    its replicated state."""
     has_mtp = cfg.mtp > 1
+    copies: Dict[int, List[torch.Tensor]] = {}
+
+    def replica(g: int, leaves: List[torch.Tensor], dev, own: bool) -> List[torch.Tensor]:
+        if own:
+            return leaves
+        held = copies.get(g)
+        if held is None or [t.shape for t in held] != [p.shape for p in leaves]:
+            held = copies[g] = [torch.empty_like(p, device=dev).requires_grad_(True)
+                                for p in leaves]
+        with torch.no_grad():
+            for t, p in zip(held, leaves):
+                t.copy_(p)
+        return held
 
     def step_fn(state: TrainState, batch: SFTBatch):
         leaves = tree_leaves(state.params)
-        dev = leaves[0].device
-        grads = None
-        loss_sum = acc_sum = mtp_sum = 0.0
-        for i in range(len(batch.text_tokens)):
-            mb = batch_to(SFTBatch(*(x[i] for x in batch)), dev)
-            loss, metrics = lm_loss(state.params, cfg, mb, compute_dtype=compute_dtype)
-            g = torch.autograd.grad(loss, leaves, allow_unused=True)
-            g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
-            grads = g if grads is None else [a.add_(b) for a, b in zip(grads, g)]
-            loss_sum = loss_sum + loss.detach()
-            acc_sum = acc_sum + metrics["acc"]
-            if has_mtp:
-                mtp_sum = mtp_sum + metrics["mtp_loss"].detach()
+        home = leaves[0].device
+        m = mesh if mesh is not None else make_mesh(devices=[home])
+        dp, groups = m.shape["dp"], m.local_groups()
+        if not groups:
+            raise ValueError(f"no dp group of {m} belongs to this process")
+        b = len(batch.text_tokens[0])
+        if b % dp:
+            raise ValueError(f"batch rows {b} do not split over dp={dp}")
+        share = b // dp
+        micro = [SFTBatch(*(x[i] for x in batch)) for i in range(len(batch.text_tokens))]
+        counts = [token_counts(batch_to(mb, home), cfg) for mb in micro]
+
+        def group_grads(g: int):
+            dev = m.lead(g)
+            params = replica(g, leaves, dev, g == groups[0] and dev == home)
+            tree = _like(state.params, iter(params))
+            grads, stats = None, None
+            for mb, n in zip(micro, counts):
+                rows = batch_to(SFTBatch(*(x[g * share:(g + 1) * share] for x in mb)), dev)
+                loss, metrics = lm_loss(tree, cfg, rows, compute_dtype=compute_dtype, counts=n)
+                got = torch.autograd.grad(loss, params, allow_unused=True)
+                got = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(params, got)]
+                grads = got if grads is None else [a.add_(c) for a, c in zip(grads, got)]
+                now = [loss.detach(), metrics["acc"].detach().float()]
+                if has_mtp:
+                    now.append(metrics["mtp_loss"].detach())
+                stats = now if stats is None else [a + c for a, c in zip(stats, now)]
+            return grads + stats
+
+        sums = _reduce_to(run_per_group(group_grads, [(g,) for g in groups]), home)
+        if len(groups) < dp:
+            sums = _all_reduce(sums)
+        grads, totals = sums[:len(leaves)], sums[len(leaves):]
         grads = [g / accum_grad for g in grads]
         gnorm = global_norm(grads)
         with torch.no_grad():
             optimizer.update(grads, state.opt_state, state.step)
-        out = {"loss": loss_sum / accum_grad, "acc": acc_sum / accum_grad, "grad_norm": gnorm}
+        out = {"loss": totals[0] / accum_grad, "acc": totals[1] / accum_grad,
+               "grad_norm": gnorm}
         if has_mtp:
-            out["mtp_loss"] = mtp_sum / accum_grad
+            out["mtp_loss"] = totals[2] / accum_grad
         return TrainState(state.step + 1, state.params, state.opt_state), out
 
     return step_fn
@@ -293,13 +369,47 @@ def build_step_fn(cfg: cv.SpeechLMConfig, optimizer: Optimizer, *, accum_grad: i
 
 def make_train_step(cfg: cv.SpeechLMConfig, optimizer: Optimizer, mesh=None, *,
                     accum_grad: int = 4, compute_dtype=torch.bfloat16):
-    """The train step of :func:`build_step_fn` on one device. A ``mesh`` (the
-    JAX package's data-parallel step) is not ported yet and raises."""
-    if mesh is not None:
-        from ..pipeline.torch_engines import _not_ported
+    """The train step of :func:`build_step_fn`: on the state's device, or
+    data-parallel over ``mesh``."""
+    return build_step_fn(cfg, optimizer, mesh, accum_grad=accum_grad,
+                         compute_dtype=compute_dtype)
 
-        raise _not_ported("make_train_step(mesh=...)", 12)
-    return build_step_fn(cfg, optimizer, accum_grad=accum_grad, compute_dtype=compute_dtype)
+
+def _reduce_to(parts: List[List[torch.Tensor]], home) -> List[torch.Tensor]:
+    """Σ over the groups of each group's tensors (``parts[i][j]``: group
+    i's tensor j, on its card), on ``home``: one group's are moved; the
+    groups' on distinct cards, ``home`` among them, are reduced by NCCL
+    (``torch.cuda.comm``), others copied and added."""
+    if len(parts) == 1:
+        return [t.to(home) for t in parts[0]]
+    devices = [p[0].device for p in parts]
+    if home in devices and home.type == "cuda" and all(d.type == "cuda" for d in devices) \
+            and len(set(devices)) == len(devices):
+        from torch.cuda import comm
+
+        return list(comm.reduce_add_coalesced(parts, destination=home.index))
+    return [sum(t.to(home) for t in ts) for ts in zip(*parts)]
+
+
+def _all_reduce(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Σ over the processes of ``torch.distributed``, one flat f32 buffer
+    for all the tensors."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    torch.distributed.all_reduce(flat)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view_as(t).to(t.dtype))
+        at += t.numel()
+    return out
+
+
+def _like(tree, leaves):
+    """``tree``'s nesting with its leaves taken in order from ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _like(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_like(v, leaves) for v in tree]
+    return next(leaves)
 
 
 def eval_step(cfg: cv.SpeechLMConfig, *, compute_dtype=torch.bfloat16):

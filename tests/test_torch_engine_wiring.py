@@ -3,12 +3,11 @@
 - The NLLB engine resolves language tokens through a tokenizer's
   ``token_to_id`` when no ``lang_code_to_id`` is given, as ``JaxNllbNmt``
   does: the same forced BOS and the same tokens, with weights and weightless.
-- ``torch_engines`` takes every key of the JAX factory ``jax_engines``: it
-  honours the ones the port can serve (ASR context buckets, per-stage
-  tokenizers, the micro-batchers, int8 decode, the TTS engine's MTP width
-  and speculative decoding, the official CosyVoice2 chain) and raises
-  ``NotImplementedError`` naming the ROADMAP item for the rest, unless their
-  value is the JAX default, which asks for nothing.
+- ``torch_engines`` takes every key of the JAX factory ``jax_engines`` and
+  honours each (ASR context buckets, per-stage tokenizers, the
+  micro-batchers, int8 decode, the TTS engine's MTP width and speculative
+  decoding, the official CosyVoice2 chain, a mesh, stage placement with its
+  tensor parallelism, per-stage meshes).
 - The official chain's engine (``official=``) serves ``synthesize``,
   ``synthesize_batch`` and ``synthesize_streaming`` as
   ``JaxCosyVoiceTts(official=...)`` does on the same tiny triple, with the
@@ -42,6 +41,8 @@ from expressive_speech_translation_tpu_torch.models import nllb as tnl
 from expressive_speech_translation_tpu_torch.models import qwen2 as tq2
 from expressive_speech_translation_tpu_torch.models import whisper as twh
 from expressive_speech_translation_tpu_torch.models.common import cast_floats
+from expressive_speech_translation_tpu_torch.parallel import mesh as pmesh
+from expressive_speech_translation_tpu_torch.parallel.partition import Shards
 from expressive_speech_translation_tpu_torch.pipeline import torch_engines as te
 from expressive_speech_translation_tpu_torch.pipeline.languages import NLLB_LANGUAGES
 from expressive_speech_translation_tpu_torch.pipeline.tokenizer import nllb_lang_ids
@@ -146,43 +147,46 @@ TINY = dict(
         flow=tcv.FlowConfig(token_vocab=35, dim=32, layers=1, heads=2),
         vocoder=tcv.VocoderConfig(base_channels=32)))
 
-# key → (a value that asks for something, the ROADMAP Queue 1 item it waits
-# for, or None where the port honours it)
+# key → a value that asks for something
 JAX_KEYS = {
-    "asr_context_buckets": ((10, 20, 30), None),
-    "tokenizer": (Marker(), None),
-    "asr_tokenizer": (Marker(), None),
-    "nmt_tokenizer": (Marker(), None),
-    "tts_tokenizer": (Marker(), None),
-    "lang_code_to_id": ({"eng": 370, "fra": 371}, None),
-    "scale": ("toy", None),
-    "asr_cfg": (TINY["asr_cfg"], None), "asr_params": (None, None),
-    "nmt_cfg": (TINY["nmt_cfg"], None), "nmt_params": (None, None),
-    "tts_cfg": (TINY["tts_cfg"], None), "tts_params": (None, None),
-    "tts_ecapa": (None, None), "tts_speech_tokenizer": (None, None),
-    "batch_tts": (True, None), "batch_asr": (True, None), "batch_nmt": (True, None),
-    "max_batch": (16, None), "batch_wait_ms": (5.0, None),
-    "tts_mtp": (2, None), "tts_spec": (True, None),
-    "quantize": (True, None),
-    "tts_official": ((tco.init_official_tts(0, OTINY, "cpu"), OTINY), None),
-    "mesh": (object(), 12), "stage_parallel": (True, 12), "stage_tp": (2, 12),
-    "stage_meshes": ({"asr": object()}, 12),
+    "asr_context_buckets": (10, 20, 30),
+    "tokenizer": Marker(),
+    "asr_tokenizer": Marker(),
+    "nmt_tokenizer": Marker(),
+    "tts_tokenizer": Marker(),
+    "lang_code_to_id": {"eng": 370, "fra": 371},
+    "scale": "toy",
+    "asr_cfg": TINY["asr_cfg"], "asr_params": None,
+    "nmt_cfg": TINY["nmt_cfg"], "nmt_params": None,
+    "tts_cfg": TINY["tts_cfg"], "tts_params": None,
+    "tts_ecapa": None, "tts_speech_tokenizer": None,
+    "batch_tts": True, "batch_asr": True, "batch_nmt": True,
+    "max_batch": 16, "batch_wait_ms": 5.0,
+    "tts_mtp": 2, "tts_spec": True,
+    "quantize": True,
+    "tts_official": (tco.init_official_tts(0, OTINY, "cpu"), OTINY),
+    "mesh": pmesh.make_mesh(pmesh.MeshSpec(dp=1, tp=2), devices=pmesh.cpu_slots(2)),
+    "stage_parallel": True, "stage_tp": 2,
+    "stage_meshes": {"asr": pmesh.make_mesh(pmesh.MeshSpec(dp=1, tp=2),
+                                            devices=pmesh.cpu_slots(2))},
 }
 
 
 def test_every_jax_factory_key_is_handled():
     assert _jax_factory_keys() == set(JAX_KEYS)
-    assert set(te._QUEUED_KEYS) == {k for k, (_, item) in JAX_KEYS.items() if item}
+
+
+def _q_kernel(engine):
+    """The ASR or NLLB engine's first decoder block's q kernel."""
+    return engine.params["decoder"]["layers"][0]["self_attn"]["q"]["kernel"]
 
 
 @pytest.mark.parametrize("key", sorted(JAX_KEYS))
-def test_torch_engines_honours_or_refuses_each_jax_key(key):
-    value, item = JAX_KEYS[key]
+def test_torch_engines_honours_or_refuses_each_jax_key(key, monkeypatch):
+    value = JAX_KEYS[key]
     kwargs = {**TINY, key: value}
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item} "):
-            torch_engines(**kwargs)
-        return
+    # stage placement takes every card by default: four CPU slots stand in
+    monkeypatch.setattr(pmesh, "local_devices", lambda: [torch.device("cpu")] * 4)
     if key in ("max_batch", "batch_wait_ms"):   # they shape the batchers a batch key asks for
         kwargs["batch_nmt"] = True
     eng = torch_engines(**kwargs)
@@ -225,6 +229,23 @@ def test_torch_engines_honours_or_refuses_each_jax_key(key):
         assert eng.tts.official is value and eng.tts.official_cfg is OTINY
         assert eng.tts.params["hift"]["conv_post"]["kernel"].dtype == eng.tts.dtype
         assert eng.tts._samples_per_token() == 2 * 480 and not eng.tts.weightless
+    elif key == "mesh":
+        assert eng.asr.mesh is eng.nmt.mesh is eng.tts.mesh is value
+        assert isinstance(_q_kernel(eng.asr), Shards) and isinstance(_q_kernel(eng.nmt), Shards)
+        assert eng.tts.params["lm"]["backbone"]["layers"][0]["q"]["kernel"].slots == (0, 1)
+        assert eng.placement_info() == {"asr": [0, 1], "nmt": [0, 1], "tts": [0, 1]}
+    elif key == "stage_parallel":
+        # one group a stage (dp capped at STAGE_MAX_DP): the fourth slot stays idle
+        assert eng.placement_info() == {"asr": [0], "nmt": [1], "tts": [2]}
+        assert dict(eng.tts.mesh.shape) == {"dp": 1, "tp": 1} and eng.tts.groups == [eng.tts]
+    elif key == "stage_tp":
+        # without stage_parallel it is ignored (with a warning), as in JAX
+        assert eng.asr.mesh is eng.nmt.mesh is eng.tts.mesh is None
+        assert not isinstance(_q_kernel(eng.asr), Shards)
+    elif key == "stage_meshes":
+        assert eng.asr.mesh is value["asr"] and eng.nmt.mesh is eng.tts.mesh is None
+        assert isinstance(_q_kernel(eng.asr), Shards)
+        assert not isinstance(_q_kernel(eng.nmt), Shards)
     elif key == "quantize":
         assert eng.asr.quantized and eng.nmt.quantized and eng.tts.quantized
         dec = eng.asr.params["decoder"]

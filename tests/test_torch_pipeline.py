@@ -406,7 +406,8 @@ def test_port_runs_without_jax_or_the_jax_package():
     (the CLI, the batch runner and the evaluation modules imported), a
     two-step SFT run with a checkpoint restored and a diagnostics report
     (``train/``, ``obs/kvlogger.py``, ``pipeline/diagnostics/`` and
-    ``pipeline/debug_analyzer.py``, none importing matplotlib), with
+    ``pipeline/debug_analyzer.py``, none importing matplotlib), meshes,
+    stage placement and ``vocode_sp`` (``parallel/``), with
     jax, the JAX
     package, ``yaml`` and ``psutil`` blocked from import, and must not have
     imported them nor the optional ``safetensors`` / ``transformers`` /
@@ -462,6 +463,14 @@ def test_port_runs_without_jax_or_the_jax_package():
         assert wave.size > 0 and wave.size % (2 * cfg.hift.hop) == 0 and np.isfinite(wave).all()
         from expressive_speech_translation_tpu_torch.ops import (
             cuda_decode, cuda_int4, mel, resample)
+        # meshes, stage placement and the four-card check
+        from expressive_speech_translation_tpu_torch import parallel
+        from expressive_speech_translation_tpu_torch.parallel import mesh as pmesh, smoke, stages
+        meshes = stages.stage_meshes(devices=pmesh.cpu_slots(4))
+        assert stages.placement_report(meshes).startswith("asr: devices [0] mesh {'dp': 1")
+        sp = cv.vocode_sp(eng.tts.params["vocoder"], eng.tts.cfg.vocoder,
+                          torch.zeros((1, 8, 80)), parallel.host_cpu_mesh(2), "dp")
+        assert sp.shape == (1, 8 * eng.tts.cfg.vocoder.hop)
         from expressive_speech_translation_tpu_torch.serve import batching
         from expressive_speech_translation_tpu_torch.media import wavio
         from expressive_speech_translation_tpu_torch.models import safetensors_io

@@ -46,6 +46,7 @@ from expressive_speech_translation_tpu_torch.models import qwen2 as tq2
 from expressive_speech_translation_tpu_torch.models import speech_tokenizer as tst
 from expressive_speech_translation_tpu_torch.models.common import tree_from_numpy
 from expressive_speech_translation_tpu_torch.obs import kvlogger as tkv
+from expressive_speech_translation_tpu_torch.parallel import mesh as pmesh
 from expressive_speech_translation_tpu_torch.train import checkpoint as tckpt
 from expressive_speech_translation_tpu_torch.train import data as tdata
 from expressive_speech_translation_tpu_torch.train import executor as texec
@@ -343,15 +344,50 @@ def test_two_train_steps_match_jax():
     assert_trees_close(tstate.params, jstate.params, noise_atol=2 * 2 * lr)
 
 
-def test_make_train_step_and_run_refuse_a_mesh_naming_item_12(tmp_path, monkeypatch):
-    _, tcfg = _lm_cfgs()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tsft.make_train_step(tcfg, tsft.make_optimizer(), mesh=object())
+def test_make_train_step_and_run_refuse_a_mesh_naming_item_12(tmp_path, monkeypatch, caplog):
+    """Both take a mesh now: the data-parallel step over two CPU slots gives
+    the one-device step's metrics and parameters, and ``run.main`` with
+    ``mesh.coordinator`` set joins a torch.distributed group of one (gloo)
+    and trains."""
+    import socket
+
+    _, tcfg = _lm_cfgs(mtp=2)
+    states, metrics = [], []
+    for mesh in (None, pmesh.host_cpu_mesh(2)):
+        opt = tsft.make_optimizer(1e-3)
+        state = tsft.init_train_state(0, tcfg, opt, device="cpu")
+        step = tsft.make_train_step(tcfg, opt, mesh=mesh, accum_grad=2,
+                                    compute_dtype=torch.float32)
+        for seed in (0, 1):
+            state, m = step(state, _ragged_batch(seed, rows=((3, 4), (5, 2), (1, 6), (2, 7)),
+                                                 accum=2))
+        states.append(state)
+        metrics.append(m)
+    assert set(metrics[0]) == set(metrics[1]) == {"loss", "acc", "grad_norm", "mtp_loss"}
+    for k in metrics[0]:
+        np.testing.assert_allclose(float(metrics[1][k]), float(metrics[0][k]), rtol=RTOL,
+                                   err_msg=k)
+    assert_trees_close(states[1].params, states[0].params, noise_atol=2 * 2 * 1e-3)
+
     (tmp_path / "text").write_text("u1 kalimera\n")
     (tmp_path / "wav.scp").write_text("u1 /nonexistent/u1.wav\n")
-    monkeypatch.setenv("EST_MESH__COORDINATOR", "10.0.0.1:1234")
-    with pytest.raises(NotImplementedError, match="multi-host training.*item 12"):
-        trun.main(["--data-dir", str(tmp_path), "--device", "cpu", "--tiny"])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    monkeypatch.setenv("EST_MESH__COORDINATOR", f"127.0.0.1:{port}")
+    monkeypatch.setenv("EST_MESH__NUM_PROCESSES", "1")
+    monkeypatch.setenv("EST_MESH__PROCESS_ID", "0")
+    try:
+        with caplog.at_level(logging.INFO):
+            assert trun.main(["--data-dir", str(tmp_path), "--device", "cpu", "--tiny",
+                              "--max-epochs", "1", "--checkpoint-dir",
+                              str(tmp_path / "ck")]) == 0
+        assert torch.distributed.is_initialized() and torch.distributed.get_world_size() == 1
+        assert "torch.distributed initialized (gloo): process 0/1" in caplog.text
+        assert "starting at step 0 on cpu" in caplog.text
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 # --------------------------------------------------------------------- data
