@@ -1,0 +1,7 @@
+"""Mean seconds a completed request spent in the tts stage (orchestrator)."""
+
+from bench_port.lib.readers import stage_seconds
+
+
+def read(ctx):
+    return stage_seconds(ctx, "tts")
