@@ -5,7 +5,8 @@
 model-specific piece; it advances ``cache`` in place. The prompt is
 teacher-forced through the same step, and the loop stops once every row has
 produced EOS (greedy) or filled its finished set (beam search), as HF
-``generate`` does.
+``generate`` does. Each loop is a ``decode`` span: ``steps`` counts the
+calls of ``step_fn``, the prompt's included, ``rows`` the rows each takes.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+
+from ..obs import spans
 
 NEG_INF = -1.0e9
 
@@ -44,19 +47,23 @@ def greedy_search(step_fn: StepFn, prompt: torch.Tensor, cache, beam_state: Any,
     tokens = torch.full((b, total), cfg.pad_token, dtype=torch.int32, device=prompt.device)
     tokens[:, :p_len] = prompt.to(torch.int32)
     done = torch.zeros((b,), dtype=torch.bool, device=prompt.device)
-    for pos in range(total - 1):
-        if pos + 1 >= p_len and bool(done.all()):
-            break
-        logits = step_fn(tokens[:, pos], pos, cache, beam_state)
-        if pos + 1 < p_len:
-            continue  # teacher-forced prompt step: only the cache advances
-        if cfg.min_new_tokens and pos + 1 < cfg.decoder_prompt_len + cfg.min_new_tokens:
-            logits = logits.clone()
-            logits[:, cfg.eos_token] = NEG_INF
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        nxt = torch.where(done, torch.full_like(nxt, cfg.pad_token), nxt)
-        tokens[:, pos + 1] = nxt
-        done = done | (nxt == cfg.eos_token)
+    steps = total - 1
+    with spans.span("decode", rows=b) as loop:
+        for pos in range(total - 1):
+            if pos + 1 >= p_len and bool(done.all()):
+                steps = pos
+                break
+            logits = step_fn(tokens[:, pos], pos, cache, beam_state)
+            if pos + 1 < p_len:
+                continue  # teacher-forced prompt step: only the cache advances
+            if cfg.min_new_tokens and pos + 1 < cfg.decoder_prompt_len + cfg.min_new_tokens:
+                logits = logits.clone()
+                logits[:, cfg.eos_token] = NEG_INF
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = torch.where(done, torch.full_like(nxt, cfg.pad_token), nxt)
+            tokens[:, pos + 1] = nxt
+            done = done | (nxt == cfg.eos_token)
+        loop.attrs["steps"] = steps
     return tokens
 
 
@@ -110,39 +117,41 @@ def beam_search(step_fn: StepFn, prompt: torch.Tensor, cache, beam_state: Any,
     fin_scores = torch.full((b, k), NEG_INF, device=dev)
     rank_ok = torch.arange(2 * k, device=dev)[None, :] < k
     pos = 0
-    while pos < total - 1:
-        batch_done = (fin_scores > NEG_INF / 2).all(dim=1)
-        if bool(batch_done.all()):
-            break
-        logits = step_fn(tokens[:, :, pos].reshape(b * k), pos, cache, beam_state)
-        if pos + 1 < p_len:     # teacher-forced prompt step: only the cache advances
-            pos += 1
-            continue
-        logp = torch.log_softmax(logits.float(), dim=-1).reshape(b, k, -1)
-        if cfg.min_new_tokens and pos + 1 < cfg.decoder_prompt_len + cfg.min_new_tokens:
-            logp[:, :, cfg.eos_token] = NEG_INF
-        vocab = logp.shape[-1]
-        top_scores, top_idx = _top_k((live_scores[:, :, None] + logp).reshape(b, k * vocab),
-                                     2 * k)
-        parent = top_idx // vocab
-        token_id = (top_idx % vocab).to(torch.int32)
-        is_eos = token_id == cfg.eos_token
-        cand_tokens = torch.take_along_dim(tokens, parent[:, :, None], dim=1)
-        cand_tokens[:, :, pos + 1] = token_id
+    with spans.span("decode", rows=b * k) as loop:
+        while pos < total - 1:
+            batch_done = (fin_scores > NEG_INF / 2).all(dim=1)
+            if bool(batch_done.all()):
+                break
+            logits = step_fn(tokens[:, :, pos].reshape(b * k), pos, cache, beam_state)
+            if pos + 1 < p_len:     # teacher-forced prompt step: only the cache advances
+                pos += 1
+                continue
+            logp = torch.log_softmax(logits.float(), dim=-1).reshape(b, k, -1)
+            if cfg.min_new_tokens and pos + 1 < cfg.decoder_prompt_len + cfg.min_new_tokens:
+                logp[:, :, cfg.eos_token] = NEG_INF
+            vocab = logp.shape[-1]
+            top_scores, top_idx = _top_k((live_scores[:, :, None] + logp).reshape(b, k * vocab),
+                                         2 * k)
+            parent = top_idx // vocab
+            token_id = (top_idx % vocab).to(torch.int32)
+            is_eos = token_id == cfg.eos_token
+            cand_tokens = torch.take_along_dim(tokens, parent[:, :, None], dim=1)
+            cand_tokens[:, :, pos + 1] = token_id
 
-        # finished set: EOS candidates within the top K, normalised now
-        norm = top_scores / _len_norm(pos + 2 - cfg.decoder_prompt_len, cfg, dev)
-        eos_scores = torch.where(is_eos & rank_ok & ~batch_done[:, None], norm,
-                                 torch.full_like(norm, NEG_INF))
-        fin_scores, fin_sel = _top_k(torch.cat([fin_scores, eos_scores], dim=1), k)
-        fin_tokens = torch.take_along_dim(torch.cat([fin_tokens, cand_tokens], dim=1),
-                                          fin_sel[:, :, None], dim=1)
-        # live set: the best K candidates that are not EOS
-        live_scores, live_sel = _top_k(
-            torch.where(is_eos, torch.full_like(top_scores, NEG_INF), top_scores), k)
-        tokens = torch.take_along_dim(cand_tokens, live_sel[:, :, None], dim=1)
-        cache = _gather_beams(cache, torch.take_along_dim(parent, live_sel, dim=1), b, k)
-        pos += 1
+            # finished set: EOS candidates within the top K, normalised now
+            norm = top_scores / _len_norm(pos + 2 - cfg.decoder_prompt_len, cfg, dev)
+            eos_scores = torch.where(is_eos & rank_ok & ~batch_done[:, None], norm,
+                                     torch.full_like(norm, NEG_INF))
+            fin_scores, fin_sel = _top_k(torch.cat([fin_scores, eos_scores], dim=1), k)
+            fin_tokens = torch.take_along_dim(torch.cat([fin_tokens, cand_tokens], dim=1),
+                                              fin_sel[:, :, None], dim=1)
+            # live set: the best K candidates that are not EOS
+            live_scores, live_sel = _top_k(
+                torch.where(is_eos, torch.full_like(top_scores, NEG_INF), top_scores), k)
+            tokens = torch.take_along_dim(cand_tokens, live_sel[:, :, None], dim=1)
+            cache = _gather_beams(cache, torch.take_along_dim(parent, live_sel, dim=1), b, k)
+            pos += 1
+        loop.attrs["steps"] = pos
 
     # rows not done: their live beams, normalised at the final length,
     # compete with the finished set

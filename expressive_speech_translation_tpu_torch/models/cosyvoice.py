@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..obs import spans
 from ..ops import cuda_vocoder
 from . import qwen2 as q2
 from ..parallel.partition import PartitionRules
@@ -252,13 +253,15 @@ def _prefill_prompt(params: Params, cfg: SpeechLMConfig, text_tokens, text_mask,
     """The prompt through the backbone into a cache with room for
     ``generated`` more slots → (cache, p_len, last_idx [B], the hidden state
     at each row's last valid prompt position [B, 1, H])."""
-    emb, mask = build_prompt_embeddings(params, cfg, text_tokens, text_mask,
-                                        prompt_speech, prompt_speech_mask)
-    b, p_len, _ = emb.shape
-    cache = q2.init_kv_cache(cfg.backbone, b, p_len + generated, emb.dtype, emb.device)
-    hidden = q2.prefill(params["backbone"], cfg.backbone, emb, cache, length_mask=mask)
-    last_idx = mask.to(torch.int64).sum(dim=1) - 1
-    return cache, p_len, last_idx, torch.take_along_dim(hidden, last_idx[:, None, None], dim=1)
+    with spans.span("tts.prefill", rows=text_tokens.shape[0]):
+        emb, mask = build_prompt_embeddings(params, cfg, text_tokens, text_mask,
+                                            prompt_speech, prompt_speech_mask)
+        b, p_len, _ = emb.shape
+        cache = q2.init_kv_cache(cfg.backbone, b, p_len + generated, emb.dtype, emb.device)
+        hidden = q2.prefill(params["backbone"], cfg.backbone, emb, cache, length_mask=mask)
+        last_idx = mask.to(torch.int64).sum(dim=1) - 1
+        h = torch.take_along_dim(hidden, last_idx[:, None, None], dim=1)
+    return cache, p_len, last_idx, h
 
 
 def generate_speech_tokens(params: Params, cfg: SpeechLMConfig, noise: NoiseSource,
@@ -266,24 +269,29 @@ def generate_speech_tokens(params: Params, cfg: SpeechLMConfig, noise: NoiseSour
                            prompt_speech: torch.Tensor, prompt_speech_mask: torch.Tensor, *,
                            max_new_tokens: int = 512, min_new_tokens: int = 2):
     """Autoregressive speech tokens with RAS sampling → (tokens
-    [B, max_new_tokens] int32 padded with EOS, lengths [B])."""
+    [B, max_new_tokens] int32 padded with EOS, lengths [B]). The prompt is a
+    ``tts.prefill`` span, the loop a ``decode`` span (``steps``: tokens
+    sampled; the MTP and speculative loops count backbone passes)."""
     cache, p_len, last_idx, h = _prefill_prompt(params, cfg, text_tokens, text_mask,
                                                 prompt_speech, prompt_speech_mask, max_new_tokens)
     b, dev = h.shape[0], h.device
     tokens = torch.full((b, max_new_tokens), cfg.eos_speech, dtype=torch.int32, device=dev)
     recent = torch.full((b, cfg.win_size), -1, dtype=torch.int32, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    for i in range(max_new_tokens):
-        nxt, recent, done = _sample_next(params, cfg, noise, h, recent, done, i, min_new_tokens)
-        tokens[:, i] = nxt
-        if i == max_new_tokens - 1 or bool(done.all()):
-            break
-        # the cache slot is the shared p_len + i; each row attends to its
-        # valid prompt K/V only and rotates at its true continuation position
-        h = q2.decode_step(params["backbone"], cfg.backbone,
-                           embed_rows(params["speech_embed"], nxt)[:, None, :], p_len + i, cache,
-                           rope_pos=last_idx + 1 + i, prompt_len=last_idx + 1,
-                           prompt_capacity=p_len)
+    i = -1
+    with spans.span("decode", rows=b) as loop:
+        for i in range(max_new_tokens):
+            nxt, recent, done = _sample_next(params, cfg, noise, h, recent, done, i, min_new_tokens)
+            tokens[:, i] = nxt
+            if i == max_new_tokens - 1 or bool(done.all()):
+                break
+            # the cache slot is the shared p_len + i; each row attends to its
+            # valid prompt K/V only and rotates at its true continuation position
+            h = q2.decode_step(params["backbone"], cfg.backbone,
+                               embed_rows(params["speech_embed"], nxt)[:, None, :], p_len + i,
+                               cache, rope_pos=last_idx + 1 + i, prompt_len=last_idx + 1,
+                               prompt_capacity=p_len)
+        loop.attrs["steps"] = i + 1
     lengths = (tokens != cfg.eos_speech).to(torch.int32).sum(dim=1)
     return tokens, lengths
 
@@ -313,30 +321,33 @@ def generate_speech_tokens_mtp(params: Params, cfg: SpeechLMConfig, noise: Noise
     tokens = torch.full((b, n_iters * k_mtp), cfg.eos_speech, dtype=torch.int32, device=dev)
     recent = torch.full((b, cfg.win_size), -1, dtype=torch.int32, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    for i in range(n_iters):
-        local, drawn = recent, []
-        for j, head in enumerate(heads):
-            # the heads' logits in f32, as the JAX package casts them
-            logits = _mask_control_logits(dense(head, h).float(), cfg, i * k_mtp + j,
-                                          min_new_tokens)
-            g1, g2 = noise.mtp_gumbel(i, j, (b, min(cfg.top_k, logits.shape[-1])))
-            nxt = _ras_sample(logits, local, cfg, g1, g2)
-            local = torch.cat([local[:, 1:], nxt[:, None]], dim=1)
-            drawn.append(nxt)
-        new = torch.stack(drawn, dim=1)                                    # [B, K]
-        is_eos = (new == cfg.eos_speech).to(torch.int32)
-        after_eos = (torch.cumsum(is_eos, dim=1) - is_eos) > 0
-        new = torch.where(after_eos | done[:, None], cfg.eos_speech, new)
-        tokens[:, i * k_mtp:(i + 1) * k_mtp] = new
-        done = done | (new == cfg.eos_speech).any(dim=1)
-        # the persistent window holds the tokens emitted, not the local draws
-        recent = torch.cat([recent, new], dim=1)[:, -cfg.win_size:]
-        if i == n_iters - 1 or bool(done.all()):
-            break
-        h = q2.decode_span(params["backbone"], cfg.backbone,
-                           embed_rows(params["speech_embed"], new),
-                           p_len + i * k_mtp, cache, rope_pos=last_idx + 1 + i * k_mtp,
-                           prompt_len=last_idx + 1, prompt_capacity=p_len)[:, -1, :]
+    i = -1
+    with spans.span("decode", rows=b) as loop:
+        for i in range(n_iters):
+            local, drawn = recent, []
+            for j, head in enumerate(heads):
+                # the heads' logits in f32, as the JAX package casts them
+                logits = _mask_control_logits(dense(head, h).float(), cfg, i * k_mtp + j,
+                                              min_new_tokens)
+                g1, g2 = noise.mtp_gumbel(i, j, (b, min(cfg.top_k, logits.shape[-1])))
+                nxt = _ras_sample(logits, local, cfg, g1, g2)
+                local = torch.cat([local[:, 1:], nxt[:, None]], dim=1)
+                drawn.append(nxt)
+            new = torch.stack(drawn, dim=1)                                    # [B, K]
+            is_eos = (new == cfg.eos_speech).to(torch.int32)
+            after_eos = (torch.cumsum(is_eos, dim=1) - is_eos) > 0
+            new = torch.where(after_eos | done[:, None], cfg.eos_speech, new)
+            tokens[:, i * k_mtp:(i + 1) * k_mtp] = new
+            done = done | (new == cfg.eos_speech).any(dim=1)
+            # the persistent window holds the tokens emitted, not the local draws
+            recent = torch.cat([recent, new], dim=1)[:, -cfg.win_size:]
+            if i == n_iters - 1 or bool(done.all()):
+                break
+            h = q2.decode_span(params["backbone"], cfg.backbone,
+                               embed_rows(params["speech_embed"], new),
+                               p_len + i * k_mtp, cache, rope_pos=last_idx + 1 + i * k_mtp,
+                               prompt_len=last_idx + 1, prompt_capacity=p_len)[:, -1, :]
+        loop.attrs["steps"] = i + 1
     tokens = tokens[:, :max_new_tokens]
     lengths = (tokens != cfg.eos_speech).to(torch.int32).sum(dim=1)
     return tokens, lengths
@@ -381,39 +392,41 @@ def generate_speech_tokens_spec(params: Params, cfg: SpeechLMConfig, noise: Nois
                                          min_new_tokens)
     tokens[:, 0] = pending
     n, passes = 1, 0
-    while n < max_new_tokens and not bool(done.all()):
-        local, drafts = recent, []
-        for j in range(1, k_mtp):
-            pos = n - 1 + j
-            logits = _mask_control_logits(dense(params["mtp_heads"][j - 1], h[:, 0, :]), cfg,
-                                          pos, min_new_tokens)
-            g1, g2 = noise.ras_gumbel(pos, (1, min(cfg.top_k, logits.shape[-1])))
-            d = _ras_sample(logits, local, cfg, g1, g2)
-            local = torch.cat([local[:, 1:], d[:, None]], dim=1)
-            drafts.append(d)
-        span = torch.stack([pending] + drafts, dim=1)                      # [1, K]
-        h_span = q2.decode_span(params["backbone"], cfg.backbone,
-                                embed_rows(params["speech_embed"], span), p_len + n - 1, cache,
-                                rope_pos=last_idx + n, prompt_len=last_idx + 1,
-                                prompt_capacity=p_len)
-        verifier = dense(params["head"], h_span)                          # [1, K, V]
-        acc, rec, dn = ~done, recent, done
-        samples, flags = [], []
-        for j in range(1, k_mtp + 1):
-            s, rec, dn = _sample_from_logits(cfg, noise, verifier[:, j - 1, :], rec, dn,
-                                             n - 1 + j, min_new_tokens)
-            samples.append(s)
-            flags.append(acc)
-            if j < k_mtp:
-                acc = acc & (s == drafts[j - 1]) & (s != eos)
-        s_vec, flag_vec = torch.stack(samples, dim=1), torch.stack(flags, dim=1)
-        e = int(flag_vec.sum())                                           # ≥ 1
-        emitted = torch.where(flag_vec, s_vec, eos)
-        tokens[:, n:n + k_mtp] = emitted
-        done = done | (flag_vec & (s_vec == eos)).any(dim=1)
-        recent = torch.cat([recent, emitted], dim=1)[:, e:e + cfg.win_size]
-        pending, h = emitted[:, e - 1], h_span[:, e - 1:e]
-        n, passes = n + e, passes + 1
+    with spans.span("decode", rows=1) as loop:
+        while n < max_new_tokens and not bool(done.all()):
+            local, drafts = recent, []
+            for j in range(1, k_mtp):
+                pos = n - 1 + j
+                logits = _mask_control_logits(dense(params["mtp_heads"][j - 1], h[:, 0, :]), cfg,
+                                              pos, min_new_tokens)
+                g1, g2 = noise.ras_gumbel(pos, (1, min(cfg.top_k, logits.shape[-1])))
+                d = _ras_sample(logits, local, cfg, g1, g2)
+                local = torch.cat([local[:, 1:], d[:, None]], dim=1)
+                drafts.append(d)
+            span = torch.stack([pending] + drafts, dim=1)                      # [1, K]
+            h_span = q2.decode_span(params["backbone"], cfg.backbone,
+                                    embed_rows(params["speech_embed"], span), p_len + n - 1, cache,
+                                    rope_pos=last_idx + n, prompt_len=last_idx + 1,
+                                    prompt_capacity=p_len)
+            verifier = dense(params["head"], h_span)                          # [1, K, V]
+            acc, rec, dn = ~done, recent, done
+            samples, flags = [], []
+            for j in range(1, k_mtp + 1):
+                s, rec, dn = _sample_from_logits(cfg, noise, verifier[:, j - 1, :], rec, dn,
+                                                 n - 1 + j, min_new_tokens)
+                samples.append(s)
+                flags.append(acc)
+                if j < k_mtp:
+                    acc = acc & (s == drafts[j - 1]) & (s != eos)
+            s_vec, flag_vec = torch.stack(samples, dim=1), torch.stack(flags, dim=1)
+            e = int(flag_vec.sum())                                           # ≥ 1
+            emitted = torch.where(flag_vec, s_vec, eos)
+            tokens[:, n:n + k_mtp] = emitted
+            done = done | (flag_vec & (s_vec == eos)).any(dim=1)
+            recent = torch.cat([recent, emitted], dim=1)[:, e:e + cfg.win_size]
+            pending, h = emitted[:, e - 1], h_span[:, e - 1:e]
+            n, passes = n + e, passes + 1
+        loop.attrs["steps"] = passes
     tokens = tokens[:, :max_new_tokens]
     lengths = (tokens != eos).to(torch.int32).sum(dim=1)
     if with_stats:
@@ -901,12 +914,15 @@ def synthesize(params: Params, cfg: CosyVoiceConfig, noise: NoiseSource,
         prompt_speech_mask, max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens)
     token_mask = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < lengths[:, None]
     safe_tokens = torch.where(token_mask, tokens, 0)
-    mel, _ = tokens_to_mel(
-        params["flow"], cfg.flow, noise, safe_tokens, token_mask, spk_embedding, prompt_mel,
-        prompt_mel_mask, prompt_tokens=torch.where(prompt_speech_mask, prompt_speech_tokens, 0),
-        prompt_token_mask=prompt_speech_mask)
+    rows = tokens.shape[0]
+    prompt_tokens = torch.where(prompt_speech_mask, prompt_speech_tokens, 0)
+    with spans.span("tts.flow", rows=rows):
+        mel, _ = tokens_to_mel(
+            params["flow"], cfg.flow, noise, safe_tokens, token_mask, spk_embedding, prompt_mel,
+            prompt_mel_mask, prompt_tokens=prompt_tokens, prompt_token_mask=prompt_speech_mask)
     gen_mel = mel[:, prompt_mel.shape[1]:]
-    audio = vocode(params["vocoder"], cfg.vocoder, gen_mel)
+    with spans.span("tts.vocoder", rows=rows):
+        audio = vocode(params["vocoder"], cfg.vocoder, gen_mel)
     return {"audio": audio, "mel": gen_mel, "speech_tokens": tokens, "token_lengths": lengths}
 
 

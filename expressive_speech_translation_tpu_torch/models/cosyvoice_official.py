@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..obs import spans
 from . import cosyvoice as cv
 from . import flow_matcha as fm
 from . import hift as hm
@@ -88,12 +89,15 @@ def synthesize_official(params: Params, cfg: OfficialTtsConfig, noise: cv.NoiseS
                           prompt_speech_tokens, prompt_speech_mask,
                           max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens)
     token_mask = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < lengths[:, None]
-    mel, frame_mask = fm.flow_inference(
-        params["flow"], cfg.flow, noise.flow_x0, torch.where(token_mask, tokens, 0), token_mask,
-        torch.where(prompt_speech_mask, prompt_speech_tokens, 0), prompt_speech_mask,
-        prompt_mel, spk_embedding)
-    audio = hm.hift_inference(params["hift"], cfg.hift, noise, mel,
-                              deterministic=deterministic_source, frame_mask=frame_mask)
+    rows = tokens.shape[0]
+    with spans.span("tts.flow", rows=rows):
+        mel, frame_mask = fm.flow_inference(
+            params["flow"], cfg.flow, noise.flow_x0, torch.where(token_mask, tokens, 0),
+            token_mask, torch.where(prompt_speech_mask, prompt_speech_tokens, 0),
+            prompt_speech_mask, prompt_mel, spk_embedding)
+    with spans.span("tts.vocoder", rows=rows):
+        audio = hm.hift_inference(params["hift"], cfg.hift, noise, mel,
+                                  deterministic=deterministic_source, frame_mask=frame_mask)
     return {"audio": audio, "mel": mel, "speech_tokens": tokens, "token_lengths": lengths,
             "frame_mask": frame_mask}
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..obs import spans
 from .beam import BeamConfig, beam_search, greedy_search
 from .common import (AttnConfig, Init, Params, cast_floats, embed_rows, hf_pre_ln_block,
                      hf_state_getter,
@@ -159,7 +160,8 @@ def generate(params: Params, cfg: NLLBConfig, src_tokens: torch.Tensor, forced_b
              length_penalty: float = 1.0) -> torch.Tensor:
     """Translation, greedy or by beam search (``num_beams`` > 1): [B, 1 +
     max_new_tokens] int32 token ids (``</s> <lang> ...`` — the forced-BOS
-    language token counts as the first generated token, HF layout)."""
+    language token counts as the first generated token, HF layout). The
+    encoder is an ``nmt.encode`` span; the search's loop a ``decode`` span."""
     b = src_tokens.shape[0]
     dev = src_tokens.device
     if max_new_tokens < 0:
@@ -173,9 +175,10 @@ def generate(params: Params, cfg: NLLBConfig, src_tokens: torch.Tensor, forced_b
             f"max_new_tokens={max_new_tokens} needs position id {max_pos_id} "
             f"but the position table has {params['pos'].shape[0]} rows "
             f"(max_positions={cfg.max_positions})")
-    enc_out = encode(params, cfg, src_tokens)
-    enc_pad_mask = (src_tokens != cfg.pad_token)[:, None, None, :]
-    cross_kv = precompute_layer_cross_kv(params["decoder"]["layers"], cfg.attn, enc_out)
+    with spans.span("nmt.encode", rows=b):
+        enc_out = encode(params, cfg, src_tokens)
+        enc_pad_mask = (src_tokens != cfg.pad_token)[:, None, None, :]
+        cross_kv = precompute_layer_cross_kv(params["decoder"]["layers"], cfg.attn, enc_out)
     prompt = torch.tensor([[cfg.decoder_start_token, int(forced_bos_token)]] * b,
                           dtype=torch.int32, device=dev)
 

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..obs import spans
 from .common import (AttnConfig, Init, Params, cast_floats, dense, embed_rows, gelu,
                      hf_pre_ln_block,
                      hf_state_getter, init_decoder_kv_cache, layer_norm, merge_heads, mha,
@@ -252,6 +253,9 @@ def decode_with_alignment(
     sum_logprob [B] over generated tokens incl. EOS, n_generated [B],
     no_speech_prob [B] — P(<|nospeech|>) from the pre-suppression logits at
     the ``sot_index`` step).
+
+    The encoder is an ``asr.encode`` span, the step loop a ``decode`` span
+    whose ``steps`` counts the decoder passes, the prompt's included.
     """
     b, p_len = prompt.shape
     if p_len + max_new_tokens > cfg.max_target_positions:
@@ -262,8 +266,9 @@ def decode_with_alignment(
         raise ValueError("temperature > 0 sampling needs an explicit noise source "
                          "(a per-request generator)")
     dev = mel.device
-    enc_out = encode(params, cfg, mel)
-    cross_kv = precompute_cross_kv(params, cfg, enc_out)
+    with spans.span("asr.encode", rows=b):
+        enc_out = encode(params, cfg, mel)
+        cross_kv = precompute_cross_kv(params, cfg, enc_out)
     total = p_len + max_new_tokens
     cache = init_kv_cache(cfg, b, enc_out.dtype, dev, total)
     tokens = torch.full((b, total), cfg.eos_token, dtype=torch.int32, device=dev)
@@ -279,34 +284,39 @@ def decode_with_alignment(
     suppress_first = _id_mask(suppress_first_tokens, cfg.vocab_size, dev)
     neg = -1e9
 
-    for pos in range(total):
-        if pos + 1 >= p_len and bool(done.all()):
-            break
-        logits, alignment = decode_step_with_attn(params, cfg, tokens[:, pos], pos, cache, cross_kv)
-        aligns[:, pos] = alignment
-        logits32 = logits.float()
-        if pos == sot_index:
-            nsp = torch.softmax(logits32, dim=-1)[:, nsp_tok]
-        if pos + 1 < p_len or pos + 1 >= total:
-            continue  # prompt step, or the last step (alignment row only)
-        if min_new_tokens and pos + 1 < p_len + min_new_tokens:
-            logits32[:, eos_idx] = neg
-        if suppress is not None:
-            logits32 = torch.where(suppress, neg, logits32)
-        if suppress_first is not None and pos + 1 == p_len:
-            logits32 = torch.where(suppress_first, neg, logits32)
-        if temperature > 0:
-            nxt = torch.argmax(logits32 / max(temperature, 1e-6)
-                               + gumbel(pos, tuple(logits32.shape)), dim=-1)
-        else:
-            nxt = torch.argmax(logits32, dim=-1)
-        step_lp = torch.log_softmax(logits32, dim=-1).gather(1, nxt[:, None])[:, 0]
-        nxt = torch.where(done, cfg.eos_token, nxt.to(torch.int32))
-        counts = ~done
-        slp = slp + torch.where(counts, step_lp, 0.0)
-        ngen = ngen + counts.to(torch.int32)
-        tokens[:, pos + 1] = nxt
-        done = done | (nxt == cfg.eos_token)
+    steps = total
+    with spans.span("decode", rows=b) as loop:
+        for pos in range(total):
+            if pos + 1 >= p_len and bool(done.all()):
+                steps = pos
+                break
+            logits, alignment = decode_step_with_attn(params, cfg, tokens[:, pos], pos, cache,
+                                                      cross_kv)
+            aligns[:, pos] = alignment
+            logits32 = logits.float()
+            if pos == sot_index:
+                nsp = torch.softmax(logits32, dim=-1)[:, nsp_tok]
+            if pos + 1 < p_len or pos + 1 >= total:
+                continue  # prompt step, or the last step (alignment row only)
+            if min_new_tokens and pos + 1 < p_len + min_new_tokens:
+                logits32[:, eos_idx] = neg
+            if suppress is not None:
+                logits32 = torch.where(suppress, neg, logits32)
+            if suppress_first is not None and pos + 1 == p_len:
+                logits32 = torch.where(suppress_first, neg, logits32)
+            if temperature > 0:
+                nxt = torch.argmax(logits32 / max(temperature, 1e-6)
+                                   + gumbel(pos, tuple(logits32.shape)), dim=-1)
+            else:
+                nxt = torch.argmax(logits32, dim=-1)
+            step_lp = torch.log_softmax(logits32, dim=-1).gather(1, nxt[:, None])[:, 0]
+            nxt = torch.where(done, cfg.eos_token, nxt.to(torch.int32))
+            counts = ~done
+            slp = slp + torch.where(counts, step_lp, 0.0)
+            ngen = ngen + counts.to(torch.int32)
+            tokens[:, pos + 1] = nxt
+            done = done | (nxt == cfg.eos_token)
+        loop.attrs["steps"] = steps
     return tokens, aligns, slp, ngen, nsp
 
 

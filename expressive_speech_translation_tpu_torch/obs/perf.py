@@ -1,5 +1,6 @@
-"""Per-stage wall time and real-time factor (copy of the JAX package's
-obs/perf.py ``StageTimer``, without its psutil dependency), the
+"""Per-stage wall time and real-time factor (the JAX package's obs/perf.py
+``StageTimer``, without its psutil dependency, recording each stage as a
+span of ``obs/spans.py``), the
 ``performance_logger`` decorator and ``profiler_trace`` (a torch.profiler
 trace where the JAX package takes a jax.profiler one), and the card's clock
 for kernels: CUDA-event times, CUDA-graph replays, the card line."""
@@ -16,6 +17,8 @@ from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 
+from . import spans
+
 log = logging.getLogger(__name__)
 
 
@@ -28,7 +31,8 @@ def rtf(processing_seconds: float, audio_seconds: float) -> float:
 
 @dataclass
 class StageTimer:
-    """Accumulates per-stage wall time for one request; xRT per stage.
+    """Accumulates per-stage wall time for one request; xRT per stage. Each
+    stage is a ``stage.<name>`` span carrying the current request's id.
 
     Stages time device work only if the work is finished inside the ``with``:
     the engines return host (numpy) results, which waits for the card."""
@@ -39,11 +43,12 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
-        start = time.perf_counter()
+        record = spans.span(f"stage.{name}", request=spans.request_id())
         try:
-            yield
+            with record:
+                yield
         finally:
-            self.stages[name] = self.stages.get(name, 0.0) + time.perf_counter() - start
+            self.stages[name] = self.stages.get(name, 0.0) + record.seconds
 
     def total_seconds(self) -> float:
         return time.perf_counter() - self._t0

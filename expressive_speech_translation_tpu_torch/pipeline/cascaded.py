@@ -15,13 +15,14 @@ from __future__ import annotations
 
 import functools
 import logging
-import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from ..core.config import AppConfig
 from ..core.errors import ValidationError
+from ..obs import spans
+from ..obs.logging_setup import new_request_id
 from ..obs.perf import StageTimer
 from ..ops.host_dsp import loudness_normalize_np, resample_np
 from .audio_processor import AudioProcessor
@@ -46,7 +47,6 @@ class CascadedBackend(TranslationBackend):
         self.temporal_mapper = TemporalMapper()
         self.visual_mapper = VisualTemporalMapper()
         self.initialized = False
-        self.last_stage_summary: Dict[str, Any] = {}
 
     @functools.cached_property
     def audio_processor(self) -> AudioProcessor:
@@ -105,13 +105,15 @@ class CascadedBackend(TranslationBackend):
                          original_video_frames: Optional[list] = None, video_fps: float = 25.0,
                          use_voice_cloning: bool = True, **kwargs: Any) -> Dict[str, Any]:
         """16 kHz speech → {"audio": [1, T] f32 at 16 kHz, "transcripts":
-        {"source", "target"}, "process_id", "stage_summary"}.
-        ``use_voice_cloning=False`` synthesizes without the source-audio
-        reference. With ``original_video_frames`` (at ``video_fps``) the
+        {"source", "target"}, "process_id", "stage_summary"}. ``process_id``
+        is the request's id, carried by its spans (``obs/spans.py``); the
+        ``post`` stage is all of the host's work after the TTS, the resample
+        to 16 kHz included. ``use_voice_cloning=False`` synthesizes without
+        the source-audio reference. With ``original_video_frames`` (at ``video_fps``) the
         translation is placed into the speech segments the frames show;
         without them ``video_fps`` changes nothing, nor does any other
         keyword (the JAX backend's signature)."""
-        process_id = f"{time.time_ns():x}"[-8:]
+        process_id = new_request_id()
         if not self.is_language_supported(target_lang):
             raise ValidationError(f"Unsupported target language: {target_lang}")
         if not self.is_language_supported(source_lang):
@@ -120,42 +122,42 @@ class CascadedBackend(TranslationBackend):
         timer = StageTimer(audio_seconds=len(x) / 16_000.0)
         log.info("[%s] translate_speech %s→%s (%.1fs audio)", process_id, source_lang,
                  target_lang, timer.audio_seconds)
+        with spans.request(process_id), spans.span("request", request=process_id,
+                                                    audio_s=timer.audio_seconds):
+            with timer.stage("asr"):
+                asr = self.engines.asr.transcribe(x, language=source_lang)
+            source_text = asr.get("text", "")
+            words = asr.get("words", [])
 
-        with timer.stage("asr"):
-            asr = self.engines.asr.transcribe(x, language=source_lang)
-        source_text = asr.get("text", "")
-        words = asr.get("words", [])
+            with timer.stage("nmt"):
+                target_text = self.engines.nmt.translate(
+                    source_text, NLLB_LANGUAGES.get(source_lang, source_lang),
+                    NLLB_LANGUAGES.get(target_lang, target_lang))
+            # an empty translation fails only when an engine declares real weights
+            if not target_text.strip() and getattr(self.engines.nmt, "weightless", True) is False:
+                raise RuntimeError("Translation result was empty.")
 
-        with timer.stage("nmt"):
-            target_text = self.engines.nmt.translate(
-                source_text, NLLB_LANGUAGES.get(source_lang, source_lang),
-                NLLB_LANGUAGES.get(target_lang, target_lang))
-        # an empty translation fails only when an engine declares real weights
-        if not target_text.strip() and getattr(self.engines.nmt, "weightless", True) is False:
-            raise RuntimeError("Translation result was empty.")
+            reference = self.reference_audio_for_cloning(x) if use_voice_cloning else None
+            with timer.stage("tts"):
+                tts_audio = self.engines.tts.synthesize(
+                    target_text, style_prompt=source_text, reference_audio_16k=reference,
+                    language=COSYVOICE_LANGUAGES.get(target_lang, "en"))
 
-        reference = self.reference_audio_for_cloning(x) if use_voice_cloning else None
-        with timer.stage("tts"):
-            tts_audio = self.engines.tts.synthesize(
-                target_text, style_prompt=source_text, reference_audio_16k=reference,
-                language=COSYVOICE_LANGUAGES.get(target_lang, "en"))
-        tts_sr = getattr(self.engines.tts, "sample_rate", 24_000)
-        if tts_sr != 16_000:
-            tts_audio = resample_np(np.asarray(tts_audio), tts_sr, 16_000)
+            with timer.stage("post"):
+                tts_sr = getattr(self.engines.tts, "sample_rate", 24_000)
+                if tts_sr != 16_000:
+                    tts_audio = resample_np(np.asarray(tts_audio), tts_sr, 16_000)
+                out = self._apply_natural_temporal_mapping(
+                    tts_audio, x, words, original_video_frames=original_video_frames,
+                    video_fps=video_fps)
+                out = loudness_normalize_np(out, TARGET_LUFS)
 
-        with timer.stage("post"):
-            out = self._apply_natural_temporal_mapping(
-                tts_audio, x, words, original_video_frames=original_video_frames,
-                video_fps=video_fps)
-            out = loudness_normalize_np(out, TARGET_LUFS)
-
-        self.last_stage_summary = timer.summary()
-        log.info("[%s] done: %s", process_id,
-                 {k: round(v["xrt"], 4) for k, v in self.last_stage_summary.items()})
+        summary = timer.summary()
+        log.info("[%s] done: %s", process_id, {k: round(v["xrt"], 4) for k, v in summary.items()})
         return {"audio": out.reshape(1, -1).astype(np.float32),
                 "transcripts": {"source": source_text, "target": target_text},
                 "process_id": process_id,
-                "stage_summary": self.last_stage_summary}
+                "stage_summary": summary}
 
     def translate_text(self, text: str, source_lang: str, target_lang: str, *,
                        synthesize: bool = False) -> Dict[str, Any]:

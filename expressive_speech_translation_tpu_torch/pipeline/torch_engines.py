@@ -59,6 +59,7 @@ from ..models import qwen2 as q2
 from ..models import speech_tokenizer as stm
 from ..models import whisper as wm
 from ..models.common import cast_floats
+from ..obs import spans
 from ..ops.cuda_mel import whisper_log_mel_fused
 from ..ops.mel import kaldi_fbank, whisper_log_mel
 from ..ops.resample import resample
@@ -440,9 +441,10 @@ class TorchWhisperAsr(_Placed):
             for j, i in enumerate(need):
                 seg = np.asarray(requests[i]["audio_16k"], np.float32).reshape(-1)[: 16_000 * 30]
                 det[j, : len(seg)] = seg
-            ids, _ = wm.detect_language(self.params, self.cfg, self._mel_b(det))
-            for j, i in enumerate(need):
-                langs[i] = self._lang_code(int(ids[j]))
+            with spans.span("asr.detect", rows=len(need), padded=len(det)):
+                ids, _ = wm.detect_language(self.params, self.cfg, self._mel_b(det))
+                for j, i in enumerate(need):
+                    langs[i] = self._lang_code(int(ids[j]))
 
         specs = []   # (request index, window offset s, window s)
         rows: List[np.ndarray] = []
@@ -466,25 +468,30 @@ class TorchWhisperAsr(_Placed):
                 audio[j, : len(row)] = row[: 16_000 * window_s]
             prompt = np.tile(np.asarray(prompts[lo], np.int32), (nb, 1))
             prompt[: hi - lo] = np.asarray(prompts[lo:hi], np.int32)
+            real = hi - lo
+
             def decode(grp, lo, hi):
+                with spans.span("asr.mel", rows=real, padded=nb):
+                    mel = self._mel_b(audio[lo:hi], grp.device)
                 out = wm.decode_with_alignment(
-                    grp.params, self.cfg, self._mel_b(audio[lo:hi], grp.device),
-                    torch.from_numpy(prompt[lo:hi]).to(grp.device),
+                    grp.params, self.cfg, mel, torch.from_numpy(prompt[lo:hi]).to(grp.device),
                     max_new_tokens=self.max_new_tokens, suppress_tokens=self._suppress[0],
                     suppress_first_tokens=self._suppress[1], sot_index=0)
-                return [t.cpu().numpy() for t in out]
+                with spans.span("asr.to_host", rows=hi - lo):
+                    return [t.cpu().numpy() for t in out]
 
             tokens, aligns, slp, ngen, nsp = (
                 np.concatenate(parts) for parts in zip(*self._per_group(nb, decode)))
-            for row, (ri, offset, seconds) in enumerate(specs[lo:hi]):
-                text, words = self._gated_chunk(
-                    tokens[row], aligns[row], prompt.shape[1], offset, seconds, window_s,
-                    avg_logprob=float(slp[row]) / max(int(ngen[row]), 1),
-                    no_speech_prob=float(nsp[row]), seg=rows[lo + row],
-                    prompt_row=prompts[lo + row])
-                if text:
-                    results[ri]["text"].append(text)
-                results[ri]["words"].extend(words)
+            with spans.span("asr.gate", rows=real):
+                for row, (ri, offset, seconds) in enumerate(specs[lo:hi]):
+                    text, words = self._gated_chunk(
+                        tokens[row], aligns[row], prompt.shape[1], offset, seconds, window_s,
+                        avg_logprob=float(slp[row]) / max(int(ngen[row]), 1),
+                        no_speech_prob=float(nsp[row]), seg=rows[lo + row],
+                        prompt_row=prompts[lo + row])
+                    if text:
+                        results[ri]["text"].append(text)
+                    results[ri]["words"].extend(words)
         return [{"text": " ".join(res["text"]), "language": langs[i] or "eng",
                  "words": res["words"]}
                 for i, res in enumerate(results)]
@@ -569,9 +576,15 @@ class TorchNllbNmt(_Placed):
                          np.int32)
         for row, src in enumerate(srcs):
             padded[row, : len(src)] = _fit_vocab(src, self.cfg.vocab_size, self.weightless, "NMT")
-        out = np.concatenate(self._per_group(rows, lambda grp, lo, hi: nlm.generate(
-            grp.params, self.cfg, torch.from_numpy(padded[lo:hi]).to(grp.device), forced_bos,
-            num_beams=self.num_beams, max_new_tokens=self.max_new_tokens).cpu().numpy()))
+
+        def generate(grp, lo, hi):
+            out = nlm.generate(grp.params, self.cfg, torch.from_numpy(padded[lo:hi]).to(grp.device),
+                               forced_bos, num_beams=self.num_beams,
+                               max_new_tokens=self.max_new_tokens)
+            with spans.span("nmt.to_host", rows=len(srcs), padded=rows):
+                return out.cpu().numpy()
+
+        out = np.concatenate(self._per_group(rows, generate))
         return [self.tokenizer.decode([int(t) for t in out[row, 2:]
                                        if t not in (self.cfg.eos_token, self.cfg.pad_token)])
                 for row in range(len(srcs))]
@@ -979,7 +992,8 @@ class TorchCosyVoiceTts(_Placed):
 
         def synth(grp, lo, hi):
             dev = grp.device
-            spk, pmel, psp, psm = self._cond_b(refs[lo:hi], has_ref[lo:hi], grp)
+            with spans.span("tts.cond", rows=n, padded=nb):
+                spk, pmel, psp, psm = self._cond_b(refs[lo:hi], has_ref[lo:hi], grp)
             frames = torch.arange(pmel.shape[1], device=dev)[None, :]
             pmm = torch.from_numpy(has_ref[lo:hi] > 0).to(dev)[:, None] | (
                 frames < self._noref_frames)
@@ -987,7 +1001,8 @@ class TorchCosyVoiceTts(_Placed):
             audio, lengths = self._synthesize(
                 rows, torch.from_numpy(toks[lo:hi]).to(dev), torch.from_numpy(tmask[lo:hi]).to(dev),
                 psp, psm, spk, pmel, pmm, max_new, params=grp.params)
-            return audio.float().cpu().numpy(), lengths.cpu().numpy()
+            with spans.span("tts.to_host", rows=hi - lo):
+                return audio.float().cpu().numpy(), lengths.cpu().numpy()
 
         audio, lengths = (np.concatenate(parts) for parts in zip(*self._per_group(nb, synth)))
         spt = self._samples_per_token()

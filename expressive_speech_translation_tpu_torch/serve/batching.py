@@ -8,6 +8,9 @@ bucket of ``core/buckets.py``, so a serving lifetime touches a handful of
 shapes.
 
 Model-agnostic: it batches any ``run_batch: list[item] -> list[result]``.
+Each dispatch is a span (``obs/spans.py``, named by the batcher's ``span``)
+carrying its rows, the ids of the requests whose items it carried and each
+item's submit time, so a reader tells the queue wait from the dispatch.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import threading
 import time
 from concurrent.futures import Future
 from typing import Any, Callable, List, Optional
+
+from ..obs import spans
 
 log = logging.getLogger(__name__)
 
@@ -32,10 +37,12 @@ class MicroBatcher:
     _SHUTDOWN = object()
 
     def __init__(self, run_batch: Callable[[List[Any]], List[Any]], *, max_batch: int = 8,
-                 max_wait_ms: float = 20.0, name: str = "microbatcher"):
+                 max_wait_ms: float = 20.0, name: str = "microbatcher",
+                 span: str = "dispatch"):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self._run_batch = run_batch
+        self._span = span
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1000.0
         self._q: "queue.Queue[Any]" = queue.Queue()
@@ -55,7 +62,7 @@ class MicroBatcher:
             if self._closed:
                 raise RuntimeError("MicroBatcher is shut down")
             fut: Future = Future()
-            self._q.put((item, fut))
+            self._q.put((item, fut, spans.request_id(), time.time_ns()))
         return fut
 
     def __call__(self, item: Any) -> Any:
@@ -96,10 +103,12 @@ class MicroBatcher:
             batch = self._collect()
             if batch is None:
                 return
-            items = [it for it, _ in batch]
-            futures = [f for _, f in batch]
+            items = [b[0] for b in batch]
+            futures = [b[1] for b in batch]
             try:
-                results = self._run_batch(items)
+                with spans.span(self._span, rows=len(items), requests=[b[2] for b in batch],
+                                submitted_ns=[b[3] for b in batch]):
+                    results = self._run_batch(items)
                 if len(results) != len(items):
                     raise RuntimeError(
                         f"run_batch returned {len(results)} results for {len(items)} items")
@@ -127,7 +136,7 @@ class _BatchedEngine:
 
     _BATCH_ATTR = ""
     _STREAM_ATTRS: tuple = ()
-    _NAME = "microbatch"
+    _STAGE = ""     # names the collector thread and the dispatch span
 
     def __init__(self, engine: Any, *, max_batch: int, max_wait_ms: float):
         run = getattr(engine, self._BATCH_ATTR, None)
@@ -135,7 +144,8 @@ class _BatchedEngine:
             raise TypeError(f"engine must expose {self._BATCH_ATTR}(requests)")
         self.engine = engine
         self._mb = MicroBatcher(run, max_batch=max_batch, max_wait_ms=max_wait_ms,
-                                name=self._NAME)
+                                name=f"{self._STAGE}-microbatch",
+                                span=f"dispatch.{self._STAGE}")
 
     def __getattr__(self, name: str):
         if name in self._STREAM_ATTRS:
@@ -162,7 +172,7 @@ class BatchedTts(_BatchedEngine):
 
     _BATCH_ATTR = "synthesize_batch"
     _STREAM_ATTRS = ("synthesize_streaming",)
-    _NAME = "tts-microbatch"
+    _STAGE = "tts"
 
     def __init__(self, engine: Any, *, max_batch: int = 8, max_wait_ms: float = 20.0):
         super().__init__(engine, max_batch=max_batch, max_wait_ms=max_wait_ms)
@@ -180,7 +190,7 @@ class BatchedAsr(_BatchedEngine):
 
     _BATCH_ATTR = "transcribe_batch"
     _STREAM_ATTRS = ("transcribe_streaming",)
-    _NAME = "asr-microbatch"
+    _STAGE = "asr"
 
     def __init__(self, engine: Any, *, max_batch: int = 8, max_wait_ms: float = 20.0):
         super().__init__(engine, max_batch=max_batch, max_wait_ms=max_wait_ms)
@@ -194,7 +204,7 @@ class BatchedNmt(_BatchedEngine):
     ``engine.translate_batch`` dispatches."""
 
     _BATCH_ATTR = "translate_batch"
-    _NAME = "nmt-microbatch"
+    _STAGE = "nmt"
 
     def __init__(self, engine: Any, *, max_batch: int = 16, max_wait_ms: float = 10.0):
         super().__init__(engine, max_batch=max_batch, max_wait_ms=max_wait_ms)
